@@ -1,0 +1,17 @@
+"""PyTorch/CUDA port of ``tensorflowonspark_tpu``.
+
+The JAX package stays the reference; this package reproduces its surface
+slice by slice on PyTorch, with hand-written Hopper kernels where the JAX
+package relied on a TPU kernel or an XLA fusion.  It never imports ``jax``
+or ``tensorflowonspark_tpu``: modules it needs from there are copied.
+
+Device rule: entry points take ``device=``.  With no argument they run on
+``cuda``; ``device="cpu"`` or ``TFOS_TORCH_DEVICE=cpu`` (inherited by
+executor processes) selects the CPU.  A ``cuda`` request on a host without
+a card raises — nothing falls back to the CPU
+(:func:`tensorflowonspark_torch.util.select_device`).
+
+Ported so far: ResNet-50 batch inference through
+``pipeline.TFModel.transform`` with the fused GroupNorm kernel
+(``kernels/group_norm.py``, ``csrc/group_norm.cu``).
+"""
