@@ -8,21 +8,27 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
 1. Print the card's name and power limit; build every kernel from
    ``tensorflowonspark_torch/csrc`` (timed).
 2. Kernel phase: ``group_norm_act`` against its plain PyTorch twin at every
-   (shape, mode) the ResNet-50 forward gives it, at batch 32 in bf16: max
-   abs error against the stated tolerance, then the kernel's, the plain
-   twin's and one PyTorch call's (``F.group_norm`` → add → ReLU, a
-   yardstick the port never calls) times with CUDA events, beside the
-   least time the card could take (``bound_ms``).
+   (shape, mode) the ResNet-50 forward gives it, in bf16, at batch 32 and
+   at batch 256 (where the device is the limit), on the one-pass cluster
+   path; then one oversize case (a 224² sample of 64 channels) on the
+   two-pass path.  Each case: the path it took, max abs error against the
+   stated tolerance, the same bits from two runs, then the kernel's, the
+   plain twin's (batch 32) and one PyTorch call's (``F.group_norm`` → add →
+   ReLU, a yardstick the port never calls) times with CUDA events, beside
+   the least time the card could take (``bound_ms``); and the wrapper's
+   host time per call.
 3. Model phase: full ``Config()`` ResNet-50 at 224², bf16, seeded weights.
    Kernel path against the plain path and against an f32 forward (TF32
-   off), exactly 53 kernel launches per forward, images/s at batch 256.
+   off), exactly 53 one-pass and no two-pass launches per forward,
+   images/s at batch 256 and its device time by kernel family.
 4. Slice phase, the port's main path: export the weights, then
    ``TFModel.transform`` on a local-substrate DataFrame (127 rows, 3 ragged
    partitions, ``local[1]``) on the card, checking the scores against an
    in-process forward, the executor's kernel launches and the shape
    signatures it saw.  rows/s.
 
-The last lines are the card line, one JSON line listing each kernel, and
+The last lines are the card line, one JSON line listing each kernel path
+(the one-pass and two-pass kernels of ``group_norm_act``), and
 ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and prints no
 result.
 """
@@ -45,6 +51,7 @@ KERNEL_BATCH = 32
 MODEL_BATCH = 256
 SLICE_ROWS = 127
 SLICE_BATCH = 32
+OVERSIZE_SHAPE = (2, 64, 224, 224)  # 6.4 MB a sample: beyond 8 blocks
 
 # stated tolerances
 KERNEL_TOL_ULPS = 2  # |kernel - plain| <= 2 bf16 ulps of max(1, max|plain|)
@@ -107,90 +114,161 @@ def record_sites(model, image_size: int) -> list[tuple]:
     return sites
 
 
-def kernel_phase(sites: list[tuple]) -> dict:
+def draw_case(shape, res: bool, seed: int, copies: int):
+    """Seeded bf16 ``channels_last`` inputs: ``copies`` x (and residual)
+    tensors, and f32 gamma/beta."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[1]
+
+    def draw():
+        return (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5
+                ).to(torch.bfloat16).contiguous(
+                    memory_format=torch.channels_last)
+
+    gamma = 1 + 0.5 * torch.randn(c, generator=gen, device="cuda")
+    beta = 0.5 * torch.randn(c, generator=gen, device="cuda")
+    xs = [draw() for _ in range(copies)]
+    rs = [draw() if res else None for _ in range(copies)]
+    return xs, rs, gamma, beta
+
+
+def measure_case(shape, groups: int, res: bool, relu: bool, seed: int,
+                 path: str, kernel_calls: int, plain_calls: int,
+                 library_calls: int) -> dict:
+    """One (shape, mode) of ``group_norm_act``: checks it took ``path``,
+    agrees with its plain twin within ``KERNEL_TOL_ULPS`` and gives the same
+    bits twice, then times kernel, plain twin (if ``plain_calls``) and
+    library call with CUDA events beside the bound."""
     import torch
     import torch.nn.functional as F
 
     from tensorflowonspark_torch.kernels import group_norm
 
+    n, c, h, w = shape
+    act_bytes = n * c * h * w * 2
+    call_bytes = act_bytes * (3 if res else 2) + 2 * c * 4
+    # rotate over copies so the working set is 4x L2: each launch
+    # reads its inputs from device memory, as after a large conv
+    copies = min(64, max(2, math.ceil(4 * L2_BYTES / call_bytes)))
+    xs, rs, gamma, beta = draw_case(shape, res, seed, copies)
+    ref = group_norm.group_norm_act_plain(xs[0], gamma, beta, groups, 1e-6,
+                                          rs[0], relu)
+    before = dict(group_norm.launches_by_path)
+    out = group_norm.group_norm_act(xs[0], gamma, beta, groups, 1e-6, rs[0],
+                                    relu)
+    again = group_norm.group_norm_act(xs[0], gamma, beta, groups, 1e-6,
+                                      rs[0], relu)
+    torch.cuda.synchronize()
+    took = {k: v - before[k] for k, v in group_norm.launches_by_path.items()}
+    err = float((out.float() - ref.float()).abs().max())
+    tol = KERNEL_TOL_ULPS * 2.0 ** -7 * max(1.0, float(ref.abs().max()))
+    identical = bool(torch.equal(out, again))
+    ok = (err <= tol and identical and took[path] == 2
+          and sum(took.values()) == 2
+          and out.is_contiguous(memory_format=torch.channels_last))
+    del ref, again
+
+    turn = [0]
+
+    def cycle(fn):
+        def call():
+            k = turn[0] = (turn[0] + 1) % copies
+            return fn(xs[k], rs[k])
+        return call
+
+    kernel_ms = time_ms(cycle(lambda x, r: group_norm.group_norm_act(
+        x, gamma, beta, groups, 1e-6, r, relu)), kernel_calls)
+    plain_ms = time_ms(cycle(lambda x, r: group_norm.group_norm_act_plain(
+        x, gamma, beta, groups, 1e-6, r, relu)), plain_calls) if plain_calls \
+        else None
+    g16, b16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+
+    def library(x, r):
+        y = F.group_norm(x, groups, g16, b16, 1e-6)
+        if r is not None:
+            y = y + r
+        return torch.relu(y) if relu else y
+
+    library_ms = time_ms(cycle(library), library_calls)
+    ops = n * c * h * w * (6 + int(res) + int(relu))
+    bytes_ms = call_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    mode = "GN" + ("+add" if res else "") + ("+ReLU" if relu else "")
+    case = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    plain = "-" if plain_ms is None else f"{plain_ms:.4f}"
+    print(f"kernel group_norm_act {n}x{h}x{w}x{c} G={groups} {mode:11s} "
+          f"{path} took={took} max_abs_err={err:.3e} (tol {tol:.3e}) "
+          f"same_bits_twice={identical} kernel_ms={kernel_ms:.4f} "
+          f"plain_ms={plain} library_ms={library_ms:.4f} "
+          f"bound_ms={case['bound_ms']:.4f} "
+          f"kernel/bound={kernel_ms / case['bound_ms']:.2f} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"group_norm_act at {shape} {mode}: path {took} "
+                         f"(want 2 on {path}), error {err} (tol {tol}), "
+                         f"same bits twice {identical}")
+    return case
+
+
+def wrapper_host_us(shape, groups: int, calls: int = 400) -> float:
+    """Host time per ``group_norm_act`` call (checks, plan, allocation,
+    launch), from the host clock around ``calls`` calls at a small shape,
+    without waiting for the device."""
+    import torch
+
+    from tensorflowonspark_torch.kernels import group_norm
+
+    xs, _, gamma, beta = draw_case(shape, False, 0, 1)
+    for _ in range(10):
+        group_norm.group_norm_act(xs[0], gamma, beta, groups, 1e-6)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        group_norm.group_norm_act(xs[0], gamma, beta, groups, 1e-6)
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def kernel_phase(sites: list[tuple]) -> dict:
+    """Every (shape, mode) of the forward at batches KERNEL_BATCH and
+    MODEL_BATCH (one-pass path), then the oversize two-pass case."""
     counts = collections.Counter(sites)
-    totals = collections.Counter()
-    max_err = 0.0
-    bound_by = collections.Counter()
+    totals = {b: collections.Counter() for b in (KERNEL_BATCH, MODEL_BATCH)}
+    cases = []
     for i, ((c, h, w, groups, res, relu), per_fwd) in enumerate(
             counts.items()):
-        gen = torch.Generator(device="cuda").manual_seed(i)
-        shape = (KERNEL_BATCH, c, h, w)
-
-        def draw():
-            return (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5
-                    ).to(torch.bfloat16).contiguous(
-                        memory_format=torch.channels_last)
-
-        gamma = 1 + 0.5 * torch.randn(c, generator=gen, device="cuda")
-        beta = 0.5 * torch.randn(c, generator=gen, device="cuda")
-        act_bytes = KERNEL_BATCH * c * h * w * 2
-        call_bytes = act_bytes * (3 if res else 2) + 2 * c * 4
-        # rotate over copies so the working set is 4x L2: each launch
-        # reads its inputs from device memory, as after a large conv
-        copies = min(64, max(2, math.ceil(4 * L2_BYTES / call_bytes)))
-        xs = [draw() for _ in range(copies)]
-        rs = [draw() if res else None for _ in range(copies)]
-        ref = group_norm.group_norm_act_plain(xs[0], gamma, beta, groups,
-                                              1e-6, rs[0], relu)
-        out = group_norm.group_norm_act(xs[0], gamma, beta, groups, 1e-6,
-                                        rs[0], relu)
-        torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
-        tol = KERNEL_TOL_ULPS * 2.0 ** -7 * max(1.0, float(ref.abs().max()))
-        ok = err <= tol and out.is_contiguous(memory_format=torch.channels_last)
-        max_err = max(max_err, err)
-
-        turn = [0]
-
-        def cycle(fn):
-            def call():
-                k = turn[0] = (turn[0] + 1) % copies
-                return fn(xs[k], rs[k])
-            return call
-
-        kernel_ms = time_ms(cycle(lambda x, r: group_norm.group_norm_act(
-            x, gamma, beta, groups, 1e-6, r, relu)), 50)
-        plain_ms = time_ms(cycle(lambda x, r: group_norm.group_norm_act_plain(
-            x, gamma, beta, groups, 1e-6, r, relu)), 20)
-        g16, b16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
-
-        def library(x, r):
-            y = F.group_norm(x, groups, g16, b16, 1e-6)
-            if r is not None:
-                y = y + r
-            return torch.relu(y) if relu else y
-
-        library_ms = time_ms(cycle(library), 20)
-        ops = KERNEL_BATCH * c * h * w * (6 + int(res) + int(relu))
-        bytes_ms = call_bytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / F32_OPS_PER_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        bound_by[("bytes" if bytes_ms >= ops_ms else "operations")] += 1
-        mode = "GN" + ("+add" if res else "") + ("+ReLU" if relu else "")
-        print(f"kernel group_norm_act {KERNEL_BATCH}x{h}x{w}x{c} G={groups} "
-              f"{mode:11s} x{per_fwd:2d}/fwd max_abs_err={err:.3e} "
-              f"(tol {tol:.3e}) kernel_ms={kernel_ms:.4f} "
-              f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-              f"bound_ms={bound_ms:.4f} {'ok' if ok else 'FAIL'}",
+        for batch, calls in ((KERNEL_BATCH, (50, 20, 20)),
+                             (MODEL_BATCH, (20, 0, 5))):
+            case = measure_case((batch, c, h, w), groups, res, relu, i,
+                                "one_pass", *calls)
+            case["per_fwd"] = per_fwd
+            cases.append(case)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                if case[key] is not None:
+                    totals[batch][key] += per_fwd * case[key]
+    for batch, tot in totals.items():
+        print(f"kernel group_norm_act one_pass per ResNet-50 forward at batch "
+              f"{batch} ({len(sites)} calls, {len(counts)} shapes): "
+              + " ".join(f"{k}={v:.4f}" for k, v in tot.items())
+              + f" kernel/bound={tot['ms'] / tot['bound_ms']:.2f}",
               flush=True)
-        if not ok:
-            raise SystemExit(f"group_norm_act disagrees with its plain twin "
-                             f"at {shape} {mode}: {err} > {tol}")
-        for key, v in (("ms", kernel_ms), ("plain_ms", plain_ms),
-                       ("library_ms", library_ms), ("bound_ms", bound_ms)):
-            totals[key] += per_fwd * v
-        del xs, rs
-    print(f"kernel group_norm_act per ResNet-50 forward at batch "
-          f"{KERNEL_BATCH} ({len(sites)} calls, {len(counts)} shapes): "
-          + " ".join(f"{k}={v:.4f}" for k, v in totals.items()), flush=True)
-    return {"max_abs_err": max_err, **{k: totals[k] for k in totals},
-            "bound_by": bound_by.most_common(1)[0][0]}
+    host_us = wrapper_host_us((KERNEL_BATCH, 512, 7, 7), 32)
+    print(f"kernel group_norm_act wrapper host time per call "
+          f"({KERNEL_BATCH}x7x7x512): {host_us:.1f} us", flush=True)
+    oversize = measure_case(OVERSIZE_SHAPE, 32, True, True, 99, "two_pass",
+                            20, 5, 5)
+    bound_by = collections.Counter(c["bound_by"] for c in cases)
+    return {"one_pass": {
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        **totals[KERNEL_BATCH], "bound_by": bound_by.most_common(1)[0][0],
+        **{f"{k}_b{MODEL_BATCH}": v for k, v in totals[MODEL_BATCH].items()},
+        "wrapper_host_us": host_us},
+        "two_pass": oversize}
 
 
 def model_phase(model, f32_model) -> dict:
@@ -202,10 +280,10 @@ def model_phase(model, f32_model) -> dict:
     images = torch.from_numpy(np.random.RandomState(0).rand(
         8, 224, 224, 3).astype(np.float32)).cuda()
     with torch.inference_mode():
-        group_norm.launches = 0
+        group_norm.reset_launches()
         kernel_logits = model(images)
         torch.cuda.synchronize()
-        per_forward = group_norm.launches
+        per_forward = dict(group_norm.launches_by_path)
         model.norm_act = group_norm.group_norm_act_plain
         try:
             plain_logits = model(images)
@@ -225,7 +303,8 @@ def model_phase(model, f32_model) -> dict:
           f"launches/forward={per_forward}", flush=True)
     if (kernel_logits.shape != (8, 1000) or kernel_logits.dtype != torch.float32
             or not finite or vs_plain > LOGITS_KERNEL_VS_PLAIN
-            or vs_f32 > LOGITS_BF16_VS_F32 or per_forward != 53):
+            or vs_f32 > LOGITS_BF16_VS_F32
+            or per_forward != {"one_pass": 53, "two_pass": 0}):
         raise SystemExit("model phase failed")
 
     batch = torch.rand(MODEL_BATCH, 224, 224, 3, device="cuda")
@@ -240,7 +319,7 @@ def model_phase(model, f32_model) -> dict:
 
 def profile_forward(model, batch, fwd_ms: float, forwards: int = 3) -> None:
     """Device time per forward by kernel family (torch.profiler, CUPTI):
-    the fused norm's three kernels, convolutions, everything else, and the
+    the fused norm's kernels, convolutions, everything else, and the
     device's idle share against the event-timed forward."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -255,7 +334,8 @@ def profile_forward(model, batch, fwd_ms: float, forwards: int = 3) -> None:
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue  # host-side op; its kernels are events of their own
         name = e.name.lower()
-        fam = next((k for k in ("gn_stats", "gn_finalize", "gn_apply")
+        fam = next((k for k in ("gn_one_pass", "gn_stats", "gn_finalize",
+                                "gn_apply")
                     if k in name), None)
         if fam is None:
             fam = "conv" if any(k in name for k in (
@@ -284,7 +364,7 @@ def profile_forward(model, batch, fwd_ms: float, forwards: int = 3) -> None:
 def _reset_launches(_):
     from tensorflowonspark_torch.kernels import group_norm
 
-    group_norm.launches = 0
+    group_norm.reset_launches()
     return [0]
 
 
@@ -292,7 +372,7 @@ def _executor_state(_):
     from tensorflowonspark_torch import serving
     from tensorflowonspark_torch.kernels import group_norm
 
-    return [(group_norm.launches,
+    return [(dict(group_norm.launches_by_path),
              {k: sorted(v) for k, v in serving._SEEN_SHAPES.items()})]
 
 
@@ -320,11 +400,11 @@ def slice_phase(model) -> dict:
                    .setBucketSizes([SLICE_BATCH])
                    .setInputMapping({"image": "image"}))
         sc.parallelize([0], 1).mapPartitions(_reset_launches).collect()
-        group_norm.launches = 0
+        group_norm.reset_launches()
         t0 = time.perf_counter()
         out = tfmodel.transform(df).collect()
         seconds = time.perf_counter() - t0
-        driver_launches = group_norm.launches
+        driver_launches = dict(group_norm.launches_by_path)
         [(exec_launches, seen)] = sc.parallelize([0], 1).mapPartitions(
             _executor_state).collect()
         # again, with the model loaded and the kernel built on both sides
@@ -364,10 +444,12 @@ def slice_phase(model) -> dict:
           f"{[len(v) for v in seen.values()]} signature(s)", flush=True)
     if (len(out) != SLICE_ROWS or warm_rows != SLICE_ROWS
             or scores.shape != (SLICE_ROWS, 1000)
-            or err > SLICE_VS_IN_PROCESS or exec_launches <= 0
+            or err > SLICE_VS_IN_PROCESS or exec_launches["one_pass"] <= 0
+            or exec_launches["two_pass"] or driver_launches["two_pass"]
             or got != want or len(seen) != 1):
         raise SystemExit("slice phase failed")
-    return {"launches": exec_launches + driver_launches,
+    return {"launches": {k: exec_launches[k] + driver_launches[k]
+                         for k in exec_launches},
             "rows_per_s": rows_per_s}
 
 
@@ -411,13 +493,11 @@ def main() -> int:
 
     print(card)  # as nvidia-smi gives it: name, power limit
     print(json.dumps({"kernels": [{
-        "name": "group_norm_act", "route": "cuda",
+        "name": f"group_norm_act ({path})", "route": "cuda",
         "source": "tensorflowonspark_torch/csrc/group_norm.cu",
         "replaces": "tensorflowonspark_tpu/models/resnet.py:59",
-        "launches": main_path["launches"],
-        "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
-        "bound_by": kern["bound_by"], "library_ms": kern["library_ms"]}]}))
+        "launches": main_path["launches"][path], **kern[path]}
+        for path in ("one_pass", "two_pass")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,15 +15,8 @@ EPS = 1e-6
 MODES = [(False, True), (True, True), (False, False)]  # (residual, relu)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4, 64, 56, 56), (4, 2048, 7, 7),
-                                   (3, 24, 5, 6)], ids=["stem", "last", "odd"])
-def test_kernel_matches_plain_twin_on_card(shape):
-    """All three modes at the stem's and the last stage's widths, and at
-    3 channels per group with C/8 not a power of two."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    gen = torch.Generator(device="cuda").manual_seed(0)
+def _inputs(shape, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     c = shape[1]
 
     def draw():
@@ -33,12 +26,66 @@ def test_kernel_matches_plain_twin_on_card(shape):
     x, res = draw(), draw()
     gamma = 1 + 0.5 * torch.randn(c, generator=gen, device="cuda")
     beta = 0.5 * torch.randn(c, generator=gen, device="cuda")
+    return x, res, gamma, beta
+
+
+def _check_modes(shape, groups, path):
+    """All three modes against the plain twin within 2 bf16 ulps, each
+    launched on ``path``."""
+    x, res, gamma, beta = _inputs(shape)
+    n, c, h, w = shape
+    assert group_norm._plan(n, h, w, c, groups).path == path
     before = group_norm.launches
+    by_path = dict(group_norm.launches_by_path)
     for residual, relu in MODES:
         r = res if residual else None
-        got = group_norm.group_norm_act(x, gamma, beta, 8, EPS, r, relu)
-        ref = group_norm.group_norm_act_plain(x, gamma, beta, 8, EPS, r, relu)
+        got = group_norm.group_norm_act(x, gamma, beta, groups, EPS, r, relu)
+        ref = group_norm.group_norm_act_plain(x, gamma, beta, groups, EPS, r,
+                                              relu)
         torch.cuda.synchronize()
         tol = 2 * 2.0 ** -7 * torch.clamp(ref.float().abs(), min=1.0)
         assert torch.all((got.float() - ref.float()).abs() <= tol)
     assert group_norm.launches == before + len(MODES)
+    assert group_norm.launches_by_path[path] == by_path[path] + len(MODES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 64, 56, 56), (4, 2048, 7, 7),
+                                   (3, 24, 5, 6)], ids=["stem", "last", "odd"])
+def test_kernel_matches_plain_twin_on_card(shape):
+    """All three modes at the stem's and the last stage's widths, and at
+    3 channels per group with C/8 not a power of two: one-pass clusters of
+    2, 2 and 1 blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _check_modes(shape, 8, "one_pass")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups,path", [
+    ((2, 64, 112, 112), 32, "one_pass"),  # cluster of 8, the stem
+    ((2, 256, 56, 56), 32, "one_pass"),  # cluster of 8, stage 1 output
+    ((2, 24, 181, 181), 8, "one_pass"),  # ragged ranks, 3 per group
+    ((2, 64, 224, 224), 32, "two_pass"),  # 6.4 MB a sample
+    ((2, 24, 250, 250), 8, "two_pass"),  # 3 per group
+], ids=["stem_cluster8", "stage1_cluster8", "ragged_cluster8", "oversize",
+        "oversize_odd"])
+def test_both_paths_match_plain_twin_on_card(shape, groups, path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _check_modes(shape, groups, path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 64, 112, 112), (8, 2048, 7, 7),
+                                   (2, 64, 224, 224)],
+                         ids=["cluster8", "cluster2", "two_pass"])
+def test_kernel_gives_the_same_bits_twice(shape):
+    """No float atomics on either path: the same input, the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    x, res, gamma, beta = _inputs(shape, seed=1)
+    first = group_norm.group_norm_act(x, gamma, beta, 32, EPS, res, True)
+    second = group_norm.group_norm_act(x, gamma, beta, 32, EPS, res, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
