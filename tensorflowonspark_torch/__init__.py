@@ -12,6 +12,9 @@ a card raises — nothing falls back to the CPU
 (:func:`tensorflowonspark_torch.util.select_device`).
 
 Ported so far: ResNet-50 batch inference through
-``pipeline.TFModel.transform`` with the fused GroupNorm kernel
-(``kernels/group_norm.py``, ``csrc/group_norm.cu``).
+``pipeline.TFModel.transform``, and ResNet-50 data-parallel training
+through ``TFCluster.run`` → ``TFNode.DataFeed`` → ``trainer.Trainer.step``
+(``InputMode.SPARK``), both with the fused GroupNorm kernel and its
+backward (``kernels/group_norm.py``, ``csrc/group_norm.cu``,
+``csrc/group_norm_bwd.cu``).
 """

@@ -30,7 +30,9 @@
 // memory once.  No float atomics: the same bits on every run.  A block
 // arrives on a second cluster barrier once it has read its peers' partials
 // and waits on it only before it exits, so its shared memory outlives
-// every peer's reads.
+// every peer's reads.  With a non-null stats pointer (a training forward),
+// rank 0 also writes the sample's (mean, rstd) per group, which the
+// backward (csrc/group_norm_bwd.cu) reads instead of recomputing them.
 //
 // Two passes, for a sample larger than a cluster's shared memory: three
 // launches on the caller's stream.
@@ -329,8 +331,8 @@ __global__ void __launch_bounds__(kMaxThreads)
                 const uint4* __restrict__ residual,
                 const float* __restrict__ gamma,
                 const float* __restrict__ beta, uint4* __restrict__ y,
-                int hw, int cvecs, int groups, int cpg, int rows_per_block,
-                float eps) {
+                float* __restrict__ stats, int hw, int cvecs, int groups,
+                int cpg, int rows_per_block, float eps) {
   extern __shared__ __align__(16) unsigned char one_pass_smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -428,6 +430,11 @@ __global__ void __launch_bounds__(kMaxThreads)
     const float var = fmaxf(b / count - mean * mean, 0.f);
     gstat[2 * g] = mean;
     gstat[2 * g + 1] = rsqrtf(var + eps);
+    if (stats != nullptr && rank == 0) {  // kept for the backward
+      stats[(static_cast<long long>(blockIdx.y) * groups + g) * 2] = mean;
+      stats[(static_cast<long long>(blockIdx.y) * groups + g) * 2 + 1] =
+          gstat[2 * g + 1];
+    }
   }
   cluster_arrive();  // done reading the peers' shared memory
   __syncthreads();
@@ -471,14 +478,15 @@ __global__ void __launch_bounds__(kMaxThreads)
 template <bool kResidual, bool kRelu>
 cudaError_t launch_one_pass(const cudaLaunchConfig_t& cfg, const void* x,
                             const void* residual, const void* gamma,
-                            const void* beta, void* y, int hw, int cvecs,
-                            int groups, int cpg, int rows_per_block,
-                            float eps) {
+                            const void* beta, void* y, void* stats, int hw,
+                            int cvecs, int groups, int cpg,
+                            int rows_per_block, float eps) {
   return cudaLaunchKernelEx(
       &cfg, gn_one_pass<kResidual, kRelu>, static_cast<const uint4*>(x),
       static_cast<const uint4*>(residual), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<uint4*>(y), hw, cvecs,
-      groups, cpg, rows_per_block, eps);
+      static_cast<const float*>(beta), static_cast<uint4*>(y),
+      static_cast<float*>(stats), hw, cvecs, groups, cpg, rows_per_block,
+      eps);
 }
 
 cudaLaunchConfig_t one_pass_config(cudaLaunchAttribute* attr, int cluster,
@@ -582,11 +590,13 @@ extern "C" int tfos_group_norm_one_pass_prepare(int cluster, int threads,
 // of `cluster` blocks per sample, `smem` bytes of dynamic shared memory per
 // block, which must equal one_pass_smem for these sizes (the wrapper's
 // plan) and fit kMaxSmem; the wrapper has run the prepare call above on
-// this device.  No scratch.  Returns the CUDA error of the launch.
+// this device.  No scratch.  stats, (n, groups, 2) f32, receives each
+// sample's (mean, rstd) per group for the backward; null at inference.
+// Returns the CUDA error of the launch.
 extern "C" int tfos_group_norm_one_pass_bf16(
     const void* x, const void* residual, const void* gamma, const void* beta,
-    void* y, long long n, long long hw, int c, int groups, int cluster,
-    int smem, float eps, int relu, void* stream) {
+    void* y, void* stats, long long n, long long hw, int c, int groups,
+    int cluster, int smem, float eps, int relu, void* stream) {
   const int cvecs = c / kVec;
   const int threads = (kMaxThreads / cvecs) * cvecs;
   const long long rows_per_block = (hw + cluster - 1) / cluster;
@@ -604,17 +614,18 @@ extern "C" int tfos_group_norm_one_pass_bf16(
   cudaError_t err;
   if (residual != nullptr) {
     err = relu ? launch_one_pass<true, true>(cfg, x, residual, gamma, beta, y,
-                                             h, cvecs, groups, cpg, rpb, eps)
+                                             stats, h, cvecs, groups, cpg,
+                                             rpb, eps)
                : launch_one_pass<true, false>(cfg, x, residual, gamma, beta,
-                                              y, h, cvecs, groups, cpg, rpb,
-                                              eps);
+                                              y, stats, h, cvecs, groups, cpg,
+                                              rpb, eps);
   } else {
     err = relu ? launch_one_pass<false, true>(cfg, x, residual, gamma, beta,
-                                              y, h, cvecs, groups, cpg, rpb,
-                                              eps)
+                                              y, stats, h, cvecs, groups, cpg,
+                                              rpb, eps)
                : launch_one_pass<false, false>(cfg, x, residual, gamma, beta,
-                                               y, h, cvecs, groups, cpg, rpb,
-                                               eps);
+                                               y, stats, h, cvecs, groups,
+                                               cpg, rpb, eps);
   }
   if (err == cudaSuccess) err = cudaGetLastError();
   return static_cast<int>(err);

@@ -11,11 +11,12 @@ The reference's choices carry over unchanged:
   ``relu(residual + norm2(conv2(y)))``;
 - GroupNorm by default (``num_groups=min(groups, ch)``, epsilon 1e-6, f32
   statistics), BatchNorm with ``norm="batch"`` (eval only here: running
-  statistics, epsilon 1e-5).
+  statistics, epsilon 1e-5; :func:`make_loss_fn` trains GroupNorm only).
 
 Each GroupNorm goes through :attr:`ResNet.norm_act` — the fused kernel of
 :mod:`tensorflowonspark_torch.kernels.group_norm` — with the ReLU and, at a
-block's end, the residual add folded in: 53 calls per ResNet-50 forward.
+block's end, the residual add folded in: 53 calls per ResNet-50 forward,
+and in training 53 launches of its backward kernel per step.
 
 XLA's ``SAME`` padding is asymmetric where the stride is 2 (the 7×7/2 stem
 on 224 pads ``(2, 3)``, the 3×3/2 convs and the max-pool ``(0, 1)``), so
@@ -193,6 +194,18 @@ def make_model(config: Config, seed: int = 0) -> ResNet:
                                       generator=gen)
         nn.init.zeros_(model.head.bias)
     return model
+
+
+def make_loss_fn(model: ResNet, config: Config):
+    """``loss(model, batch) -> scalar`` (softmax cross-entropy, f32).
+    GroupNorm only: BatchNorm training (batch statistics and their running
+    update) is not ported yet."""
+    from tensorflowonspark_torch.models import _common
+
+    if config.norm == "batch":
+        raise NotImplementedError(
+            "BatchNorm training is not ported yet: use norm='group'")
+    return _common.make_classification_loss_fn(model)
 
 
 def make_forward_fn(model: ResNet, config: Config):

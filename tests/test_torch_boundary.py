@@ -46,7 +46,13 @@ def test_importing_every_port_module_loads_nothing_of_jax():
     assert doc["banned"] == []
     for name in ("pipeline", "serving", "shapes", "ckpt", "compat",
                  "readers", "sql_compat", "util", "models.resnet",
-                 "kernels.group_norm", "kernels._build", "sparkapi.context"):
+                 "kernels.group_norm", "kernels._build", "sparkapi.context",
+                 "TFCluster", "TFSparkNode", "TFNode", "TFManager",
+                 "reservation", "shm", "marker", "metrics", "fs",
+                 "chip_info", "gpu_info", "health", "trainer",
+                 "parallel.train", "parallel.distributed", "obs.trace",
+                 "obs.registry", "obs.flight", "obs.journal", "obs.ledger",
+                 "obs.fleet", "obs.httpd", "obs.anomaly", "obs.chrome"):
         assert f"tensorflowonspark_torch.{name}" in doc["modules"]
 
 

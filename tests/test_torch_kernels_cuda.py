@@ -89,3 +89,94 @@ def test_kernel_gives_the_same_bits_twice(shape):
     second = group_norm.group_norm_act(x, gamma, beta, 32, EPS, res, True)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+BWD_MODES = [(False, True), (True, True), (False, False), (True, False)]
+
+
+def _check_backward(shape, groups, seed=0):
+    """Every mode: the backward kernel's dx and d_residual within 2 bf16
+    ulps of max(1, max|plain|) of the plain twin, dγ and dβ within rel L2
+    1e-3, each backward one kernel launch."""
+    x, res, gamma, beta = _inputs(shape, seed)
+    dy = _inputs(shape, seed + 1)[0]
+    for residual, relu in BWD_MODES:
+        r = res if residual else None
+        y, stats = group_norm._launch(x, gamma, beta, groups, EPS, r, relu,
+                                      keep_stats=True)
+        before = group_norm.launches_by_path["backward"]
+        got = group_norm._launch_backward(dy, x, y, gamma, stats, groups,
+                                          residual, relu)
+        want = group_norm.group_norm_act_backward_plain(
+            dy, x, y, gamma, stats, groups, residual, relu)
+        torch.cuda.synchronize()
+        assert group_norm.launches_by_path["backward"] == before + 1
+        for g, w in zip(got[:2], want[:2]):
+            assert (g is None) == (w is None)
+            if w is None:
+                continue
+            assert g.is_contiguous(memory_format=torch.channels_last)
+            tol = 2 * 2.0 ** -7 * max(1.0, float(w.float().abs().max()))
+            assert float((g.float() - w.float()).abs().max()) <= tol
+        for g, w in zip(got[2:], want[2:]):
+            assert float(torch.linalg.norm(g - w) / torch.linalg.norm(w)) \
+                <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups", [
+    ((4, 64, 56, 56), 32), ((4, 2048, 7, 7), 32), ((3, 24, 5, 6), 8),
+    ((2, 256, 56, 56), 32)], ids=["stem", "last", "odd", "stage1"])
+def test_backward_kernel_matches_plain_twin_on_card(shape, groups):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _check_backward(shape, groups)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_gives_the_same_bits_twice():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    x, res, gamma, beta = _inputs((8, 256, 28, 28), seed=2)
+    dy = _inputs((8, 256, 28, 28), seed=3)[0]
+    y, stats = group_norm._launch(x, gamma, beta, 32, EPS, res, True,
+                                  keep_stats=True)
+    first = group_norm._launch_backward(dy, x, y, gamma, stats, 32, True,
+                                        True)
+    second = group_norm._launch_backward(dy, x, y, gamma, stats, 32, True,
+                                         True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_forward_with_grad_reaches_upstream_conv_weight():
+    """A CUDA call whose inputs require a gradient has a ``grad_fn``, and
+    the gradient reaches the weight of the conv before it (through the
+    backward kernel), for x, the residual, γ and β."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    image = torch.randn(2, 16, 12, 12, generator=gen, device="cuda").to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    weight = torch.randn(32, 16, 3, 3, generator=gen, device="cuda",
+                         requires_grad=True)
+    res = torch.randn(2, 32, 12, 12, generator=gen, device="cuda").to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    res.requires_grad_()
+    gamma = torch.ones(32, device="cuda", requires_grad=True)
+    beta = torch.zeros(32, device="cuda", requires_grad=True)
+    x = torch.nn.functional.conv2d(
+        image, weight.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last), padding=1)
+    before = dict(group_norm.launches_by_path)
+    y = group_norm.group_norm_act(x, gamma, beta, 8, EPS, res, True)
+    assert y.grad_fn is not None
+    y.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert group_norm.launches_by_path["one_pass"] == before["one_pass"] + 1
+    assert group_norm.launches_by_path["backward"] == before["backward"] + 1
+    for t in (weight, res, gamma, beta):
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+        assert float(t.grad.float().abs().sum()) > 0
