@@ -29,13 +29,17 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    signatures it saw.  rows/s.
 5. Backward-kernel phase: the backward of ``group_norm_act`` against its
    plain twin (``group_norm_act_backward_plain``) at every (shape, mode)
-   of the forward, at batches 32, 64 and 256: the training forward's
-   output and (mean, rstd) against the plain twin's; dx and d_residual
-   within 2 bf16 ulps, dγ and dβ within a relative L2, the same bits
-   twice, one backward launch a call; the kernel's, the plain twin's
-   (batches 32 and 64) and one PyTorch call's times (autograd of bf16
-   ``F.group_norm`` → add → ReLU, a yardstick the port never calls)
-   beside ``bound_ms``.
+   of the forward, at batches 32, 64 and 256, on the one-pass cluster
+   path (its cluster and whether x stays in shared memory printed per
+   case); then the oversize case on the four-launch path.  Each case: the
+   training forward's output and (mean, rstd) against the plain twin's;
+   dx and d_residual within 2 bf16 ulps, dγ and dβ within a relative L2,
+   the same bits twice, one wrapper call counted on its planned path a
+   call; the kernel's, the plain twin's (batches 32 and 64) and one
+   PyTorch call's times (autograd of bf16 ``F.group_norm`` → add → ReLU,
+   a yardstick the port never calls) beside ``bound_ms``; the four-launch
+   kernels forced at the same shape, checked the same way and timed in
+   turns with the one pass; and the backward wrapper's host time per call.
 6. Training-model phase: full ``Config()`` ResNet-50 at 224².  One step's
    gradients on the kernel path against the plain path (both bf16) and an
    f32 plain model (TF32 off); the backward alone (kernel forward under
@@ -52,10 +56,10 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    executor's forward and backward launches, and the cluster's images/s.
 
 The last lines are the card line, one JSON line listing each kernel (the
-one-pass and two-pass forwards of ``group_norm_act`` and its backward;
-times at the training slice's batch, and under ``_b32``/``_b256`` at the
-others), and ``{"ok": true, "device": {...}}``.  Without a card it exits 1 and
-prints no result.
+one-pass and two-pass forwards of ``group_norm_act`` and its one-pass and
+four-launch backwards; times at the training slice's batch, and under
+``_b32``/``_b256`` at the others), and ``{"ok": true, "device": {...}}``.
+Without a card it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -124,6 +128,13 @@ FWD_BATCH_CALLS = ((KERNEL_BATCH, (50, 20, 20)),
 BWD_BATCH_CALLS = ((KERNEL_BATCH, (30, 10, 10)),
                    (SLICE_TRAIN_BATCH, (20, 5, 5)),
                    (MODEL_BATCH, (10, 0, 3)))
+
+
+def launch_counts(**counts) -> dict:
+    """A full ``launches_by_path`` dictionary: ``counts``, 0 elsewhere."""
+    from tensorflowonspark_torch.kernels import group_norm
+
+    return {**dict.fromkeys(group_norm.launches_by_path, 0), **counts}
 
 
 def card_line() -> str:
@@ -280,24 +291,30 @@ def measure_case(shape, groups: int, res: bool, relu: bool, seed: int,
     return case
 
 
-def wrapper_host_us(shape, groups: int, calls: int = 400) -> float:
-    """Host time per ``group_norm_act`` call (checks, plan, allocation,
-    launch), from the host clock around ``calls`` calls at a small shape,
-    without waiting for the device."""
+def host_us(call, calls: int = 400) -> float:
+    """Host time per ``call()`` (a wrapper's checks, plan, allocation and
+    launch), from the host clock around ``calls`` calls, without waiting
+    for the device."""
     import torch
 
-    from tensorflowonspark_torch.kernels import group_norm
-
-    xs, _, gamma, beta = draw_case(shape, False, 0, 1)
     for _ in range(10):
-        group_norm.group_norm_act(xs[0], gamma, beta, groups, 1e-6)
+        call()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(calls):
-        group_norm.group_norm_act(xs[0], gamma, beta, groups, 1e-6)
+        call()
     host = (time.perf_counter() - t0) / calls * 1e6
     torch.cuda.synchronize()
     return host
+
+
+def wrapper_host_us(shape, groups: int) -> float:
+    """Host µs per ``group_norm_act`` call at a small shape."""
+    from tensorflowonspark_torch.kernels import group_norm
+
+    xs, _, gamma, beta = draw_case(shape, False, 0, 1)
+    return host_us(lambda: group_norm.group_norm_act(xs[0], gamma, beta,
+                                                     groups, 1e-6))
 
 
 def _by_batch(totals: dict) -> dict:
@@ -377,8 +394,7 @@ def model_phase(model, f32_model) -> dict:
     if (kernel_logits.shape != (8, 1000) or kernel_logits.dtype != torch.float32
             or not finite or vs_plain > LOGITS_KERNEL_VS_PLAIN
             or vs_f32 > LOGITS_BF16_VS_F32
-            or per_forward != {"one_pass": 53, "two_pass": 0,
-                               "backward": 0}):
+            or per_forward != launch_counts(one_pass=53)):
         raise SystemExit("model phase failed")
 
     batch = torch.rand(MODEL_BATCH, 224, 224, 3, device="cuda")
@@ -528,15 +544,18 @@ def slice_phase(model) -> dict:
 
 
 def measure_backward_case(shape, groups: int, res: bool, relu: bool,
-                          seed: int, kernel_calls: int, plain_calls: int,
-                          library_calls: int) -> dict:
+                          seed: int, path: str, kernel_calls: int,
+                          plain_calls: int, library_calls: int) -> dict:
     """The backward of one (shape, mode) of ``group_norm_act``: the
     training forward's output and ``(mean, rstd)`` against the plain twin's
-    (within ``KERNEL_TOL_ULPS`` and ``STATS_TOL``); one backward launch a
-    call, dx and d_residual within ``KERNEL_TOL_ULPS`` of the plain twin,
-    dγ and dβ within ``BWD_PARAM_REL_L2``, the same bits twice; then the
-    kernel's, the plain twin's (if ``plain_calls``) and the library
-    backward's times beside the bound."""
+    (within ``KERNEL_TOL_ULPS`` and ``STATS_TOL``); the plan takes
+    ``path`` and each wrapper call counts once on it, dx and d_residual
+    within ``KERNEL_TOL_ULPS`` of the plain twin, dγ and dβ within
+    ``BWD_PARAM_REL_L2``, the same bits twice; then the kernel's, the plain
+    twin's (if ``plain_calls``) and the library backward's times beside the
+    bound.  On the one-pass path the four launches, forced at the same
+    shape, pass the same checks against the plain twin and are timed in
+    turns with it (one pass, four, four, one pass)."""
     import torch
     import torch.nn.functional as F
 
@@ -562,6 +581,7 @@ def measure_backward_case(shape, groups: int, res: bool, relu: bool,
     del y_ref, stats_ref
     ref = group_norm.group_norm_act_backward_plain(
         dys[0], xs[0], ys[0], gamma, stats[0], groups, res, relu)
+    plan = group_norm._plan_backward(n, h, w, c, groups)
     before = dict(group_norm.launches_by_path)
     out = group_norm._launch_backward(dys[0], xs[0], ys[0], gamma, stats[0],
                                       groups, res, relu)
@@ -569,21 +589,34 @@ def measure_backward_case(shape, groups: int, res: bool, relu: bool,
                                         stats[0], groups, res, relu)
     torch.cuda.synchronize()
     took = {k: v - before[k] for k, v in group_norm.launches_by_path.items()}
-    errs, tols = [], []
-    for got, want in zip(out[:2], ref[:2]):
-        if want is not None:
-            errs.append(float((got.float() - want.float()).abs().max()))
-            tols.append(KERNEL_TOL_ULPS * 2.0 ** -7
-                        * max(1.0, float(want.float().abs().max())))
-    param_rel = max(float(torch.linalg.norm(g - w_) / torch.linalg.norm(w_))
-                    for g, w_ in zip(out[2:], ref[2:]))
+    errs, tols, param_rels = [], [], []
+
+    def check(got):
+        for g, want in zip(got[:2], ref[:2]):
+            if want is not None:
+                errs.append(float((g.float() - want.float()).abs().max()))
+                tols.append(KERNEL_TOL_ULPS * 2.0 ** -7
+                            * max(1.0, float(want.float().abs().max())))
+        param_rels.extend(
+            float(torch.linalg.norm(g - w_) / torch.linalg.norm(w_))
+            for g, w_ in zip(got[2:], ref[2:]))
+
+    check(out)
+    kernel_err = max(errs)
     identical = all(torch.equal(a, b) for a, b in zip(out, again)
                     if a is not None)
+    four = None
+    if path == "one_pass":  # the four launches' twin at the same shape
+        four = group_norm._four_launch_plan(n, h, w, c)
+        check(group_norm._launch_backward(dys[0], xs[0], ys[0], gamma,
+                                          stats[0], groups, res, relu, four))
+    param_rel = max(param_rels)
     ok = (all(e <= t for e, t in zip(errs, tols))
           and y_err <= y_tol and stats_err <= STATS_TOL
           and param_rel <= BWD_PARAM_REL_L2 and identical
           and (out[1] is not None) == res
-          and took == {"one_pass": 0, "two_pass": 0, "backward": 2}
+          and plan.path == path
+          and took == launch_counts(**{"backward_" + path: 2})
           and out[0].is_contiguous(memory_format=torch.channels_last))
     del ref, out, again
 
@@ -595,9 +628,16 @@ def measure_backward_case(shape, groups: int, res: bool, relu: bool,
             return fn(k)
         return call
 
-    kernel_ms = time_ms(cycle(lambda k: group_norm._launch_backward(
-        dys[k], xs[k], ys[k], gamma, stats[k], groups, res, relu)),
-        kernel_calls)
+    def timed(plan_):
+        return time_ms(cycle(lambda k: group_norm._launch_backward(
+            dys[k], xs[k], ys[k], gamma, stats[k], groups, res, relu,
+            plan_)), kernel_calls)
+
+    kernel_ms = timed(None)
+    four_ms = None
+    if four is not None:
+        four_ms = (timed(four) + timed(four)) / 2
+        kernel_ms = (kernel_ms + timed(None)) / 2
     plain_ms = time_ms(cycle(lambda k: group_norm.group_norm_act_backward_plain(
         dys[k], xs[k], ys[k], gamma, stats[k], groups, res, relu)),
         plain_calls) if plain_calls else None
@@ -624,17 +664,21 @@ def measure_backward_case(shape, groups: int, res: bool, relu: bool,
     ops_ms = n * c * h * w * (14 + 2 * int(res) + int(relu)) \
         / F32_OPS_PER_S * 1e3
     mode = "GN" + ("+add" if res else "") + ("+ReLU" if relu else "")
-    case = {"max_abs_err": max(errs), "ms": kernel_ms, "plain_ms": plain_ms,
+    case = {"max_abs_err": kernel_err, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    if four_ms is not None:
+        case["four_launch_ms"] = four_ms
     plain = "-" if plain_ms is None else f"{plain_ms:.4f}"
+    four_s = "" if four_ms is None else f"four_launch_ms={four_ms:.4f} "
     print(f"backward group_norm_act {n}x{h}x{w}x{c} G={groups} {mode:11s} "
-          f"forward y_err={y_err:.3e} (tol {y_tol:.3e}) stats_err="
-          f"{stats_err:.2e} (tol {STATS_TOL}) "
-          f"took={took} max_abs_err={max(errs):.3e} (tol {min(tols):.3e}) "
+          f"path={plan.path} cluster={plan.cluster} "
+          f"x_resident={plan.x_resident} forward y_err={y_err:.3e} "
+          f"(tol {y_tol:.3e}) stats_err={stats_err:.2e} (tol {STATS_TOL}) "
+          f"took={took} max_abs_err={kernel_err:.3e} (tol {min(tols):.3e}) "
           f"dgamma/dbeta rel_l2={param_rel:.2e} (tol {BWD_PARAM_REL_L2}) "
           f"same_bits_twice={identical} kernel_ms={kernel_ms:.4f} "
-          f"plain_ms={plain} library_ms={library_ms:.4f} "
+          f"plain_ms={plain} library_ms={library_ms:.4f} {four_s}"
           f"bound_ms={case['bound_ms']:.4f} "
           f"kernel/bound={kernel_ms / case['bound_ms']:.2f} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -647,9 +691,22 @@ def measure_backward_case(shape, groups: int, res: bool, relu: bool,
     return case
 
 
+def backward_wrapper_host_us(shape, groups: int) -> float:
+    """Host µs per backward wrapper call at a small shape, GN+add+ReLU."""
+    from tensorflowonspark_torch.kernels import group_norm
+
+    xs, rs, gamma, beta = draw_case(shape, True, 0, 1)
+    dy = draw_case(shape, False, 1, 1)[0][0]
+    y, stats = group_norm._launch(xs[0], gamma, beta, groups, 1e-6, rs[0],
+                                  True, keep_stats=True)
+    return host_us(lambda: group_norm._launch_backward(
+        dy, xs[0], y, gamma, stats, groups, True, True))
+
+
 def backward_phase(sites: list[tuple]) -> dict:
     """The backward at every (shape, mode) of the forward, at the batches
-    of the kernel phase; totals per training step."""
+    of the kernel phase (one-pass path); totals per training step; the
+    wrapper's host time; then the oversize four-launch case."""
     counts = collections.Counter(sites)
     totals = {b: collections.Counter() for b, _ in BWD_BATCH_CALLS}
     errs = []
@@ -657,19 +714,27 @@ def backward_phase(sites: list[tuple]) -> dict:
             counts.items()):
         for batch, calls in BWD_BATCH_CALLS:
             case = measure_backward_case((batch, c, h, w), groups, res, relu,
-                                         i, *calls)
+                                         i, "one_pass", *calls)
             errs.append(case["max_abs_err"])
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                if case[key] is not None:
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                        "four_launch_ms"):
+                if case.get(key) is not None:
                     totals[batch][key] += per_step * case[key]
     for batch, tot in totals.items():
-        print(f"backward group_norm_act per ResNet-50 training step at batch "
-              f"{batch} ({len(sites)} calls, {len(counts)} shapes): "
+        print(f"backward group_norm_act one_pass per ResNet-50 training step "
+              f"at batch {batch} ({len(sites)} calls, {len(counts)} shapes): "
               + " ".join(f"{k}={v:.4f}" for k, v in tot.items())
               + f" kernel/bound={tot['ms'] / tot['bound_ms']:.2f}",
               flush=True)
-    return {"max_abs_err": max(errs), **_by_batch(totals),
-            "bound_by": "bytes"}
+    host_us = backward_wrapper_host_us((KERNEL_BATCH, 512, 7, 7), 32)
+    print(f"backward group_norm_act wrapper host time per call "
+          f"({KERNEL_BATCH}x7x7x512): {host_us:.1f} us", flush=True)
+    oversize = measure_backward_case(OVERSIZE_SHAPE, 32, True, True, 99,
+                                     "four_launch", 20, 5, 5)
+    return {"backward_one_pass": {
+        "max_abs_err": max(errs), **_by_batch(totals), "bound_by": "bytes",
+        "wrapper_host_us": host_us},
+        "backward_four_launch": oversize}
 
 
 def _grads(model, loss_fn, batch, norm_act, backward=None):
@@ -811,11 +876,10 @@ def train_model_phase() -> dict:
     if (not complete or not finite or len(nonzero) != len(names)
             or vs_f32 > GRADS_BF16_VS_F32
             or max(vs_plain, vs_f32) > loose_tol
-            or launches != {"one_pass": 53, "two_pass": 0, "backward": 53}
+            or launches != launch_counts(one_pass=53, backward_one_pass=53)
             or sum(plain_launches.values())
             or same_forward > GRADS_SAME_FORWARD
-            or same_launches != {"one_pass": 53, "two_pass": 0,
-                                 "backward": 0}
+            or same_launches != launch_counts(one_pass=53)
             or min(a for a, _ in faults.values()) <= GRADS_SAME_FORWARD):
         raise SystemExit("training-model phase failed (gradients)")
 
@@ -1001,8 +1065,8 @@ def train_slice_phase() -> dict:
             or not all(math.isfinite(v) for v in losses)
             or rel > SLICE_TRAIN_VS_IN_PROCESS or not str(device).startswith(
                 "cuda")
-            or launches != {"one_pass": 53 * steps, "two_pass": 0,
-                            "backward": 53 * steps}
+            or launches != launch_counts(one_pass=53 * steps,
+                                         backward_one_pass=53 * steps)
             or not ips):
         raise SystemExit("training slice phase failed")
     return {"launches": launches, "images_per_s": ips,
@@ -1048,22 +1112,25 @@ def main() -> int:
     serving = slice_phase(model)
     del model
     torch.cuda.empty_cache()
-    kern["backward"] = backward_phase(sites)
+    kern.update(backward_phase(sites))
     train_model_phase()
     main_path = train_slice_phase()
 
     print(card)  # as nvidia-smi gives it: name, power limit
     names = {"one_pass": "group_norm_act (one_pass)",
              "two_pass": "group_norm_act (two_pass)",
-             "backward": "group_norm_act backward"}
+             "backward_one_pass": "group_norm_act backward (one_pass)",
+             "backward_four_launch": "group_norm_act backward (four_launch)"}
     print(json.dumps({"kernels": [{
         "name": names[path], "route": "cuda",
         "source": "tensorflowonspark_torch/csrc/group_norm"
-                  + ("_bwd.cu" if path == "backward" else ".cu"),
-        "replaces": "tensorflowonspark_tpu/models/resnet.py:59",
+                  + ("_bwd.cu" if path.startswith("backward") else ".cu"),
+        "replaces": ("tensorflowonspark_tpu/parallel/train.py:416"
+                     if path.startswith("backward")
+                     else "tensorflowonspark_tpu/models/resnet.py:59"),
         "launches": main_path["launches"][path],
         "launches_serving": serving["launches"].get(path, 0), **kern[path]}
-        for path in ("one_pass", "two_pass", "backward")]}))
+        for path in names]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -29,10 +29,18 @@ When an input requires a gradient, the call goes through an
 ``autograd.Function``: the forward also keeps the per-(sample, group)
 ``(mean, rstd)`` in f32 (the one-pass kernel writes them through its stats
 output, which is null at inference), and the backward launches the
-hand-written kernel of ``csrc/group_norm_bwd.cu`` (counted under
-``launches_by_path["backward"]``) on the card, or computes
+hand-written kernel of ``csrc/group_norm_bwd.cu`` on the card, or computes
 :func:`group_norm_act_backward_plain` on the CPU.  With no gradient wanted
 the forward is the inference launch, unchanged and saving nothing.
+
+:func:`_plan_backward` picks the backward's path by shape alone:
+``one_pass`` (one launch; a cluster of up to 8 blocks per sample holds dz,
+and x where both fit, so x, y and dy are read once, x twice where it does
+not fit) wherever dz of a sample fits, which is every norm backward of
+ResNet-50 at 224²; ``four_launch`` (reduce, finalize, apply, params: x, y
+and dy read twice) for larger samples.  Launches count under
+``launches_by_path["backward_one_pass"]`` and
+``["backward_four_launch"]``.
 """
 
 from __future__ import annotations
@@ -50,9 +58,10 @@ import torch
 #: backward kernel.  Plain int; :func:`reset_launches` zeroes it and
 #: :data:`launches_by_path`.
 launches = 0
-#: The same launches: forwards by the path :func:`_plan` chose, and
-#: backwards.
-launches_by_path = {"one_pass": 0, "two_pass": 0, "backward": 0}
+#: The same launches, by the path :func:`_plan` (forwards) or
+#: :func:`_plan_backward` (backwards) chose: one count per wrapper call.
+launches_by_path = {"one_pass": 0, "two_pass": 0, "backward_one_pass": 0,
+                    "backward_four_launch": 0}
 
 _VEC = 8  # bf16 channels per 16-byte vector in the kernel
 _MAX_THREADS = 256  # a block's threads; C/8 must not exceed it
@@ -60,9 +69,14 @@ _TARGET_BLOCKS = 1024  # stats-pass blocks to aim for: ~8 per SM on 132 SMs
 _SMEM_MAX = 232448  # dynamic shared memory an H100 block may use
 _CLUSTER_MAX = 8  # the portable thread-block cluster size
 _CHUNKS = 4  # bulk copies (one mbarrier each) per one-pass block
+_TICKETS = _CLUSTER_MAX  # the one-pass backward's int tickets: a rank each
+_SCRATCH_KEYS = 64  # backward scratch tensors kept at once
 _LIB = None
 _BWD_LIB = None
-_PREPARED: set = set()  # (device index, cluster, smem) the card accepted
+# (kernel, device index, cluster, smem) the card accepted
+_PREPARED: set = set()
+# (device index, stream, n, c, groups, path): the backward's scratch
+_BWD_SCRATCH: dict = {}
 
 
 class Plan(NamedTuple):
@@ -74,6 +88,22 @@ class Plan(NamedTuple):
     threads: int
     cluster: int = 0
     smem: int = 0
+    chunks: int = 0
+    rows_per_chunk: int = 0
+
+
+class BwdPlan(NamedTuple):
+    """How one backward runs: ``path`` ``one_pass`` (``launches`` 1) uses
+    ``cluster`` blocks per sample with ``smem`` bytes of shared memory
+    each, holding x there too when ``x_resident``; ``four_launch``
+    (``launches`` 4) sums each sample in ``chunks`` blocks of
+    ``rows_per_chunk`` pixels."""
+    path: str
+    threads: int
+    launches: int
+    cluster: int = 0
+    smem: int = 0
+    x_resident: bool = False
     chunks: int = 0
     rows_per_chunk: int = 0
 
@@ -289,6 +319,51 @@ def _plan(n: int, h: int, w: int, c: int, groups: int) -> Plan:
                 rows_per_chunk=rows_per_chunk)
 
 
+def _one_pass_bwd_smem(hw: int, c: int, groups: int, cluster: int,
+                       threads: int, x_resident: bool) -> int:
+    """Shared memory of one one-pass backward block, as
+    ``bwd_one_pass_smem`` in ``csrc/group_norm_bwd.cu`` lays it out: the
+    block's rows of dz (and of x when ``x_resident``), 2 × ``_CHUNKS``
+    mbarriers, per-thread sums, this block's and the sample's per-channel
+    (Σdz, Σdz·x̂), the group coefficients and the ticket's verdict."""
+    rows = -(-hw // cluster)
+    return (rows * c * 2 * (2 if x_resident else 1) + 2 * 8 * _CHUNKS
+            + threads * _VEC * 4 + c * 4 * 4 + groups * 2 * 4 + 16)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_backward(n: int, h: int, w: int, c: int, groups: int) -> BwdPlan:
+    """The backward's path for an (N, C, H, W) bf16 input, by shape alone:
+    one pass with the least power-of-two cluster (≤ 8 blocks) whose blocks
+    hold their share of x and dz, else of dz alone (x then read twice from
+    device memory), else four launches."""
+    cvecs = c // _VEC
+    threads = (_MAX_THREADS // cvecs) * cvecs
+    hw = h * w
+    for x_resident in (True, False):
+        cluster = 1
+        while cluster <= _CLUSTER_MAX:
+            smem = _one_pass_bwd_smem(hw, c, groups, cluster, threads,
+                                      x_resident)
+            if smem <= _SMEM_MAX:
+                return BwdPlan("one_pass", threads, 1, cluster=cluster,
+                               smem=smem, x_resident=x_resident)
+            cluster *= 2
+    return _four_launch_plan(n, h, w, c)
+
+
+def _four_launch_plan(n: int, h: int, w: int, c: int) -> BwdPlan:
+    """The four-launch backward of an (N, C, H, W) input: its plan where
+    one pass does not fit and, passed to :func:`_launch_backward`, the
+    twin that the card tests and ``chip_smoke.py`` hold the one pass
+    against at the same shape."""
+    cvecs = c // _VEC
+    threads = (_MAX_THREADS // cvecs) * cvecs
+    chunks, rows_per_chunk = _chunking(n, h * w, cvecs, threads)
+    return BwdPlan("four_launch", threads, 4, chunks=chunks,
+                   rows_per_chunk=rows_per_chunk)
+
+
 def _check_capacity(plan: Plan, err: int, max_clusters: int) -> None:
     """Raise unless the card can run a cluster of ``plan``'s size at once."""
     if err != 0 or max_clusters < 1:
@@ -320,10 +395,11 @@ def _lib():
     return _LIB
 
 
-def _prepare(plan: Plan, device: int, prepare) -> None:
-    """Once per device and cluster shape: raise the one-pass kernels'
-    shared-memory limit and check that such a cluster fits the card."""
-    key = (device, plan.cluster, plan.smem)
+def _prepare(plan, device: int, prepare) -> None:
+    """Once per kernel, device and cluster shape: raise the one-pass
+    kernels' shared-memory limit and check that such a cluster fits the
+    card."""
+    key = (type(plan).__name__, device, plan.cluster, plan.smem)
     if key in _PREPARED:
         return
     fit = ctypes.c_int(0)
@@ -337,12 +413,40 @@ def _bwd_lib():
     if _BWD_LIB is None:
         from tensorflowonspark_torch.kernels import _build
 
-        fn = _build.load("group_norm_bwd").tfos_group_norm_bwd_bf16
+        lib = _build.load("group_norm_bwd")
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [p] * 12 + [i64, i64, i32, i32, i32, i64, i32, p]
-        fn.restype = i32
-        _BWD_LIB = fn
+        one = lib.tfos_group_norm_bwd_one_pass_bf16
+        one.argtypes = [p] * 10 + [i64, i64, i32, i32, i32, i32, i32, i32, p]
+        four = lib.tfos_group_norm_bwd_bf16
+        four.argtypes = [p] * 12 + [i64, i64, i32, i32, i32, i64, i32, p]
+        prepare = lib.tfos_group_norm_bwd_one_pass_prepare
+        prepare.argtypes = [i32, i32, i32, ctypes.POINTER(ctypes.c_int)]
+        for fn in (one, four, prepare):
+            fn.restype = i32
+        _BWD_LIB = (one, four, prepare)
     return _BWD_LIB
+
+
+def _bwd_scratch(device: torch.device, stream: int, n: int, c: int,
+                 groups: int, plan: BwdPlan) -> torch.Tensor:
+    """The backward's f32 scratch, allocated once per (device, stream, n,
+    c, groups, path) and zeroed then: for ``one_pass`` the (N, C, 2)
+    per-sample channel sums and ``_TICKETS`` int tickets (which each launch
+    leaves at 0); for ``four_launch`` the partials (N, chunks, C, 2), the
+    channel sums (N, C, 2) and the coefficients (N, G, 2).  Calls on one
+    stream run in order, so they may share it."""
+    if plan.path == "one_pass":
+        numel = n * c * 2 + _TICKETS
+    else:
+        numel = n * plan.chunks * c * 2 + n * c * 2 + n * groups * 2
+    key = (device, stream, n, c, groups, plan.path)
+    buf = _BWD_SCRATCH.get(key)
+    if buf is None or buf.numel() < numel:
+        if len(_BWD_SCRATCH) >= _SCRATCH_KEYS:
+            _BWD_SCRATCH.clear()  # freed in stream order: no launch races
+        buf = _BWD_SCRATCH[key] = torch.zeros(numel, dtype=torch.float32,
+                                              device=device)
+    return buf
 
 
 def _launch(x, gamma, beta, groups, eps, residual, relu, keep_stats=False):
@@ -387,8 +491,12 @@ def _launch(x, gamma, beta, groups, eps, residual, relu, keep_stats=False):
     return (y, stats) if keep_stats else y
 
 
-def _launch_backward(dy, x, y, gamma, stats, groups, residual, relu):
-    """The backward on the card: ``(dx, d_residual or None, dγ, dβ)``."""
+def _launch_backward(dy, x, y, gamma, stats, groups, residual, relu,
+                     plan: BwdPlan | None = None):
+    """The backward on the card: ``(dx, d_residual or None, dγ, dβ)``, on
+    the path of ``plan``: by default :func:`_plan_backward`'s; the card
+    tests and ``chip_smoke.py`` pass :func:`_four_launch_plan` to hold the
+    four launches against the one pass at the same shape."""
     global launches
     n, c, h, w = x.shape
     if not dy.is_contiguous(memory_format=torch.channels_last):
@@ -403,33 +511,36 @@ def _launch_backward(dy, x, y, gamma, stats, groups, residual, relu):
     dx = torch.empty_like(x, memory_format=torch.channels_last)
     dres = (torch.empty_like(x, memory_format=torch.channels_last)
             if residual else None)
-    dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
-    dbeta = torch.empty(c, dtype=torch.float32, device=x.device)
+    dparams = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    dgamma, dbeta = dparams[0], dparams[1]
     if x.numel() == 0:
-        return dx, dres, dgamma.zero_(), dbeta.zero_()
-    cvecs = c // _VEC
-    threads = (_MAX_THREADS // cvecs) * cvecs
-    chunks, rows_per_chunk = _chunking(n, h * w, cvecs, threads)
-    # f32 scratch in one allocation: partials (n, chunks, c, 2), chan
-    # (n, c, 2), coef (n, groups, 2)
-    sizes = (n * chunks * c * 2, n * c * 2, n * groups * 2)
-    partials, chan, coef = torch.empty(
-        sum(sizes), dtype=torch.float32, device=x.device).split(sizes)
-    fn = _bwd_lib()
+        dparams.zero_()
+        return dx, dres, dgamma, dbeta
+    plan = plan or _plan_backward(n, h, w, c, groups)
+    one, four, prepare = _bwd_lib()
     device = x.device.index
+    ptrs = (dy.data_ptr(), x.data_ptr(), y.data_ptr() if relu else None,
+            gamma.data_ptr(), stats.data_ptr(), dx.data_ptr(),
+            dres.data_ptr() if residual else None)
     with (contextlib.nullcontext() if device == torch.cuda.current_device()
           else torch.cuda.device(device)):
-        err = fn(dy.data_ptr(), x.data_ptr(),
-                 y.data_ptr() if relu else None, gamma.data_ptr(),
-                 stats.data_ptr(), dx.data_ptr(),
-                 dres.data_ptr() if residual else None, dgamma.data_ptr(),
-                 dbeta.data_ptr(), partials.data_ptr(), chan.data_ptr(),
-                 coef.data_ptr(), n, h * w, c, groups, chunks,
-                 rows_per_chunk, int(bool(relu)),
-                 torch._C._cuda_getCurrentRawStream(device))
+        stream = torch._C._cuda_getCurrentRawStream(device)
+        scratch = _bwd_scratch(x.device, stream, n, c, groups, plan)
+        base = scratch.data_ptr()
+        if plan.path == "one_pass":
+            _prepare(plan, device, prepare)
+            err = one(*ptrs, dparams.data_ptr(), base, base + n * c * 2 * 4,
+                      n, h * w, c, groups, plan.cluster, plan.smem,
+                      int(plan.x_resident), int(bool(relu)), stream)
+        else:
+            chan = base + n * plan.chunks * c * 2 * 4
+            err = four(*ptrs, dgamma.data_ptr(), dbeta.data_ptr(), base,
+                       chan, chan + n * c * 2 * 4, n, h * w, c, groups,
+                       plan.chunks, plan.rows_per_chunk, int(bool(relu)),
+                       stream)
     if err != 0:
-        raise RuntimeError(f"group_norm_act backward kernel launch failed: "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"group_norm_act backward kernel ({plan.path}) "
+                           f"launch failed: CUDA error {err}")
     launches += 1
-    launches_by_path["backward"] += 1
+    launches_by_path["backward_" + plan.path] += 1
     return dx, dres, dgamma, dbeta

@@ -97,3 +97,114 @@ def test_reset_launches_zeroes_every_count(monkeypatch):
     group_norm.reset_launches()
     assert group_norm.launches == 0
     assert group_norm.launches_by_path == {"one_pass": 0, "two_pass": 0}
+
+
+# ---- the backward's plan: ``group_norm._plan_backward`` ----
+
+# the sites where x and dz of a sample exceed 8 blocks' shared memory
+# together: 112²×64 (the stem's norm) and 56²×256 (stage 1's outputs)
+X_STREAMED = {(64, 112, 112, 32), (256, 56, 56, 32)}
+
+
+@pytest.mark.parametrize("batch", [1, 32, 64, 256])
+def test_every_resnet50_norm_backward_takes_the_one_pass_path(batch):
+    streamed = 0
+    for c, h, w, groups in SITES:
+        plan = group_norm._plan_backward(batch, h, w, c, groups)
+        assert plan.path == "one_pass" and plan.launches == 1, (c, h, w)
+        assert plan.cluster in (1, 2, 4, 8)
+        assert plan.smem <= SMEM_PER_BLOCK
+        assert plan.smem == group_norm._one_pass_bwd_smem(
+            h * w, c, groups, plan.cluster, plan.threads, plan.x_resident)
+        # the block's share of dz (and of x, where resident) is in its
+        # shared memory
+        tensors = 2 if plan.x_resident else 1
+        assert plan.smem >= tensors * -(-h * w // plan.cluster) * c * 2
+        assert plan.threads % (c // 8) == 0 and plan.threads <= 256
+        streamed += not plan.x_resident
+    assert streamed == 5
+
+
+@pytest.mark.parametrize("site", sorted(set(SITES)),
+                         ids=lambda s: "x".join(map(str, s[:3])))
+def test_backward_x_resident_exactly_where_x_and_dz_fit(site):
+    c, h, w, groups = site
+    plan = group_norm._plan_backward(64, h, w, c, groups)
+    both_fit = group_norm._one_pass_bwd_smem(
+        h * w, c, groups, 8, plan.threads, True) <= SMEM_PER_BLOCK
+    assert plan.x_resident == both_fit
+    assert (site in X_STREAMED) == (not plan.x_resident)
+
+
+@pytest.mark.parametrize("site", sorted(set(SITES)),
+                         ids=lambda s: "x".join(map(str, s[:3])))
+def test_backward_cluster_is_the_least_that_fits(site):
+    c, h, w, groups = site
+    plan = group_norm._plan_backward(32, h, w, c, groups)
+    if plan.cluster > 1:
+        smaller = group_norm._one_pass_bwd_smem(
+            h * w, c, groups, plan.cluster // 2, plan.threads,
+            plan.x_resident)
+        assert smaller > SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 224, 224), (2, 24, 250, 250),
+                                   (1, 2048, 30, 30)],
+                         ids=["224sq_64", "odd_groups", "wide"])
+def test_oversize_backward_takes_the_four_launch_path(shape):
+    n, c, h, w = shape
+    plan = group_norm._plan_backward(n, h, w, c, 8)
+    assert plan.path == "four_launch" and plan.launches == 4
+    assert plan.cluster == 0 and not plan.x_resident
+    # dz alone does not fit 8 blocks
+    assert group_norm._one_pass_bwd_smem(
+        h * w, c, 8, 8, plan.threads, False) > SMEM_PER_BLOCK
+    assert plan.chunks * plan.rows_per_chunk >= h * w
+    assert (plan.chunks - 1) * plan.rows_per_chunk < h * w
+
+
+def test_plan_backward_is_cached():
+    first = group_norm._plan_backward(64, 28, 28, 512, 32)
+    hits = group_norm._plan_backward.cache_info().hits
+    assert group_norm._plan_backward(64, 28, 28, 512, 32) is first
+    assert group_norm._plan_backward.cache_info().hits == hits + 1
+
+
+def test_reset_launches_zeroes_the_backward_counts(monkeypatch):
+    assert set(group_norm.launches_by_path) == {
+        "one_pass", "two_pass", "backward_one_pass", "backward_four_launch"}
+    for k in group_norm.launches_by_path:
+        monkeypatch.setitem(group_norm.launches_by_path, k, 3)
+    monkeypatch.setattr(group_norm, "launches", 12)
+    group_norm.reset_launches()
+    assert group_norm.launches == 0
+    assert all(v == 0 for v in group_norm.launches_by_path.values())
+
+
+@pytest.mark.parametrize("shape", [(64, 64, 56, 56), (2, 64, 224, 224)],
+                         ids=["one_pass", "four_launch"])
+def test_backward_scratch_is_cached_and_zeroed(monkeypatch, shape):
+    """One zeroed scratch per (device, stream, n, c, groups, path), sized
+    for the plan, and the same tensor on the next call."""
+    monkeypatch.setattr(group_norm, "_BWD_SCRATCH", {})
+    n, c, h, w = shape
+    plan = group_norm._plan_backward(n, h, w, c, 32)
+    cpu = torch.device("cpu")
+    buf = group_norm._bwd_scratch(cpu, 0, n, c, 32, plan)
+    if plan.path == "one_pass":
+        assert buf.numel() == n * c * 2 + group_norm._TICKETS
+    else:
+        assert buf.numel() == (n * plan.chunks * c * 2 + n * c * 2
+                               + n * 32 * 2)
+    assert not bool(buf.any())
+    assert group_norm._bwd_scratch(cpu, 0, n, c, 32, plan) is buf
+    assert group_norm._bwd_scratch(cpu, 1, n, c, 32, plan) is not buf
+
+
+def test_backward_wrapper_checks_dy_before_any_launch():
+    x = torch.zeros(2, 16, 4, 4, dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    dy = torch.zeros(2, 16, 4, 4, dtype=torch.float32)
+    with pytest.raises(ValueError, match="does not match x"):
+        group_norm._launch_backward(dy, x, x, torch.ones(16),
+                                    torch.zeros(2, 8, 2), 8, False, True)

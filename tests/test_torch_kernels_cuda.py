@@ -94,23 +94,30 @@ def test_kernel_gives_the_same_bits_twice(shape):
 BWD_MODES = [(False, True), (True, True), (False, False), (True, False)]
 
 
-def _check_backward(shape, groups, seed=0):
+def _check_backward(shape, groups, seed=0, path="one_pass", modes=None,
+                    plan=None):
     """Every mode: the backward kernel's dx and d_residual within 2 bf16
     ulps of max(1, max|plain|) of the plain twin, dγ and dβ within rel L2
-    1e-3, each backward one kernel launch."""
+    1e-3, each backward one wrapper call counted on ``path``, the planned
+    one, or on ``plan``'s path where a plan is forced."""
     x, res, gamma, beta = _inputs(shape, seed)
     dy = _inputs(shape, seed + 1)[0]
-    for residual, relu in BWD_MODES:
+    n, c, h, w = shape
+    assert group_norm._plan_backward(n, h, w, c, groups).path == path
+    launched = plan.path if plan else path
+    for residual, relu in modes or BWD_MODES:
         r = res if residual else None
         y, stats = group_norm._launch(x, gamma, beta, groups, EPS, r, relu,
                                       keep_stats=True)
-        before = group_norm.launches_by_path["backward"]
+        before = dict(group_norm.launches_by_path)
         got = group_norm._launch_backward(dy, x, y, gamma, stats, groups,
-                                          residual, relu)
+                                          residual, relu, plan)
         want = group_norm.group_norm_act_backward_plain(
             dy, x, y, gamma, stats, groups, residual, relu)
         torch.cuda.synchronize()
-        assert group_norm.launches_by_path["backward"] == before + 1
+        took = {k: v - before[k]
+                for k, v in group_norm.launches_by_path.items()}
+        assert took == {k: int(k == "backward_" + launched) for k in took}
         for g, w in zip(got[:2], want[:2]):
             assert (g is None) == (w is None)
             if w is None:
@@ -131,6 +138,41 @@ def test_backward_kernel_matches_plain_twin_on_card(shape, groups):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     _check_backward(shape, groups)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,modes,path,x_resident,forced", [
+    ((4, 64, 56, 56), BWD_MODES, "one_pass", True, False),
+    ((8, 256, 56, 56), [(True, True)], "one_pass", False, False),
+    ((2, 64, 224, 224), [(True, True), (False, False)], "four_launch", False,
+     False),
+    ((8, 256, 56, 56), [(True, True), (False, False)], "one_pass", False,
+     True),
+], ids=["x_resident", "x_streamed", "four_launch", "four_launch_forced"])
+def test_both_backward_paths_match_plain_twin_on_card(shape, modes, path,
+                                                      x_resident, forced):
+    """The one-pass kernel with x in shared memory and with x streamed
+    (8×256×56×56 GN+add+ReLU, a cluster of 8), the four-launch kernels at
+    the oversize shape on their planned path, and forced where the plan
+    takes one pass (the twin ``chip_smoke.py`` times the one pass
+    against); the same bits twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    n, c, h, w = shape
+    assert group_norm._plan_backward(n, h, w, c, 32).x_resident == x_resident
+    plan = group_norm._four_launch_plan(n, h, w, c) if forced else None
+    _check_backward(shape, 32, seed=5, path=path, modes=modes, plan=plan)
+    x, res, gamma, beta = _inputs(shape, seed=6)
+    dy = _inputs(shape, seed=7)[0]
+    y, stats = group_norm._launch(x, gamma, beta, 32, EPS, res, True,
+                                  keep_stats=True)
+    first = group_norm._launch_backward(dy, x, y, gamma, stats, 32, True,
+                                        True, plan)
+    second = group_norm._launch_backward(dy, x, y, gamma, stats, 32, True,
+                                         True, plan)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -176,7 +218,8 @@ def test_forward_with_grad_reaches_upstream_conv_weight():
     y.float().square().sum().backward()
     torch.cuda.synchronize()
     assert group_norm.launches_by_path["one_pass"] == before["one_pass"] + 1
-    assert group_norm.launches_by_path["backward"] == before["backward"] + 1
+    assert (group_norm.launches_by_path["backward_one_pass"]
+            == before["backward_one_pass"] + 1)
     for t in (weight, res, gamma, beta):
         assert t.grad is not None and bool(torch.isfinite(t.grad).all())
         assert float(t.grad.float().abs().sum()) > 0
