@@ -48,17 +48,45 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    forward and 53 backward launches a step; 8 AdamW steps on one batch,
    kernel against plain, with a falling loss; train-step images/s at batch
    256 (CUDA events), peak memory, and the step's device time by family.
-7. Training slice, this slice's main path: ``TFCluster.run`` (one
+7. Training slice, the ResNet main path: ``TFCluster.run`` (one
    executor, ``InputMode.SPARK``) → ``cluster.train`` over 256 rows of 224²
    images in 4 partitions → ``DataFeed.next_batch(device_put=
    trainer.shard)`` → 4 ``Trainer.step``s at batch 64 → ``shutdown``.  The
    final loss against an in-process ``Trainer`` on the same batches, the
    executor's forward and backward launches, and the cluster's images/s.
+8. Table-kernel phase: ``embedding.sparse_adagrad_update`` (the AdaGrad
+   kernel, ``csrc/sparse_adagrad.cu``) on the full ``widedeep.Config()``
+   tables (2.6 M rows; deep rows of 32 f32, wide rows scalar) at batch 1024
+   (26,624 ids), both modes, ids uniform over each feature's buckets and
+   Zipf(1.1)-distributed, every case from the same seeded tables.  Each
+   case: the kernel against its plain version on the card within
+   ``TABLE_TOL_REL``, untouched rows bit-identical, the same bits twice,
+   one counted launch a call; the wrapper's time (CUDA events, the id sort
+   included), the kernel's and the sort's device time (CUPTI), the plain
+   version's and the literal dense path's times beside ``bound_ms``; the
+   wrapper's host time a call.
+9. Training-model phase, wide&deep: ``Trainer("wide_deep", Config())`` at
+   batch 1024 on a device-resident batch, both ``table_update`` modes.  One
+   step's MLP gradients and table updates against the same step with the
+   plain table update (run on the CPU, which adds each row's occurrences
+   in batch order, as the kernel does); 20 steps on ``synth_criteo`` rows
+   with a falling loss and 2 table launches a step; steps/s (CUDA
+   events), peak memory and the step's device time by family.
+10. Wide&deep slice, this slice's main path, once per mode: ``TFEstimator(
+   criteo_train_fn).fit(df)`` (a port of ``examples/criteo/
+   criteo_pipeline.py::train_fun``; one executor on the card, 8,192 rows in
+   4 partitions, batch 1024) → ``TFCluster.run`` → ``cluster.train`` →
+   ``DataFeed.next_batch(device_put=...)`` → 8 ``Trainer.step``s →
+   ``trainer.export``; then ``TFModel.transform`` of the export.  The
+   executor's table launches (2 a step), its losses against an in-process
+   replay, the scores against an in-process forward of the exported
+   weights, and steps/s by ``cluster.metrics()``.
 
 The last lines are the card line, one JSON line listing each kernel (the
 one-pass and two-pass forwards of ``group_norm_act`` and its one-pass and
-four-launch backwards; times at the training slice's batch, and under
-``_b32``/``_b256`` at the others), and ``{"ok": true, "device": {...}}``.
+four-launch backwards, times at the training slice's batch and under
+``_b32``/``_b256`` at the others; ``sparse_adagrad`` in each mode, times a
+training step's two calls), and ``{"ok": true, "device": {...}}``.
 Without a card it exits 1 and prints no result.
 """
 
@@ -68,6 +96,8 @@ import collections
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -128,6 +158,28 @@ FWD_BATCH_CALLS = ((KERNEL_BATCH, (50, 20, 20)),
 BWD_BATCH_CALLS = ((KERNEL_BATCH, (30, 10, 10)),
                    (SLICE_TRAIN_BATCH, (20, 5, 5)),
                    (MODEL_BATCH, (10, 0, 3)))
+
+# wide&deep (phases 8-10)
+WD_BATCH = 1024
+WD_ZIPF = 1.1  # Criteo's categorical features are heavy-tailed
+WD_LR = 1e-3  # AdamW on the MLP; the tables take 10x (Config's table_lr)
+WD_STEPS = 20
+WD_SLICE_ROWS = 8192
+WD_SLICE_PARTITIONS = 4
+WD_MODES = (("dense", "combine"), ("sparse", "sparse"))  # table_update, path
+# |kernel - plain| <= this x max|plain| over the touched rows, table and
+# accumulator: f32, and only the order of the duplicates' sums differs
+# (the plain version's index_add_ adds them with atomics) besides
+# torch.rsqrt's <= 2 ulps against the kernel's correctly rounded 1/sqrt
+TABLE_TOL_REL = 1e-5
+# one step's MLP gradients and params, kernel path against plain table
+# update, rel L2: the table update does not reach them in the step, so
+# only cuBLAS could differ
+WD_MLP_REL = 1e-6
+# the 20-step mean of the last 5 losses against the first loss
+WD_FALL = 0.97
+WD_SLICE_VS_REPLAY = 1e-5  # rel, every loss: same kernels and batches
+WD_SCORES_VS_FORWARD = 1e-5  # max abs, probabilities
 
 
 def launch_counts(**counts) -> dict:
@@ -407,6 +459,26 @@ def model_phase(model, f32_model) -> dict:
     return {"images_per_s": ips, "forward_ms": fwd_ms}
 
 
+#: a ``record_function`` name (``Optimizer.step#AdamW.step``); kernel names
+#: hold ``#`` only inside C++ lambdas (``{lambda(int)#1}``), with spaces
+_ANNOTATION = re.compile(r"^[\w.]+#[\w.]+$")
+
+
+def device_kernels(prof, calls: int):
+    """``(name, ms per call)`` of every kernel ``prof`` (a torch.profiler
+    run over ``calls`` calls) saw on the card.  The GPU spans of user
+    annotations (``Optimizer.step#AdamW.step``) are CUDA events too, but
+    cover kernels already counted: they are left out."""
+    import torch
+
+    for e in prof.events():
+        if (getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)
+                or _ANNOTATION.match(e.name)):
+            continue  # a host-side op, or an annotation's span
+        yield e.name, e.time_range.elapsed_us() / 1e3 / calls
+
+
 def profile_forward(model, batch, fwd_ms: float, forwards: int = 3) -> None:
     """Device time per forward by kernel family (torch.profiler, CUPTI):
     the fused norm's kernels, convolutions, everything else, and the
@@ -420,10 +492,8 @@ def profile_forward(model, batch, fwd_ms: float, forwards: int = 3) -> None:
             model(batch)
         torch.cuda.synchronize()
     fams, others = collections.Counter(), collections.Counter()
-    for e in prof.events():
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue  # host-side op; its kernels are events of their own
-        name = e.name.lower()
+    for kernel, ms in device_kernels(prof, forwards):
+        name = kernel.lower()
         fam = next((k for k in ("gn_one_pass", "gn_stats", "gn_finalize",
                                 "gn_apply")
                     if k in name), None)
@@ -431,10 +501,9 @@ def profile_forward(model, batch, fwd_ms: float, forwards: int = 3) -> None:
             fam = "conv" if any(k in name for k in (
                 "conv", "fprop", "xmma", "gemm", "cudnn", "implicit",
                 "cutlass")) else "other"
-        ms = e.time_range.elapsed_us() / 1e3 / forwards
         fams[fam] += ms
         if fam == "other":
-            others[e.name[:60]] += ms
+            others[kernel[:60]] += ms
     busy = sum(fams.values())
     if busy == 0:
         print("profile: the profiler recorded no device time (not measured)",
@@ -503,6 +572,7 @@ def slice_phase(model) -> dict:
         warm_seconds = time.perf_counter() - t0
     finally:
         sc.stop()
+        shutil.rmtree(export_dir, ignore_errors=True)
 
     # collect() returns rows in partition order on the local substrate, so
     # row i scores image id i; the reference forward batches like the
@@ -933,10 +1003,8 @@ def profile_train_step(trainer, batch, step_ms: float, steps: int = 3):
             trainer.step(batch)
         torch.cuda.synchronize()
     fams, others = collections.Counter(), collections.Counter()
-    for e in prof.events():
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        name = e.name.lower()
+    for kernel, ms in device_kernels(prof, steps):
+        name = kernel.lower()
         if "gn_bwd" in name:
             fam = "norm backward"
         elif name.startswith("gn_") or "gn_one_pass" in name or any(
@@ -950,10 +1018,9 @@ def profile_train_step(trainer, batch, step_ms: float, steps: int = 3):
             fam = "optimizer"
         else:
             fam = "other"
-        ms = e.time_range.elapsed_us() / 1e3 / steps
         fams[fam] += ms
         if fam == "other":
-            others[e.name[:60]] += ms
+            others[kernel[:60]] += ms
     busy = sum(fams.values())
     if busy == 0:
         print("profile: the profiler recorded no device time (not measured)",
@@ -1073,6 +1140,596 @@ def train_slice_phase() -> dict:
             "wall_images_per_s": wall_ips}
 
 
+# ---------------------------------------------------------------------------
+# Wide&deep: the table kernel, the training model, the estimator slice
+# ---------------------------------------------------------------------------
+
+
+def synth_criteo(n: int, buckets: int, seed: int = 0, zipf: float = 0.0):
+    """Criteo-shaped rows ``(dense[13], cat[26], label)`` with a learnable
+    click signal (``examples/criteo/criteo_pipeline.py::synth_criteo``);
+    with ``zipf`` the bucket ids are Zipf-distributed, else uniform."""
+    import numpy as np
+
+    from tensorflowonspark_torch.models.widedeep import NUM_CAT, NUM_DENSE
+
+    rng = np.random.RandomState(seed)
+    dense = rng.rand(n, NUM_DENSE)
+    cat = (criteo_ids(rng, n, buckets, zipf) if zipf
+           else rng.randint(0, buckets, size=(n, NUM_CAT)))
+    # clicks driven by dense[0] and one categorical bucket parity
+    logit = 3.0 * (dense[:, 0] - 0.5) + (cat[:, 0] % 2) - 0.5
+    label = (1 / (1 + np.exp(-logit)) > rng.rand(n)).astype(int)
+    return [(dense[i].tolist(), cat[i].tolist(), int(label[i]))
+            for i in range(n)]
+
+
+def criteo_ids(rng, n: int, buckets: int, zipf: float = 0.0):
+    """(n, 26) per-feature bucket ids: uniform, or Zipf(``zipf``) folded
+    into the buckets (the most frequent value is bucket 0)."""
+    from tensorflowonspark_torch.models.widedeep import NUM_CAT
+
+    if not zipf:
+        return rng.randint(0, buckets, size=(n, NUM_CAT))
+    return (rng.zipf(zipf, size=(n, NUM_CAT)) - 1) % buckets
+
+
+def rows_to_batch(rows) -> dict:
+    """Rows of :func:`synth_criteo` as the train step's batch, with the
+    casts ``criteo_train_fn``'s stager applies."""
+    import numpy as np
+
+    return {"dense": np.asarray([r[0] for r in rows], np.float32),
+            "cat": np.asarray([r[1] for r in rows], np.int32),
+            "label": np.asarray([r[2] for r in rows], np.int32)}
+
+
+def table_bound_ms(n: int, id_bytes: int, dim: int, unique: int) -> dict:
+    """The least time of one table update on the card: the ids and the row
+    gradients read once, each touched row of the table and the
+    accumulator read and written once (bytes), against a few f32
+    operations an element (operations)."""
+    nbytes = n * id_bytes + n * dim * 4 + unique * dim * 4 * 4
+    ops = n * dim * 6 + unique * dim * 4
+    return _bound(nbytes / HBM_BYTES_PER_S * 1e3,
+                  ops / F32_OPS_PER_S * 1e3, bytes=nbytes)
+
+
+def _bound(bytes_ms: float, ops_ms: float, **extra) -> dict:
+    return {"bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            **extra}
+
+
+def _table_diff(got, want, touched) -> tuple[float, float, bool]:
+    """(max |got - want| over touched rows, max |want| there, whether any
+    untouched row of ``got`` differs from ``want``) for (vocab, ...)
+    tensors."""
+    import torch
+
+    rows = got.shape[0]
+    diff = (got - want).abs().reshape(rows, -1)[touched]
+    scale = want.abs().reshape(rows, -1)[touched]
+    moved = (got != want).reshape(rows, -1).any(dim=1) & ~touched
+    return float(diff.max()), float(scale.max()), bool(moved.any())
+
+
+def measure_table_case(table, acc, ids, g, combine: bool, label: str) -> dict:
+    """One table (deep or wide) at one id draw, in one mode: the gates and
+    the times of ``embedding.sparse_adagrad_update`` (see phase 8).
+    ``table`` and ``acc`` are left as they were: every call works on
+    clones, so each case is gated and timed from the same tables.  In
+    combine mode the plain version is the literal dense path (the library
+    comparison); in sparse mode the dense path, the reference's default
+    ``table_update``, is timed beside it."""
+    import torch
+
+    from tensorflowonspark_torch import embedding
+    from tensorflowonspark_torch.kernels import sparse_adagrad
+
+    lr = 0.01
+    rows = table.shape[0]
+    touched = torch.zeros(rows, dtype=torch.bool, device="cuda")
+    touched[ids.reshape(-1).long()] = True
+    unique = int(touched.sum())
+    path = "combine" if combine else "sparse"
+    outs = []
+    for _ in range(2):  # the kernel twice on fresh copies, one launch each
+        t, a = table.clone(), acc.clone()
+        before = dict(sparse_adagrad.launches_by_path)
+        embedding.sparse_adagrad_update(t, a, ids, g, lr, combine=combine)
+        torch.cuda.synchronize()
+        took = {k: v - before[k]
+                for k, v in sparse_adagrad.launches_by_path.items()}
+        outs.append((t, a, took))
+    (t1, a1, took1), (t2, a2, took2) = outs
+    tp, ap = table.clone(), acc.clone()
+    embedding.sparse_adagrad_update_plain(tp, ap, ids, g, lr, combine=combine)
+    torch.cuda.synchronize()
+    t_err, t_scale, _ = _table_diff(t1, tp, touched)
+    a_err, a_scale, _ = _table_diff(a1, ap, touched)
+    _, _, t_moved = _table_diff(t1, table, touched)
+    _, _, a_moved = _table_diff(a1, acc, touched)
+    same = torch.equal(t1, t2) and torch.equal(a1, a2)
+    one_launch = all(took == {**dict.fromkeys(took, 0), path: 1}
+                     for took in (took1, took2))
+    ok = (t_err <= TABLE_TOL_REL * t_scale and a_err <= TABLE_TOL_REL * a_scale
+          and not t_moved and not a_moved and same and one_launch)
+    del t1, a1, t2, a2, tp, ap, outs
+
+    wt, wa = table.clone(), acc.clone()  # the timed calls update these
+    ms = time_ms(lambda: embedding.sparse_adagrad_update(
+        wt, wa, ids, g, lr, combine=combine), 200)
+    plain_ms = time_ms(lambda: embedding.sparse_adagrad_update_plain(
+        wt, wa, ids, g, lr, combine=combine), 50)
+    dense_ms = plain_ms if combine else time_ms(
+        lambda: embedding.sparse_adagrad_update_plain(
+            wt, wa, ids, g, lr, combine=True), 20)
+    host = host_us(lambda: embedding.sparse_adagrad_update(
+        wt, wa, ids, g, lr, combine=combine))
+    device_ms, prep_ms = wrapper_device_ms(
+        lambda: embedding.sparse_adagrad_update(wt, wa, ids, g, lr,
+                                                combine=combine))
+    del wt, wa
+    dim = table[0].numel()
+    bound = table_bound_ms(ids.numel(), ids.element_size(), dim, unique)
+    case = {"max_abs_err": max(t_err, a_err), "ms": ms,
+            "device_ms": device_ms,
+            "sort_device_ms": prep_ms, "plain_ms": plain_ms,
+            "dense_path_ms": dense_ms, "host_us": host, "unique": unique,
+            **bound}
+    print(f"table {label} {path}: {ids.numel()} ids, {unique} rows touched,"
+          f" row {dim} f32; table err {t_err:.3e} / acc err {a_err:.3e} "
+          f"(tol {TABLE_TOL_REL} x {t_scale:.3e} / {a_scale:.3e}), "
+          f"untouched moved table={t_moved} acc={a_moved}, "
+          f"same_bits_twice={same}, launches {took1} {took2}; "
+          f"wrapper_ms={ms:.4f} device_ms={device_ms:.4f} "
+          f"sort_device_ms={prep_ms:.4f} "
+          f"plain_ms={plain_ms:.4f} dense_path_ms="
+          f"{'plain_ms' if combine else f'{dense_ms:.4f}'} "
+          f"bound_ms={bound['bound_ms']:.4f} ({bound['bytes']} B) "
+          f"wrapper/bound={ms / bound['bound_ms']:.1f} host_us={host:.1f} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"table kernel {label} {path} failed")
+    return case
+
+
+def wrapper_device_ms(call, calls: int = 20) -> tuple[float, float]:
+    """Device time per ``call()`` of the table wrapper (torch.profiler,
+    CUPTI): the table kernel's, and the rest (the id sort)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    kernel = rest = 0.0
+    for name, ms in device_kernels(prof, calls):
+        if "adagrad_segments" in name:
+            kernel += ms
+        else:
+            rest += ms
+    return kernel, rest
+
+
+def table_kernel_phase() -> dict:
+    """Phase 8: both modes × (deep, wide) × (uniform, Zipf) at batch 1024
+    on the full tables.  Returns, per mode, one training step's pair of
+    calls (deep + wide, uniform ids) with the other cases beside it."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch.models import widedeep
+
+    config = widedeep.Config()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    vocab, dim = config.total_buckets, config.embed_dim
+    tables = {
+        "deep": (0.01 * torch.randn(vocab, dim, generator=gen,
+                                    device="cuda"),
+                 1e-6 * torch.rand(vocab, dim, generator=gen, device="cuda")),
+        "wide": (0.01 * torch.randn(vocab, generator=gen, device="cuda"),
+                 1e-6 * torch.rand(vocab, generator=gen, device="cuda"))}
+    rng = np.random.RandomState(6)
+    draws = {}
+    for name, zipf in (("uniform", 0.0), ("zipf", WD_ZIPF)):
+        cat = torch.from_numpy(criteo_ids(rng, WD_BATCH, config.hash_buckets,
+                                          zipf).astype(np.int32)).cuda()
+        draws[name] = widedeep.fold_ids(cat, config)
+    result = {}
+    for combine in (True, False):
+        cases = {}
+        for draw, ids in draws.items():
+            for label, (table, acc) in tables.items():
+                g = 1e-4 * torch.randn(*ids.shape, *table.shape[1:],
+                                       generator=gen, device="cuda")
+                cases[f"{label}_{draw}"] = measure_table_case(
+                    table, acc, ids, g, combine, f"{label} {draw}")
+        # int64 ids reach the same kernel (the deep table, uniform)
+        g = 1e-4 * torch.randn(*draws["uniform"].shape, dim, generator=gen,
+                               device="cuda")
+        measure_table_case(*tables["deep"], draws["uniform"].long(), g,
+                           combine, "deep uniform int64")
+        pair = (cases["deep_uniform"], cases["wide_uniform"])
+        step = {k: sum(c[k] for c in pair)
+                for k in ("ms", "device_ms", "sort_device_ms", "plain_ms",
+                          "dense_path_ms")}
+        step.update(_bound(*(sum(c[k] for c in pair)
+                             for k in ("bytes_ms", "ops_ms"))))
+        path = "combine" if combine else "sparse"
+        print(f"table {path} per training step (deep + wide, uniform ids): "
+              + " ".join(f"{k}={v:.4f}" if isinstance(v, float)
+                         else f"{k}={v}" for k, v in step.items()),
+              flush=True)
+        if combine:  # the plain version is the dense path: one timing
+            del step["dense_path_ms"]
+        result[path] = {
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            **step,
+            "library_ms": step["plain_ms"] if combine else None,
+            "wrapper_host_us": cases["deep_uniform"]["host_us"],
+            **{f"{k}_{m}": c[m] for k, c in cases.items()
+               for m in ("ms", "device_ms", "bound_ms")}}
+    del tables
+    torch.cuda.empty_cache()
+    return result
+
+
+def _wd_trainer(table_update: str, seed: int = 0):
+    import dataclasses
+
+    from tensorflowonspark_torch.models import widedeep
+    from tensorflowonspark_torch.trainer import Trainer
+
+    config = dataclasses.replace(widedeep.Config(), table_update=table_update)
+    return Trainer("wide_deep", config=config, learning_rate=WD_LR, seed=seed,
+                   device="cuda")
+
+
+def _plain_table_update(table, acc, ids, grad_rows, lr, eps=1e-10,
+                        combine=False, order=None):
+    """``embedding.sparse_adagrad_update`` with the plain version, run on
+    the CPU, whose ``index_add_`` adds a row's occurrences in batch order as
+    the kernel does (on the card it adds them with atomics, in no fixed
+    order): the step's twin the kernel path is held against."""
+    from tensorflowonspark_torch import embedding
+
+    t, a = table.cpu(), acc.cpu()
+    embedding.sparse_adagrad_update_plain(t, a, ids.cpu(), grad_rows.cpu(),
+                                          lr, eps, combine)
+    table.copy_(t)
+    acc.copy_(a)
+    return table, acc
+
+
+def wd_train_model_phase() -> dict:
+    """Phase 9 (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch import embedding
+    from tensorflowonspark_torch.kernels import sparse_adagrad
+    from tensorflowonspark_torch.models import widedeep
+
+    buckets = widedeep.Config().hash_buckets
+
+    def device_batch(rows):
+        return {k: torch.from_numpy(v).cuda()
+                for k, v in rows_to_batch(rows).items()}
+
+    out = {}
+    for table_update, path in WD_MODES:
+        # one step, kernel path against the plain table update
+        batch = device_batch(synth_criteo(WD_BATCH, buckets, seed=7,
+                                          zipf=WD_ZIPF))
+        kernel_t, plain_t = _wd_trainer(table_update), _wd_trainer(
+            table_update)
+        before = {k: v.clone() for k, v in
+                  kernel_t.model.collections()["embedding"].items()}
+        sparse_adagrad.reset_launches()
+        loss_k = float(kernel_t.step(batch))
+        torch.cuda.synchronize()
+        step_launches = dict(sparse_adagrad.launches_by_path)
+        kernel_update = embedding.sparse_adagrad_update
+        embedding.sparse_adagrad_update = _plain_table_update
+        try:
+            loss_p = float(plain_t.step(batch))
+        finally:
+            embedding.sparse_adagrad_update = kernel_update
+        plain_launches = sparse_adagrad.launches - sum(step_launches.values())
+
+        def mlp(t, grad):
+            return {k: (p.grad if grad else p).detach()
+                    for k, p in t.model.named_parameters()}
+
+        grads = _rel_l2(mlp(kernel_t, True), mlp(plain_t, True))
+        params = _rel_l2(mlp(kernel_t, False), mlp(plain_t, False))
+        ids = widedeep.fold_ids(batch["cat"], kernel_t.config).reshape(-1)
+        touched = torch.zeros(kernel_t.config.total_buckets, dtype=torch.bool,
+                              device="cuda")
+        touched[ids.long()] = True
+        table_ok, worst, identical = True, 0.0, True
+        for group, leaves in kernel_t.model.collections().items():
+            for k, got in leaves.items():
+                want = plain_t.model.collections()[group][k]
+                err, scale, _ = _table_diff(got, want, touched)
+                worst = max(worst, err / max(scale, 1e-30))
+                identical &= torch.equal(got, want)
+                table_ok &= err <= TABLE_TOL_REL * scale
+                if k in before:
+                    table_ok &= not _table_diff(got, before[k], touched)[2]
+        del plain_t, before
+        print(f"train wide_deep {table_update} one step at batch {WD_BATCH} "
+              f"(Zipf ids): loss kernel={loss_k:.6f} plain-table={loss_p:.6f}"
+              f"; MLP grads rel_l2={grads:.3e} params after={params:.3e} "
+              f"(tol {WD_MLP_REL}); tables+accumulators against the plain "
+              f"update on the CPU: worst err/max={worst:.3e} (tol "
+              f"{TABLE_TOL_REL}), bit-identical={identical}, untouched rows "
+              f"kept; "
+              f"table launches {step_launches} (plain path {plain_launches})",
+              flush=True)
+        if (grads > WD_MLP_REL or params > WD_MLP_REL or not table_ok
+                or loss_k != loss_p or plain_launches
+                or step_launches != {**dict.fromkeys(step_launches, 0),
+                                     path: 2}):
+            raise SystemExit(f"wide&deep training-model phase failed "
+                             f"({table_update}, one step)")
+
+        # 20 steps on synth_criteo rows: the loss falls, 2 launches a step
+        rows = synth_criteo(WD_BATCH * WD_STEPS, buckets, seed=8)
+        sparse_adagrad.reset_launches()
+        losses = [kernel_t.step(device_batch(
+            rows[i * WD_BATCH:(i + 1) * WD_BATCH])) for i in range(WD_STEPS)]
+        losses = [float(v) for v in losses]
+        launches = dict(sparse_adagrad.launches_by_path)
+        falls = np.mean(losses[-5:]) < WD_FALL * losses[0]
+        print(f"train wide_deep {table_update} {WD_STEPS} steps: losses "
+              f"{[round(v, 5) for v in losses]}; last-5 mean / first = "
+              f"{np.mean(losses[-5:]) / losses[0]:.4f} (falls below "
+              f"{WD_FALL}: {falls}); table launches {launches}", flush=True)
+        if (not falls or not all(math.isfinite(v) for v in losses)
+                or launches != {**dict.fromkeys(launches, 0),
+                                path: 2 * WD_STEPS}):
+            raise SystemExit(f"wide&deep training-model phase failed "
+                             f"({table_update}, trajectory)")
+
+        # steps/s on one device-resident batch
+        del kernel_t
+        torch.cuda.empty_cache()
+        t = _wd_trainer(table_update)
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = time_ms(lambda: t.step(batch), 50)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f"train wide_deep {table_update} step batch {WD_BATCH}: "
+              f"{step_ms:.4f} ms, {1e3 / step_ms:.1f} steps/s, "
+              f"{WD_BATCH * 1e3 / step_ms:.0f} examples/s, peak memory "
+              f"{peak_gb:.2f} GB", flush=True)
+        profile_wd_step(t, batch, step_ms, table_update)
+        del t
+        torch.cuda.empty_cache()
+        out[table_update] = {"steps_per_s": 1e3 / step_ms,
+                             "step_ms": step_ms, "peak_gb": peak_gb}
+    return out
+
+
+def profile_wd_step(trainer, batch, step_ms: float, label: str,
+                    steps: int = 5) -> None:
+    """Device time per wide&deep step by family (torch.profiler, CUPTI):
+    GEMMs, the gather, the id sort, the table kernel, AdamW, other."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            trainer.step(batch)
+        torch.cuda.synchronize()
+    fams, kernels = collections.Counter(), collections.Counter()
+    for kernel, ms in device_kernels(prof, steps):
+        name = kernel.lower()
+        if "adagrad_segments" in name:
+            fam = "table kernel"
+        elif any(k in name for k in ("gemm", "cutlass", "nvjet", "sm90_",
+                                     "xmma", "cublas")):
+            fam = "GEMMs"
+        elif any(k in name for k in ("index", "gather")):
+            fam = "gather"
+        elif any(k in name for k in ("sort", "radix", "cub::")):
+            fam = "id sort"
+        elif any(k in name for k in ("adam", "multi_tensor", "foreach")):
+            fam = "AdamW"
+        else:
+            fam = "other"
+        fams[fam] += ms
+        kernels[f"[{fam}] {kernel[:50]}"] += ms
+    busy = sum(fams.values())
+    if busy == 0:
+        print("profile: the profiler recorded no device time (not measured)",
+              flush=True)
+        return
+    parts = " ".join(f"{k}={v:.4f}ms({v / busy:.1%})"
+                     for k, v in fams.most_common())
+    print(f"profile wide_deep {label} step batch {WD_BATCH}, device ms per "
+          f"step: busy={busy:.4f} of {step_ms:.4f} (idle share "
+          f"{max(0.0, 1 - busy / step_ms):.1%}); {parts}", flush=True)
+    print(f"profile wide_deep {label} largest kernels of the step: "
+          + "; ".join(f"{name}={ms:.4f}ms"
+                      for name, ms in kernels.most_common(8)), flush=True)
+
+
+def criteo_train_fn(args, ctx):
+    """Port of ``examples/criteo/criteo_pipeline.py::train_fun``: a
+    wide&deep ``Trainer`` on the node's device fed by the DataFrame's
+    partitions (``DataFeed``, prefetching, staged by ``trainer.shard`` with
+    the reference's dtype casts), publishing its metrics every step; the
+    chief exports.  Then the losses and the table launches of its steps on
+    the node's kv blackboard."""
+    import dataclasses
+
+    import numpy as np
+
+    from tensorflowonspark_torch import metrics
+    from tensorflowonspark_torch.kernels import sparse_adagrad
+    from tensorflowonspark_torch.models import widedeep
+    from tensorflowonspark_torch.trainer import Trainer
+
+    config = widedeep.Config.tiny() if args.tiny else widedeep.Config()
+    # --lr drives both towers of the CTR recipe: AdaGrad on the tables at
+    # 10x, AdamW on the MLP through the Trainer's default optimizer
+    config = dataclasses.replace(config, table_lr=args.lr * 10.0,
+                                 table_update=args.table_update)
+    trainer = Trainer("wide_deep", config=config, learning_rate=args.lr)
+    trainer.add_step_callback(metrics.MetricsReporter(ctx, interval=1))
+    feed = ctx.get_data_feed(train_mode=True,
+                             input_mapping=["dense", "cat", "label"],
+                             prefetch=2)
+
+    def stage(batch):
+        # short tail batches stay on the host: the loop drops them
+        if batch["dense"].shape[0] != args.batch_size:
+            return batch
+        return trainer.shard({
+            "dense": batch["dense"].astype(np.float32),
+            "cat": batch["cat"].astype(np.int32),
+            "label": batch["label"].astype(np.int32),
+        })
+
+    sparse_adagrad.reset_launches()
+    losses = []
+    while not feed.should_stop():
+        batch = feed.next_batch(args.batch_size, device_put=stage)
+        if not batch or batch["dense"].shape[0] != args.batch_size:
+            continue
+        losses.append(trainer.step(batch))
+    ctx.mgr.set("launches", dict(sparse_adagrad.launches_by_path))
+    ctx.mgr.set("losses", [float(v) for v in losses])
+    ctx.mgr.set("device", str(trainer.device))
+    if ctx.job_name == "chief":
+        trainer.export(ctx.absolute_path(args.export_dir))
+
+
+def fit_and_score(sc, df, args: dict, batch_size: int, cluster_size: int,
+                  export_dir: str):
+    """``TFEstimator(criteo_train_fn).fit(df)`` then ``TFModel.transform``
+    of the export (scores named ``ctr``).  Returns ``(the cluster, what each
+    node published, the scored rows)``; the cluster is the one
+    ``TFEstimator.fit`` ran, caught on its way through ``TFCluster.run``,
+    so its managers can be read after the fit."""
+    from tensorflowonspark_torch import TFCluster, TFManager, pipeline
+
+    clusters = []
+    run = TFCluster.run
+
+    def catching_run(*a, **k):
+        clusters.append(run(*a, **k))
+        return clusters[-1]
+
+    TFCluster.run = catching_run
+    try:
+        est = (pipeline.TFEstimator(criteo_train_fn, tf_args=args)
+               .setClusterSize(cluster_size).setBatchSize(batch_size)
+               .setEpochs(1).setExportDir(export_dir)
+               .setModelName("wide_deep").setGraceSecs(120))
+        model = est.fit(df)
+    finally:
+        TFCluster.run = run
+    [cluster] = clusters
+    authkey = bytes.fromhex(cluster.cluster_meta["authkey_hex"])
+    published = []
+    for meta in cluster.cluster_info:
+        mgr = TFManager.connect(tuple(meta["addr"]), authkey)
+        published.append({k: mgr.get(k) for k in ("state", "losses",
+                                                  "launches", "device")})
+    scored = (model.setBatchSize(batch_size)
+              .setInputMapping({"dense": "dense", "cat": "cat"})
+              .setOutputMapping({"prediction": "ctr"})
+              .transform(df.select("dense", "cat"))).collect()
+    return cluster, published, scored
+
+
+def wd_slice_phase() -> dict:
+    """Phase 10 (see the module docstring), once per ``table_update``."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch import ckpt, sparkapi
+    from tensorflowonspark_torch.models import widedeep
+
+    buckets = widedeep.Config().hash_buckets
+    rows = synth_criteo(WD_SLICE_ROWS, buckets, seed=9, zipf=WD_ZIPF)
+    steps = WD_SLICE_ROWS // WD_BATCH
+    out = {}
+    for table_update, path in WD_MODES:
+        export_dir = tempfile.mkdtemp(prefix="tfos_torch_wd_")
+        sc = sparkapi.LocalSparkContext("local[1]")
+        try:
+            df = sparkapi.LocalSparkSession(sc).createDataFrame(
+                rows, ["dense", "cat", "label"]).repartition(
+                    WD_SLICE_PARTITIONS)
+            t0 = time.perf_counter()
+            cluster, [node], scored = fit_and_score(
+                sc, df, {"lr": WD_LR, "tiny": False,
+                         "table_update": table_update},
+                WD_BATCH, 1, export_dir)
+            seconds = time.perf_counter() - t0
+            agg = cluster.metrics()
+            state = ckpt.load_pytree(os.path.join(export_dir, "model"))
+        finally:
+            sc.stop()
+            shutil.rmtree(export_dir, ignore_errors=True)
+        # the same batches, in partition order, in this process
+        t = _wd_trainer(table_update)
+        replay = [float(t.step(rows_to_batch(
+            rows[i * WD_BATCH:(i + 1) * WD_BATCH]))) for i in range(steps)]
+        del t
+        served = widedeep.load_state(widedeep.make_model(
+            widedeep.config_from_state(state)), state).cuda().eval()
+        forward = widedeep.make_forward_fn(served, served.config)
+        want = torch.cat([forward(served, {
+            k: torch.from_numpy(v).cuda() for k, v in rows_to_batch(
+                rows[i * WD_BATCH:(i + 1) * WD_BATCH]).items()}).cpu()
+            for i in range(steps)])
+        del served
+        torch.cuda.empty_cache()
+        got = torch.tensor([r.ctr for r in scored])
+        losses = node["losses"] or []
+        rel = max((abs(a - b) / abs(b) for a, b in zip(losses, replay)),
+                  default=float("inf"))
+        score_err = (float((got - want).abs().max())
+                     if got.shape == want.shape else float("inf"))
+        ex_per_s = agg.get("total_examples_per_sec")
+        steps_per_s = ex_per_s / WD_BATCH if ex_per_s else None
+        launches = node["launches"] or {}
+        print(f"slice wide_deep {table_update}: TFEstimator.fit -> "
+              f"TFCluster.run -> DataFeed -> Trainer.step on {node['device']}"
+              f": state {node['state']}, {len(losses)} steps, losses "
+              f"{[round(v, 6) for v in losses]}; in-process replay "
+              f"{[round(v, 6) for v in replay]}; max rel {rel:.3e} (tol "
+              f"{WD_SLICE_VS_REPLAY}); executor table launches {launches}; "
+              f"TFModel.transform {len(scored)} rows, max |score - "
+              f"in-process forward| {score_err:.3e} (tol "
+              f"{WD_SCORES_VS_FORWARD}); cluster.metrics() steps/s="
+              f"{steps_per_s} ({ex_per_s} examples/s); fit + transform "
+              f"{seconds:.1f} s", flush=True)
+        if (node["state"] != "finished" or len(losses) != steps
+                or not all(math.isfinite(v) for v in losses)
+                or rel > WD_SLICE_VS_REPLAY
+                or not str(node["device"]).startswith("cuda")
+                or launches != {**dict.fromkeys(launches, 0),
+                                path: 2 * steps}
+                or len(scored) != WD_SLICE_ROWS
+                or score_err > WD_SCORES_VS_FORWARD or not steps_per_s):
+            raise SystemExit(f"wide&deep slice phase failed ({table_update})")
+        out[path] = {"launches": launches[path], "steps_per_s": steps_per_s}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1115,13 +1772,20 @@ def main() -> int:
     kern.update(backward_phase(sites))
     train_model_phase()
     main_path = train_slice_phase()
+    tables = table_kernel_phase()
+    wd_train = wd_train_model_phase()
+    wd_slice = wd_slice_phase()
+    print("wide_deep steps/s at batch 1024: " + "; ".join(
+        f"{mode}: Trainer.step {wd_train[mode]['steps_per_s']:.1f}, slice "
+        f"{wd_slice[path]['steps_per_s']}" for mode, path in WD_MODES),
+        flush=True)
 
     print(card)  # as nvidia-smi gives it: name, power limit
     names = {"one_pass": "group_norm_act (one_pass)",
              "two_pass": "group_norm_act (two_pass)",
              "backward_one_pass": "group_norm_act backward (one_pass)",
              "backward_four_launch": "group_norm_act backward (four_launch)"}
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": names[path], "route": "cuda",
         "source": "tensorflowonspark_torch/csrc/group_norm"
                   + ("_bwd.cu" if path.startswith("backward") else ".cu"),
@@ -1130,7 +1794,16 @@ def main() -> int:
                      else "tensorflowonspark_tpu/models/resnet.py:59"),
         "launches": main_path["launches"][path],
         "launches_serving": serving["launches"].get(path, 0), **kern[path]}
-        for path in names]}))
+        for path in names]
+    kernels += [{
+        "name": f"sparse_adagrad ({path})", "route": "cuda",
+        "source": "tensorflowonspark_torch/csrc/sparse_adagrad.cu",
+        "replaces": ("tensorflowonspark_tpu/models/widedeep.py:283"
+                     if path == "combine"
+                     else "tensorflowonspark_tpu/embedding.py:36"),
+        "launches": wd_slice[path]["launches"], **tables[path]}
+        for _, path in WD_MODES]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,8 +6,10 @@ Every model module exposes the reference's surface, in PyTorch:
 - ``make_model(config, ...)`` → ``torch.nn.Module``
 - ``make_forward_fn(model, config)`` → ``forward(model, batch) -> outputs``
 - ``example_batch(config, batch_size, seed)`` → dict of numpy arrays
+- ``state_of(model)`` / ``load_state(model, state)`` /
+  ``config_from_state(state)`` → the weights-only export and back
 
-Only ``resnet50`` is ported so far; the other reference names raise
+``resnet50`` and ``wide_deep`` are ported; the other reference names raise
 ``KeyError`` saying so.
 """
 
@@ -17,11 +19,12 @@ import importlib
 
 _REGISTRY = {
     "resnet50": "tensorflowonspark_torch.models.resnet",
+    "wide_deep": "tensorflowonspark_torch.models.widedeep",
 }
 
 #: reference zoo entries the port does not have yet
 _NOT_PORTED = ("mnist_mlp", "cifar10_cnn", "inception_v3", "mobilenet_v1",
-               "wide_deep", "bert", "tiny_lm")
+               "bert", "tiny_lm")
 
 
 def get_model(name: str):

@@ -1,15 +1,44 @@
-"""Shared helpers for image-classification models.
+"""Shared helpers of the port's models.
 
 Reference anchor: ``tensorflowonspark_tpu/models/_common.py``
 (``image_example_batch``, ``make_classification_forward_fn``,
-``make_classification_loss_fn``).
+``make_classification_loss_fn``), plus the seeded init and the flax-tree
+walk that the models' weight converters share.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+#: std of a standard normal truncated to ±2 (flax's variance_scaling
+#: divides by it so the truncated draw keeps the requested variance)
+_TRUNC_STD = 0.87962566103423978
+
+
+def variance_scaling_(weight: torch.Tensor, gain: float,
+                      generator: torch.Generator) -> None:
+    """flax's ``variance_scaling(gain, "fan_in", "truncated_normal")`` in
+    place: He normal for ``gain`` 2, LeCun normal for 1.  ``fan_in`` is
+    ``weight[0].numel()`` (torch's ``(out, in, ...)`` layout)."""
+    std = math.sqrt(gain / weight[0].numel()) / _TRUNC_STD
+    torch.nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
+                                generator=generator)
+
+
+def flax_leaves(tree, prefix=()):
+    """(path, leaf) pairs of a nested mapping; flax's partitioning boxes
+    (``nn.Partitioned``, from ``nn.with_partitioning``) are unboxed."""
+    for k, v in tree.items():
+        if hasattr(v, "unbox"):
+            v = v.unbox()
+        if hasattr(v, "items"):
+            yield from flax_leaves(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), v
 
 
 def classification_forward(model: torch.nn.Module, batch) -> torch.Tensor:

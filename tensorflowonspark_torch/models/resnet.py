@@ -27,7 +27,6 @@ torch's symmetric ``padding=k//2``.
 from __future__ import annotations
 
 import dataclasses
-import math
 import re
 
 import numpy as np
@@ -36,12 +35,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from tensorflowonspark_torch.kernels import group_norm
+from tensorflowonspark_torch.models import _common
 
 GROUP_NORM_EPS = 1e-6  # flax nn.GroupNorm default
 BATCH_NORM_EPS = 1e-5  # flax nn.BatchNorm default
-#: std of a standard normal truncated to ±2 (flax's variance_scaling
-#: divides by it so the truncated draw keeps the requested variance)
-_TRUNC_STD = 0.87962566103423978
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,11 +184,8 @@ def make_model(config: Config, seed: int = 0) -> ResNet:
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith("weight") and p.dim() in (2, 4):
-                fan_in = p[0].numel()
-                gain = 1.0 if name == "head.weight" else 2.0
-                std = math.sqrt(gain / fan_in) / _TRUNC_STD
-                nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
-                                      generator=gen)
+                _common.variance_scaling_(
+                    p, 1.0 if name == "head.weight" else 2.0, gen)
         nn.init.zeros_(model.head.bias)
     return model
 
@@ -200,8 +194,6 @@ def make_loss_fn(model: ResNet, config: Config):
     """``loss(model, batch) -> scalar`` (softmax cross-entropy, f32).
     GroupNorm only: BatchNorm training (batch statistics and their running
     update) is not ported yet."""
-    from tensorflowonspark_torch.models import _common
-
     if config.norm == "batch":
         raise NotImplementedError(
             "BatchNorm training is not ported yet: use norm='group'")
@@ -211,18 +203,14 @@ def make_loss_fn(model: ResNet, config: Config):
 def make_forward_fn(model: ResNet, config: Config):
     """``forward(model, batch) -> logits`` (BatchNorm statistics live in the
     module, so one forward serves both norms)."""
-    from tensorflowonspark_torch.models import _common
-
     del model, config
     return _common.classification_forward
 
 
 def example_batch(config: Config, batch_size: int = 8, seed: int = 0):
-    from tensorflowonspark_torch.models._common import image_example_batch
-
-    return image_example_batch((config.image_size, config.image_size, 3),
-                               config.num_classes, batch_size=batch_size,
-                               seed=seed)
+    return _common.image_example_batch(
+        (config.image_size, config.image_size, 3), config.num_classes,
+        batch_size=batch_size, seed=seed)
 
 
 # ---------------------------------------------------------------------------
@@ -256,6 +244,22 @@ def load_state(model: ResNet, state: dict) -> ResNet:
     return model
 
 
+def config_from_state(state: dict) -> Config:
+    """The ``Config`` an export state (see :func:`state_of`) was written
+    from: ``Config.tiny()`` where the parameter shapes are the tiny
+    model's, else ``Config()``; ``norm="batch"`` where the export carries
+    collections (BatchNorm statistics)."""
+    with torch.device("meta"):  # shapes only
+        tiny = ResNet(Config.tiny())
+    tiny_shapes = sorted(tuple(p.shape) for p in tiny.parameters())
+    got = sorted(tuple(getattr(v, "shape", ()))
+                 for v in state["params"].values())
+    config = Config.tiny() if got == tiny_shapes else Config()
+    if state.get("collections"):
+        config = dataclasses.replace(config, norm="batch")
+    return config
+
+
 _TOP = re.compile(r"^(Conv|GroupNorm|BatchNorm|Bottleneck|Dense)_(\d+)$")
 _INNER = re.compile(r"^(Conv|GroupNorm|BatchNorm)_(\d+)$")
 
@@ -280,18 +284,6 @@ def _module_name(path: tuple[str, ...]) -> str:
     return {"Conv": "conv", "Dense": "head"}.get(kind, "norm")
 
 
-def _flat(tree, prefix=()):
-    """(path, leaf) pairs of a nested mapping; flax's partitioning boxes
-    (``nn.Partitioned``, from ``nn.with_partitioning``) are unboxed."""
-    for k, v in tree.items():
-        if hasattr(v, "unbox"):
-            v = v.unbox()
-        if hasattr(v, "items"):
-            yield from _flat(v, prefix + (str(k),))
-        else:
-            yield prefix + (str(k),), v
-
-
 def params_from_flax(params, batch_stats=None) -> dict:
     """Convert the reference's flax ``params`` (and BatchNorm
     ``batch_stats``) into the port's export state (:func:`state_of`).
@@ -300,7 +292,7 @@ def params_from_flax(params, batch_stats=None) -> dict:
     ``(out, in)``; norm ``scale``/``bias`` and ``mean``/``var`` keep their
     names.  A leaf that maps to nothing raises ``KeyError``."""
     out = {}
-    for path, leaf in _flat(params):
+    for path, leaf in _common.flax_leaves(params):
         name = _module_name(path[:-1])
         a = np.asarray(leaf, dtype=np.float32)
         if path[-1] == "kernel" and a.ndim == 4:
@@ -315,7 +307,7 @@ def params_from_flax(params, batch_stats=None) -> dict:
     state = {"params": out}
     if batch_stats is not None:
         stats = {}
-        for path, leaf in _flat(batch_stats):
+        for path, leaf in _common.flax_leaves(batch_stats):
             if path[-1] not in ("mean", "var"):
                 raise KeyError(f"unmapped flax statistic {'/'.join(path)}")
             stats[f"{_module_name(path[:-1])}.{path[-1]}"] = np.asarray(

@@ -18,8 +18,11 @@ mesh, with ``jax.value_and_grad``, an optional
 - the optimizer step, which updates the parameters in place (where the
   reference returns new arrays).
 
-Data parallel only; the bucketed and sharded exchanges of
-``parallel/collectives.py`` are not ported yet.
+A model may supply its own step built from the same pieces
+(``models/widedeep.py::make_sharded_train_step``: :func:`gradients_of`,
+:func:`average_across_ranks`, :func:`all_gather_cat`).  Data parallel
+only; the bucketed and sharded exchanges of ``parallel/collectives.py``
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,20 +35,26 @@ import torch
 class TrainState:
     """``params`` (the model's parameters by name: the tensors the
     optimizer updates in place), ``opt_state`` (the optimizer, which owns
-    the moments) and ``step`` (completed steps).  The reference's non-param
-    ``collections`` (BatchNorm statistics) wait for BatchNorm training."""
+    the moments), ``step`` (completed steps) and ``collections``: the
+    model's non-param state by collection (``{"embedding": {"deep": t,
+    ...}}`` for wide&deep, from the module's ``collections()``; empty for a
+    model without one), live tensors that a model's own step updates in
+    place."""
 
-    def __init__(self, params, opt_state, step: int = 0):
+    def __init__(self, params, opt_state, step: int = 0, collections=None):
         self.params = params
         self.opt_state = opt_state
         self.step = step
+        self.collections = collections or {}
 
 
 def create_train_state(model: torch.nn.Module, optimizer) -> TrainState:
-    return TrainState(dict(model.named_parameters()), optimizer)
+    collections = getattr(model, "collections", None)
+    return TrainState(dict(model.named_parameters()), optimizer,
+                      collections=collections() if collections else None)
 
 
-def _world():
+def world_size():
     """The initialised ``torch.distributed`` group's size (1 without one)."""
     import torch.distributed as dist
 
@@ -54,8 +63,33 @@ def _world():
     return 1
 
 
-def _average_across_ranks(grads: list[torch.Tensor], loss: torch.Tensor,
-                          world: int) -> torch.Tensor:
+def gradients_of(params: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The ``.grad`` of every parameter; raises when the loss reached only
+    some of them."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if len(grads) != len(params):
+        raise RuntimeError(
+            f"{len(params) - len(grads)} of {len(params)} parameters got "
+            "no gradient: the loss does not reach them")
+    return grads
+
+
+def all_gather_cat(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Each tensor all-gathered over the group and concatenated along dim
+    0 in rank order: the global batch's rows, as one process would hold
+    them.  Every rank must pass the same shapes."""
+    import torch.distributed as dist
+
+    out = []
+    for t in tensors:
+        parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, t.contiguous())
+        out.append(torch.cat(parts))
+    return out
+
+
+def average_across_ranks(grads: list[torch.Tensor], loss: torch.Tensor,
+                         world: int) -> torch.Tensor:
     """Average ``grads`` (in place) and ``loss`` over the ranks with one
     ``all_reduce`` of one flat f32 buffer; returns the averaged loss."""
     import torch.distributed as dist
@@ -96,13 +130,9 @@ def make_train_step(loss_fn: Callable[[Any, Any], torch.Tensor], optimizer,
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(model, batch)
         loss.backward()
-        grads = [p.grad for p in params if p.grad is not None]
-        if len(grads) != len(params):
-            raise RuntimeError(
-                f"{len(params) - len(grads)} of {len(params)} parameters got "
-                "no gradient: the loss does not reach them")
-        world = _world()
-        loss = (_average_across_ranks(grads, loss, world) if world > 1
+        grads = gradients_of(params)
+        world = world_size()
+        loss = (average_across_ranks(grads, loss, world) if world > 1
                 else loss.detach())
         if clip_global_norm is not None:
             clip_by_global_norm_(grads, float(clip_global_norm))

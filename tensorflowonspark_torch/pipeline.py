@@ -1,8 +1,11 @@
-"""Spark ML pipeline integration: ``TFModel`` (batch inference).
+"""Spark ML pipeline integration: ``TFEstimator`` (training) and
+``TFModel`` (batch inference).
 
 Reference anchor: ``tensorflowonspark_tpu/pipeline.py`` (``TFParams`` +
-``Has*`` param mixins, ``TFModel.transform(df)`` →
-``df.rdd.mapPartitions(_RunModel)`` with a per-executor cached model).
+``Has*`` param mixins, ``TFEstimator.fit(df)`` → ``TFCluster.run`` →
+``cluster.train(df.rdd.map(list))`` → ``TFModel``, and
+``TFModel.transform(df)`` → ``df.rdd.mapPartitions(_RunModel)`` with a
+per-executor cached model).
 
 The port serves by ``model_name``: the export holds weights only
 (``compat.export_saved_model``), and each executor rebuilds the zoo model,
@@ -15,14 +18,14 @@ Device rule: ``TFModel(device=...)``; unset, each executor reads
 ``TFOS_TORCH_DEVICE`` (inherited from the driver) and otherwise runs on
 ``cuda``, raising where there is no card (``util.select_device``).
 
-Not ported yet: ``TFEstimator`` and all training, the self-describing
-serialized forward, the obs spans / flight recorder / cost ledger of the
-reference's ``_RunModel.__call__``, the persistent compile cache and the
-serving health probe.
+Not ported yet: the self-describing serialized forward, the obs spans /
+flight recorder / cost ledger of the reference's ``_RunModel.__call__``,
+the persistent compile cache and the serving health probe.
 """
 
 from __future__ import annotations
 
+import argparse
 import logging
 from typing import Any, Callable, Sequence
 
@@ -80,6 +83,13 @@ class Params:
     def isDefined(self, name: str) -> bool:
         return name in self._paramMap or self._params()[name].default is not None
 
+    def _copyValues(self, to: "Params") -> "Params":
+        """Copy explicitly-set values for params the target also declares."""
+        shared = to._params().keys() & self._paramMap.keys()
+        for k in shared:
+            to._paramMap[k] = self._paramMap[k]
+        return to
+
     def extractParamMap(self) -> dict[str, Any]:
         return {k: self.getOrDefault(k) for k in self._params()}
 
@@ -102,6 +112,29 @@ def _make_has(mixin_name: str, param_name: str, doc: str, default: Any = None):
 
 
 HasBatchSize = _make_has("HasBatchSize", "batch_size", "records per batch", 100)
+HasEpochs = _make_has("HasEpochs", "epochs", "number of epochs", 1)
+HasSteps = _make_has("HasSteps", "steps", "max training steps", 1000)
+HasClusterSize = _make_has("HasClusterSize", "cluster_size",
+                           "number of nodes", 1)
+HasNumPS = _make_has(
+    "HasNumPS", "num_ps",
+    "reference parameter-server count; there are no parameter servers "
+    "(recorded on the node context as ctx.num_ps)", 0)
+HasInputMode = _make_has("HasInputMode", "input_mode",
+                         "InputMode.SPARK or InputMode.TENSORFLOW", None)
+HasProtocol = _make_has(
+    "HasProtocol", "protocol",
+    "reference grpc|grpc+verbs knob; the tensor plane is torch.distributed "
+    "(NCCL on cards, gloo on the CPU) here", "grpc")
+HasReaders = _make_has("HasReaders", "readers", "parallel file readers", 1)
+HasTensorboard = _make_has("HasTensorboard", "tensorboard",
+                           "launch TensorBoard on one node", False)
+HasTFRecordDir = _make_has("HasTFRecordDir", "tfrecord_dir",
+                           "TFRecord export dir for DataFrame input", None)
+HasMasterNode = _make_has("HasMasterNode", "master_node",
+                          "job name of the chief node", "chief")
+HasGraceSecs = _make_has("HasGraceSecs", "grace_secs",
+                         "grace period on shutdown", 30)
 HasInputMapping = _make_has(
     "HasInputMapping", "input_mapping",
     "dict: DataFrame column -> model input name", None)
@@ -136,6 +169,86 @@ class TFParams(Params):
     def __init__(self, tf_args: Any = None):
         super().__init__()
         self.tf_args = tf_args
+
+    def merge_args(self) -> argparse.Namespace:
+        """Spark ML params + ``tf_args`` → one ``argparse.Namespace``.
+
+        Params explicitly set (or defaulted) become attributes; ``tf_args``
+        entries win on conflict so CLI users keep full control.
+        """
+        merged = dict(self.extractParamMap())
+        ta = self.tf_args
+        if ta is None:
+            pass
+        elif isinstance(ta, argparse.Namespace):
+            merged.update(vars(ta))
+        elif isinstance(ta, dict):
+            merged.update(ta)
+        elif isinstance(ta, (list, tuple)):  # raw argv: keep as-is for parity
+            merged["argv"] = list(ta)
+        else:
+            merged.update({k: v for k, v in vars(ta).items()
+                           if not k.startswith("_")})
+        return argparse.Namespace(**merged)
+
+
+# ---------------------------------------------------------------------------
+# Estimator
+# ---------------------------------------------------------------------------
+
+
+class TFEstimator(TFParams, HasBatchSize, HasEpochs, HasSteps, HasClusterSize,
+                  HasNumPS, HasInputMode, HasInputMapping, HasOutputMapping,
+                  HasModelDir, HasExportDir, HasSignatureDefKey, HasTagSet,
+                  HasProtocol, HasReaders, HasTensorboard, HasTFRecordDir,
+                  HasMasterNode, HasGraceSecs, HasModelName):
+    """Spark ML ``Estimator`` that trains ``train_fn`` on a cluster.
+
+    ``train_fn(args, ctx)`` is a ``TFCluster`` ``map_fun``; ``args`` is
+    :meth:`merge_args`.  ``fit(df)`` runs the cluster, feeds it the
+    DataFrame's rows (``InputMode.SPARK``, the default) for ``epochs``,
+    shuts it down and returns a :class:`TFModel` carrying the values set
+    here (``export_dir``, ``model_name``, ...), to serve what ``train_fn``
+    exported.
+    """
+
+    def __init__(self, train_fn: Callable, tf_args: Any = None):
+        super().__init__(tf_args)
+        self.train_fn = train_fn
+
+    def fit(self, df) -> "TFModel":
+        return self._fit(df)
+
+    def _fit(self, df) -> "TFModel":
+        from tensorflowonspark_torch import TFCluster, obs
+
+        sc = _spark_context_of(df)
+        args = self.merge_args()
+        input_mode = self.getOrDefault("input_mode")
+        # None test, not falsy-or: legacy int InputMode.TENSORFLOW is 0
+        input_mode = (TFCluster.InputMode.SPARK if input_mode is None
+                      else TFCluster.InputMode(input_mode))
+
+        logger.info("TFEstimator.fit: cluster_size=%d input_mode=%s",
+                    self.getOrDefault("cluster_size"), input_mode)
+        with obs.span("pipeline.fit",
+                      cluster_size=self.getOrDefault("cluster_size")):
+            cluster = TFCluster.run(
+                sc, self.train_fn, args,
+                num_executors=self.getOrDefault("cluster_size"),
+                num_ps=self.getOrDefault("num_ps"),
+                tensorboard=self.getOrDefault("tensorboard"),
+                input_mode=input_mode,
+                master_node=self.getOrDefault("master_node"),
+            )
+            if input_mode is TFCluster.InputMode.SPARK:
+                cluster.train(df.rdd.map(list),
+                              num_epochs=self.getOrDefault("epochs"))
+            cluster.shutdown(grace_secs=self.getOrDefault("grace_secs"))
+
+        model = TFModel(tf_args=self.tf_args)
+        self._copyValues(model)
+        return model
 
 
 # ---------------------------------------------------------------------------
@@ -312,7 +425,7 @@ class _RunModel:
         # set by _load() on the executor
         self._cache_key = None
         self._device = None
-        self._export_specs = None  # shapes of the export's params
+        self._export_specs = None  # the export's tree of shapes
 
     def sampler(self) -> "_RunModel":
         """A copy that scores only the FIRST row of its partition."""
@@ -342,20 +455,15 @@ class _RunModel:
 
         state = ckpt.load_pytree(path)
         params = state.get("params", state)
-        specs = {k: shapes.TensorSpec(v.shape, v.dtype)
-                 for k, v in params.items()}
+        specs = _spec_tree(state)
         if self.predict_fn is not None:
             return self.predict_fn, params, specs
         if not self.model_name:
             raise ValueError("TFModel needs model_name or predict_fn")
-        import dataclasses
-
         from tensorflowonspark_torch import models as model_zoo
 
         lib = model_zoo.get_model(self.model_name)
-        config = lib.Config.tiny() if _is_tiny(params, lib) else lib.Config()
-        if state.get("collections"):
-            config = dataclasses.replace(config, norm="batch")
+        config = lib.config_from_state(state)
         model = lib.load_state(lib.make_model(config), state)
         model = model.to(self._device).eval()
         logger.info("executor loaded %s from %s onto %s", self.model_name,
@@ -431,14 +539,12 @@ def _name_outputs(outputs, out_map) -> dict:
     return named
 
 
-def _is_tiny(params: dict, lib) -> bool:
-    """Do the export's parameter shapes match the zoo's ``Config.tiny()``?
-    Lets transform serve test-sized and full-sized exports without the
-    caller passing a config."""
-    tiny = lib.make_model(lib.Config.tiny())
-    tiny_shapes = sorted(tuple(p.shape) for p in tiny.parameters())
-    return tiny_shapes == sorted(tuple(getattr(v, "shape", ()))
-                                 for v in params.values())
+def _spec_tree(tree: dict) -> dict:
+    """``tree`` with a ``shapes.TensorSpec`` in place of each array."""
+    from tensorflowonspark_torch import shapes
+
+    return {k: _spec_tree(v) if isinstance(v, dict)
+            else shapes.TensorSpec(v.shape, v.dtype) for k, v in tree.items()}
 
 
 def single_node_env(device: str | None = None) -> torch.device:

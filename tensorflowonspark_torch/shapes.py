@@ -110,14 +110,16 @@ def input_specs(example: Mapping[str, Any]) -> dict[str, tuple[tuple, Any]]:
     return specs
 
 
-def model_specs(model_name: str, *, tiny: bool = False
+def model_specs(model_name: str, *, tiny: bool = False, config: Any = None
                 ) -> dict[str, tuple[tuple, Any]]:
     """Input specs from a zoo entry's own example batch, training targets
-    (:data:`LABEL_KEYS`) stripped; ``tiny`` selects ``Config.tiny()``."""
+    (:data:`LABEL_KEYS`) stripped, at ``config``, else ``Config.tiny()``
+    with ``tiny``, else ``Config()``."""
     from tensorflowonspark_torch import models as model_zoo
 
     lib = model_zoo.get_model(model_name)
-    config = lib.Config.tiny() if tiny else lib.Config()
+    if config is None:
+        config = lib.Config.tiny() if tiny else lib.Config()
     example = lib.example_batch(config, batch_size=1)
     rows = {k: np.asarray(v)[0] for k, v in example.items()
             if k not in LABEL_KEYS}
@@ -128,15 +130,16 @@ def model_specs(model_name: str, *, tiny: bool = False
     return input_specs(rows)
 
 
-def policy_specs(model_name: str, params: Any
+def policy_specs(model_name: str, export_specs: Any
                  ) -> dict[str, tuple[tuple, Any]]:
-    """:func:`model_specs` at the geometry the loaded export's ``params``
-    imply (tiny or full)."""
+    """:func:`model_specs` at the config the loaded export's shapes imply
+    (the zoo module's ``config_from_state`` over ``export_specs``, the
+    export's tree with a :class:`TensorSpec` a leaf)."""
     from tensorflowonspark_torch import models as model_zoo
-    from tensorflowonspark_torch.pipeline import _is_tiny
 
     lib = model_zoo.get_model(model_name)
-    return model_specs(model_name, tiny=_is_tiny(params, lib))
+    return model_specs(model_name,
+                       config=lib.config_from_state(export_specs))
 
 
 def zero_batch(specs: Mapping[str, tuple[tuple, Any]], rows: int) -> dict:

@@ -12,9 +12,12 @@ processes (``torch.distributed``, formed by the cluster bootstrap) instead
 of a mesh; the step runs eagerly (no compile); the default optimizer is
 ``torch.optim.AdamW`` with ``optax.adamw``'s defaults (``weight_decay=1e-4``
 — torch's own default is 1e-2 — and decay on every parameter, norm scale
-and bias included, as optax without a mask).  Checkpoints, export, the
-step watchdog, profiler annotations and the elastic path are not ported
-yet.
+and bias included, as optax without a mask).  As in the reference, a zoo
+module may prescribe its optimizer (``make_optimizer``) and its own step
+(``make_sharded_train_step``, wide&deep's table update).  :meth:`Trainer.
+export` writes the weights-only form; the self-describing serialized
+forward, checkpoints, the step watchdog, profiler annotations and the
+elastic path are not ported yet.
 """
 
 from __future__ import annotations
@@ -54,7 +57,9 @@ class Trainer:
         """``optimizer``, when given, builds the optimizer from the model's
         parameters (``optimizer(params) -> torch.optim.Optimizer``): the
         parameters exist only once the trainer has built the model, where
-        the reference takes a stateless optax transformation."""
+        the reference takes a stateless optax transformation.  A zoo
+        module's ``make_optimizer(config, learning_rate)`` returns such a
+        factory."""
         from tensorflowonspark_torch import obs
 
         _t0_wall, _t0 = time.time(), time.perf_counter()
@@ -70,17 +75,24 @@ class Trainer:
             self.device)
         self.model.train()
         if optimizer is None:
-            def optimizer(params):
-                return torch.optim.AdamW(
-                    params, lr=learning_rate, betas=ADAMW_BETAS,
-                    eps=ADAMW_EPS, weight_decay=ADAMW_WEIGHT_DECAY)
+            # a zoo module may prescribe its own optimizer recipe
+            make_opt = getattr(self.module_lib, "make_optimizer", None)
+            optimizer = (make_opt(self.config, learning_rate) if make_opt
+                         else _adamw(learning_rate))
         self.optimizer = optimizer(self.model.parameters())
         self.loss_fn = self.module_lib.make_loss_fn(self.model, self.config)
         self.forward_fn = self.module_lib.make_forward_fn(self.model,
                                                           self.config)
         self.state = create_train_state(self.model, self.optimizer)
-        self.train_step = make_train_step(self.loss_fn, self.optimizer,
-                                          self.model)
+        # a zoo module may supply its own step (wide&deep's table update)
+        make_custom = getattr(self.module_lib, "make_sharded_train_step",
+                              None)
+        if make_custom is not None:
+            self.train_step = make_custom(self.model, self.config,
+                                          self.optimizer)
+        else:
+            self.train_step = make_train_step(self.loss_fn, self.optimizer,
+                                              self.model)
         self.eval_step = make_eval_step(self.forward_fn, self.model)
         self._step_callbacks: list = []
         self._last_step_t: float | None = None
@@ -165,11 +177,38 @@ class Trainer:
         return loss
 
     def predict(self, batch):
+        """The model's forward on ``batch``, reading its collections (the
+        wide&deep tables) as they stand."""
         return self.eval_step(self.shard(batch))
 
     @property
     def params(self) -> dict:
         return self.state.params
+
+    def export(self, export_dir: str) -> str:
+        """Write the weights-only serving export (``compat.
+        export_saved_model``): ``params`` plus the serving collections.
+        Optimizer-only collections (suffix ``_opt``: the AdaGrad
+        accumulators) are stripped, as the reference's ``Trainer.export``
+        does.  ``TFModel`` serves it by ``model_name``.  Returns the path
+        written."""
+        from tensorflowonspark_torch import compat
+
+        state = self.module_lib.state_of(self.model)
+        serving = {k: v for k, v in state.pop("collections", {}).items()
+                   if not k.endswith("_opt")}
+        if serving:
+            state["collections"] = serving
+        return compat.export_saved_model(state, export_dir)
+
+
+def _adamw(learning_rate: float):
+    def optimizer(params):
+        return torch.optim.AdamW(
+            params, lr=learning_rate, betas=ADAMW_BETAS, eps=ADAMW_EPS,
+            weight_decay=ADAMW_WEIGHT_DECAY)
+
+    return optimizer
 
 
 def _batch_examples(batch) -> int:

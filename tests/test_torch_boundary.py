@@ -46,6 +46,7 @@ def test_importing_every_port_module_loads_nothing_of_jax():
     assert doc["banned"] == []
     for name in ("pipeline", "serving", "shapes", "ckpt", "compat",
                  "readers", "sql_compat", "util", "models.resnet",
+                 "models.widedeep", "embedding", "kernels.sparse_adagrad",
                  "kernels.group_norm", "kernels._build", "sparkapi.context",
                  "TFCluster", "TFSparkNode", "TFNode", "TFManager",
                  "reservation", "shm", "marker", "metrics", "fs",

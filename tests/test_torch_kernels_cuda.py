@@ -1,4 +1,5 @@
-"""The CUDA kernels of the port on the card, against their plain twins.
+"""The CUDA kernels of the port on the card, against their plain twins:
+the fused GroupNorm forward and backward, and the AdaGrad table update.
 
 Needs a CUDA card (the kernels have no CPU mode) and skips without one.
 It imports nothing of JAX, so it also runs where JAX is not installed:
@@ -9,7 +10,9 @@ tests/test_torch_kernels_cuda.py`` from the repository root.
 import pytest
 import torch
 
-from tensorflowonspark_torch.kernels import group_norm
+import chip_smoke
+from tensorflowonspark_torch import embedding
+from tensorflowonspark_torch.kernels import group_norm, sparse_adagrad
 
 EPS = 1e-6
 MODES = [(False, True), (True, True), (False, False)]  # (residual, relu)
@@ -223,3 +226,165 @@ def test_forward_with_grad_reaches_upstream_conv_weight():
     for t in (weight, res, gamma, beta):
         assert t.grad is not None and bool(torch.isfinite(t.grad).all())
         assert float(t.grad.float().abs().sum()) > 0
+
+
+# --- the AdaGrad table update (csrc/sparse_adagrad.cu) ---------------------
+
+#: |kernel - plain| <= this x max|plain| over the touched rows: f32, and
+#: only the order of the duplicates' sums differs (the plain version's
+#: index_add_ uses atomics), besides torch.rsqrt's ulps
+TABLE_TOL_REL = 1e-5
+
+
+def _table_case(vocab, row, ids_shape, id_dtype, dups, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    table = torch.randn(vocab, *row, generator=gen, device="cuda")
+    acc = torch.rand(vocab, *row, generator=gen, device="cuda")
+    n = int(torch.tensor(ids_shape).prod())
+    ids = (torch.randint(0, max(1, vocab // 8), (n,), generator=gen,
+                         device="cuda") if dups
+           else torch.randperm(vocab, generator=gen, device="cuda")[:n])
+    ids = ids.reshape(ids_shape).to(id_dtype)
+    g = torch.randn(*ids_shape, *row, generator=gen, device="cuda")
+    return table, acc, ids, g
+
+
+def _check_table(table, acc, ids, g, combine):
+    """The kernel twice on copies against the plain version: within
+    ``TABLE_TOL_REL``, untouched rows bit-identical, the same bits twice,
+    one launch a call on the mode's path."""
+    path = "combine" if combine else "sparse"
+    rows = table.shape[0]
+    flat = embedding.wrap_ids(ids.reshape(-1).long(), rows)
+    touched = torch.zeros(rows, dtype=torch.bool, device="cuda")
+    touched[flat[(flat >= 0) & (flat < rows)]] = True
+    outs = []
+    for _ in range(2):
+        t, a = table.clone(), acc.clone()
+        before = dict(sparse_adagrad.launches_by_path)
+        assert embedding.sparse_adagrad_update(t, a, ids, g, 0.1,
+                                               combine=combine) == (t, a)
+        torch.cuda.synchronize()
+        assert sparse_adagrad.launches_by_path == {
+            **before, path: before[path] + 1}
+        outs.append((t, a))
+    tp, ap = embedding.sparse_adagrad_update_plain(
+        table.clone(), acc.clone(), ids, g, 0.1, combine=combine)
+    (t1, a1), (t2, a2) = outs
+    assert torch.equal(t1, t2) and torch.equal(a1, a2)
+    for got, want, orig in ((t1, tp, table), (a1, ap, acc)):
+        got2, want2 = got.reshape(rows, -1), want.reshape(rows, -1)
+        err = (got2 - want2).abs()[touched].max()
+        assert err <= TABLE_TOL_REL * want2.abs()[touched].max()
+        moved = (got != orig).reshape(rows, -1).any(dim=1)
+        assert not bool((moved & ~touched).any())
+        assert bool(moved[touched].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combine", [False, True], ids=["sparse", "combine"])
+@pytest.mark.parametrize("row,ids_shape,id_dtype,dups", [
+    ((32,), (64, 26), torch.int32, True),  # deep rows, duplicates
+    ((32,), (64, 26), torch.int64, False),  # deep rows, unique, int64
+    ((), (64, 26), torch.int32, True),  # the wide table's scalar rows
+    ((), (300,), torch.int64, True),
+    ((5,), (7, 3), torch.int64, True),  # a row narrower than a warp
+    ((40,), (50,), torch.int32, True),  # wider: lanes loop over the row
+], ids=["deep_dups", "deep_unique_int64", "wide_dups", "wide_int64",
+        "row5", "row40"])
+def test_table_kernel_matches_plain_on_card(row, ids_shape, id_dtype, dups,
+                                            combine):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _check_table(*_table_case(4096, row, ids_shape, id_dtype, dups),
+                 combine)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combine", [False, True], ids=["sparse", "combine"])
+def test_table_kernel_drops_out_of_range_ids_on_card(combine):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    table, acc, ids, g = _table_case(64, (32,), (40,), torch.int64, True)
+    ids[::7] = 64
+    ids[3] = -65  # below -vocab: dropped, as JAX's scatter drops it
+    ids[4] = -1  # row 63, as JAX's .at[ids] reads a negative index
+    _check_table(table, acc, ids, g, combine)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combine", [False, True], ids=["sparse", "combine"])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_table_kernel_wraps_negative_ids_on_card(combine, id_dtype):
+    """An id in ``[-vocab, 0)`` is row ``id + vocab``: the same bits as the
+    wrapped ids, its occurrences in one segment with the row's others."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    table, acc, ids, g = _table_case(64, (32,), (40,), id_dtype, True)
+    ids[::3] -= 64
+    assert bool((ids < 0).any())
+    _check_table(table, acc, ids, g, combine)
+    got = [x.clone() for x in (table, acc)]
+    want = [x.clone() for x in (table, acc)]
+    embedding.sparse_adagrad_update(*got, ids, g, 0.1, combine=combine)
+    embedding.sparse_adagrad_update(*want, ids % 64, g, 0.1, combine=combine)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_table_kernel_rejects_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    table, acc, ids, g = _table_case(64, (32,), (8,), torch.int32, False)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        embedding.sparse_adagrad_update(table.double(), acc, ids, g, 0.1)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        embedding.sparse_adagrad_update(table.t().contiguous().t(), acc, ids,
+                                        g, 0.1)
+    with pytest.raises(ValueError, match="sort_ids"):
+        embedding.sparse_adagrad_update(table, acc, ids, g, 0.1,
+                                        order=embedding.sort_ids(ids.long(), 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_update", ["dense", "sparse"])
+def test_wide_deep_step_launches_the_table_kernel_twice(table_update):
+    """``Trainer("wide_deep")`` on the card: 2 table launches a step on the
+    mode's path, a finite loss, and the same step with the plain table
+    update leaves the same MLP and tables within the kernel's tolerance.
+    The plain update runs on the CPU, where ``index_add_`` adds a row's
+    occurrences in batch order as the kernel does: at zero accumulators a
+    row whose occurrences nearly cancel makes the update ill-conditioned,
+    so the card's atomic order would not do as the reference."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import dataclasses
+
+    from tensorflowonspark_torch.models import widedeep
+    from tensorflowonspark_torch.trainer import Trainer
+
+    config = dataclasses.replace(widedeep.Config.tiny(),
+                                 table_update=table_update)
+    batch = widedeep.example_batch(config, 64, seed=1)
+    path = "combine" if table_update == "dense" else "sparse"
+    t = Trainer("wide_deep", config=config, device="cuda")
+    before = dict(sparse_adagrad.launches_by_path)
+    loss = float(t.step(batch))
+    torch.cuda.synchronize()
+    assert sparse_adagrad.launches_by_path == {**before,
+                                               path: before[path] + 2}
+    assert loss == loss and loss > 0
+    plain = Trainer("wide_deep", config=config, device="cuda")
+    kernel_update = embedding.sparse_adagrad_update
+    embedding.sparse_adagrad_update = chip_smoke._plain_table_update
+    try:
+        assert float(plain.step(batch)) == loss
+    finally:
+        embedding.sparse_adagrad_update = kernel_update
+    for k, p in t.model.named_parameters():
+        assert torch.equal(p, dict(plain.model.named_parameters())[k]), k
+    for group, leaves in t.model.collections().items():
+        for k, got in leaves.items():
+            want = plain.model.collections()[group][k]
+            assert float((got - want).abs().max()) <= \
+                TABLE_TOL_REL * float(want.abs().max()), k

@@ -178,8 +178,14 @@ def test_export_round_trip(tmp_path):
 
 
 def test_is_tiny_detects_the_export_geometry():
-    tiny = port.state_of(port.make_model(port.Config.tiny()))["params"]
+    """The export's geometry picks the config ``TFModel`` rebuilds:
+    ``resnet.config_from_state`` (the rule moved there from the
+    pipeline) — tiny or full by the parameter shapes, BatchNorm where the
+    export carries statistics."""
+    tiny = port.state_of(port.make_model(port.Config.tiny()))
     with torch.device("meta"):  # shapes only
         full = dict(port.ResNet(port.Config()).named_parameters())
-    assert pipeline._is_tiny(tiny, port)
-    assert not pipeline._is_tiny(full, port)
+    assert port.config_from_state(tiny) == port.Config.tiny()
+    assert port.config_from_state({"params": full}) == port.Config()
+    batch = port.state_of(port.make_model(port.Config.tiny("batch")))
+    assert port.config_from_state(batch) == port.Config.tiny("batch")
