@@ -54,39 +54,47 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    trainer.shard)`` → 4 ``Trainer.step``s at batch 64 → ``shutdown``.  The
    final loss against an in-process ``Trainer`` on the same batches, the
    executor's forward and backward launches, and the cluster's images/s.
-8. Table-kernel phase: ``embedding.sparse_adagrad_update`` (the AdaGrad
-   kernel, ``csrc/sparse_adagrad.cu``) on the full ``widedeep.Config()``
-   tables (2.6 M rows; deep rows of 32 f32, wide rows scalar) at batch 1024
-   (26,624 ids), both modes, ids uniform over each feature's buckets and
-   Zipf(1.1)-distributed, every case from the same seeded tables.  Each
-   case: the kernel against its plain version on the card within
-   ``TABLE_TOL_REL``, untouched rows bit-identical, the same bits twice,
-   one counted launch a call; the wrapper's time (CUDA events, the id sort
-   included), the kernel's and the sort's device time (CUPTI), the plain
-   version's and the literal dense path's times beside ``bound_ms``; the
-   wrapper's host time a call.
+8. Table-kernel phase: the table path of ``embedding`` on the full
+   ``widedeep.Config()`` tables (2.6 M rows; deep rows of 32 f32, wide rows
+   scalar) at batch 1024 (26,624 ids), both modes, every case from the same
+   seeded tables: the step's deep and wide pair in one launch
+   (``sparse_adagrad_update_tables``) for uniform, Zipf(1.1), int64,
+   8-rank all-gathered Zipf (212,992 ids) and all-equal ids, and deep and
+   wide alone (``sparse_adagrad_update``) for uniform and Zipf ids.  Each
+   case: the grouping kernel against ``sort_ids`` bit for bit; the update
+   bit for bit the plain version run on the CPU (on the touched rows, ids
+   remapped onto them) and within ``TABLE_TOL_REL`` of the plain version
+   on the card (its atomic order printed, not gated, where one row takes
+   every occurrence); untouched rows bit-identical, the same bits twice,
+   one grouping and one update launch a call.  Times: the grouping's,
+   ``torch.sort``'s (the library call) and the plain grouping's, the
+   update's, the whole path's (CUDA events) and each kernel's device time
+   (CUPTI), the plain version's and the literal dense path's, beside
+   ``bound_ms``; the path's host time a call.
 9. Training-model phase, wide&deep: ``Trainer("wide_deep", Config())`` at
    batch 1024 on a device-resident batch, both ``table_update`` modes.  One
-   step's MLP gradients and table updates against the same step with the
-   plain table update (run on the CPU, which adds each row's occurrences
-   in batch order, as the kernel does); 20 steps on ``synth_criteo`` rows
-   with a falling loss and 2 table launches a step; steps/s (CUDA
-   events), peak memory and the step's device time by family.
+   step's MLP gradients and tables bit for bit the same step with the
+   plain table update run on the CPU (which adds each row's occurrences in
+   batch order, as the kernel does); 20 steps on ``synth_criteo`` rows
+   with a falling loss and one grouping and one update launch a step;
+   steps/s (CUDA events), peak memory and the step's device time by family
+   (the grouping, the update and any sort named apart).
 10. Wide&deep slice, this slice's main path, once per mode: ``TFEstimator(
    criteo_train_fn).fit(df)`` (a port of ``examples/criteo/
    criteo_pipeline.py::train_fun``; one executor on the card, 8,192 rows in
    4 partitions, batch 1024) → ``TFCluster.run`` → ``cluster.train`` →
    ``DataFeed.next_batch(device_put=...)`` → 8 ``Trainer.step``s →
    ``trainer.export``; then ``TFModel.transform`` of the export.  The
-   executor's table launches (2 a step), its losses against an in-process
-   replay, the scores against an in-process forward of the exported
-   weights, and steps/s by ``cluster.metrics()``.
+   executor's table launches (one grouping and one update a step), its
+   losses against an in-process replay, the scores against an in-process
+   forward of the exported weights, and steps/s by ``cluster.metrics()``.
 
 The last lines are the card line, one JSON line listing each kernel (the
 one-pass and two-pass forwards of ``group_norm_act`` and its one-pass and
 four-launch backwards, times at the training slice's batch and under
-``_b32``/``_b256`` at the others; ``sparse_adagrad`` in each mode, times a
-training step's two calls), and ``{"ok": true, "device": {...}}``.
+``_b32``/``_b256`` at the others; the table path's id grouping, and its
+update in each mode, times of a training step's pair on Zipf ids, the
+other cases suffixed), and ``{"ok": true, "device": {...}}``.
 Without a card it exits 1 and prints no result.
 """
 
@@ -170,8 +178,19 @@ WD_MODES = (("dense", "combine"), ("sparse", "sparse"))  # table_update, path
 # |kernel - plain| <= this x max|plain| over the touched rows, table and
 # accumulator: f32, and only the order of the duplicates' sums differs
 # (the plain version's index_add_ adds them with atomics) besides
-# torch.rsqrt's <= 2 ulps against the kernel's correctly rounded 1/sqrt
+# torch.rsqrt's <= 2 ulps against the kernel's rn(1/rn(sqrt)).  The plain
+# version run on the CPU adds in batch order, as the kernels do: against
+# it every case is held bit for bit.  Where one row takes all 26,624
+# occurrences, an f32 sum in any order sits about sqrt(n) * 2^-24 = 1e-5
+# of the sum from the exact one (2e-5 of its square, the accumulator), so
+# there the atomic order's distance is printed, not gated
 TABLE_TOL_REL = 1e-5
+# the design the table path replaced (a stable torch.sort of the ids, then
+# one launch a table walking the sorted ids): device ms on an H100 80GB
+# HBM3 at 700 W, from this script's phase 8 before the redesign
+REPLACED_MS = {"sort": 0.044, "deep_uniform": 0.0078,
+               "wide_uniform": 0.0029, "deep_zipf": 0.0296,
+               "wide_zipf": 0.0237}
 # one step's MLP gradients and params, kernel path against plain table
 # update, rel L2: the table update does not reach them in the step, so
 # only cuBLAS could differ
@@ -1195,6 +1214,27 @@ def table_bound_ms(n: int, id_bytes: int, dim: int, unique: int) -> dict:
                   ops / F32_OPS_PER_S * 1e3, bytes=nbytes)
 
 
+def step_bound_ms(n: int, id_bytes: int, dims, unique: int) -> dict:
+    """The least time of a step's table path: :func:`table_bound_ms` of
+    each table whose ids are the same ``n`` ids, bytes and operations each
+    summed, the ids counted once.  The grouping lives inside it."""
+    parts = [table_bound_ms(n, id_bytes if i == 0 else 0, d, unique)
+             for i, d in enumerate(dims)]
+    return _bound(sum(b["bytes_ms"] for b in parts),
+                  sum(b["ops_ms"] for b in parts),
+                  bytes=sum(b["bytes"] for b in parts))
+
+
+def group_bound_ms(n: int, id_bytes: int, segments: int) -> dict:
+    """The least time of the id grouping: the ids read once, the grouped
+    keys and positions (int32), the segment starts and the two counts
+    written once (bytes), against a digit extraction and a count an id a
+    radix pass at the f32 rate (operations; int32 runs no faster)."""
+    nbytes = n * id_bytes + n * 8 + (segments + 1) * 4 + 8
+    return _bound(nbytes / HBM_BYTES_PER_S * 1e3,
+                  n * 3 * 2 / F32_OPS_PER_S * 1e3, bytes=nbytes)
+
+
 def _bound(bytes_ms: float, ops_ms: float, **extra) -> dict:
     return {"bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
             "ops_ms": ops_ms,
@@ -1215,90 +1255,90 @@ def _table_diff(got, want, touched) -> tuple[float, float, bool]:
     return float(diff.max()), float(scale.max()), bool(moved.any())
 
 
-def measure_table_case(table, acc, ids, g, combine: bool, label: str) -> dict:
-    """One table (deep or wide) at one id draw, in one mode: the gates and
-    the times of ``embedding.sparse_adagrad_update`` (see phase 8).
-    ``table`` and ``acc`` are left as they were: every call works on
-    clones, so each case is gated and timed from the same tables.  In
-    combine mode the plain version is the literal dense path (the library
-    comparison); in sparse mode the dense path, the reference's default
-    ``table_update``, is timed beside it."""
+def grouping_matches(grouping, ids, vocab: int) -> bool:
+    """The grouping kernel's outputs against ``embedding.group_ids_plain``
+    (``sort_ids`` of the same ids on the same device), bit for bit: the
+    in-range occurrences' wrapped ids and positions, the dropped tail, the
+    segment starts and rows, and the two counts."""
     import torch
 
     from tensorflowonspark_torch import embedding
-    from tensorflowonspark_torch.kernels import sparse_adagrad
 
-    lr = 0.01
-    rows = table.shape[0]
-    touched = torch.zeros(rows, dtype=torch.bool, device="cuda")
-    touched[ids.reshape(-1).long()] = True
-    unique = int(touched.sum())
-    path = "combine" if combine else "sparse"
-    outs = []
-    for _ in range(2):  # the kernel twice on fresh copies, one launch each
-        t, a = table.clone(), acc.clone()
-        before = dict(sparse_adagrad.launches_by_path)
-        embedding.sparse_adagrad_update(t, a, ids, g, lr, combine=combine)
-        torch.cuda.synchronize()
-        took = {k: v - before[k]
-                for k, v in sparse_adagrad.launches_by_path.items()}
-        outs.append((t, a, took))
-    (t1, a1, took1), (t2, a2, took2) = outs
-    tp, ap = table.clone(), acc.clone()
-    embedding.sparse_adagrad_update_plain(tp, ap, ids, g, lr, combine=combine)
-    torch.cuda.synchronize()
-    t_err, t_scale, _ = _table_diff(t1, tp, touched)
-    a_err, a_scale, _ = _table_diff(a1, ap, touched)
-    _, _, t_moved = _table_diff(t1, table, touched)
-    _, _, a_moved = _table_diff(a1, acc, touched)
-    same = torch.equal(t1, t2) and torch.equal(a1, a2)
-    one_launch = all(took == {**dict.fromkeys(took, 0), path: 1}
-                     for took in (took1, took2))
-    ok = (t_err <= TABLE_TOL_REL * t_scale and a_err <= TABLE_TOL_REL * a_scale
-          and not t_moved and not a_moved and same and one_launch)
-    del t1, a1, t2, a2, tp, ap, outs
-
-    wt, wa = table.clone(), acc.clone()  # the timed calls update these
-    ms = time_ms(lambda: embedding.sparse_adagrad_update(
-        wt, wa, ids, g, lr, combine=combine), 200)
-    plain_ms = time_ms(lambda: embedding.sparse_adagrad_update_plain(
-        wt, wa, ids, g, lr, combine=combine), 50)
-    dense_ms = plain_ms if combine else time_ms(
-        lambda: embedding.sparse_adagrad_update_plain(
-            wt, wa, ids, g, lr, combine=True), 20)
-    host = host_us(lambda: embedding.sparse_adagrad_update(
-        wt, wa, ids, g, lr, combine=combine))
-    device_ms, prep_ms = wrapper_device_ms(
-        lambda: embedding.sparse_adagrad_update(wt, wa, ids, g, lr,
-                                                combine=combine))
-    del wt, wa
-    dim = table[0].numel()
-    bound = table_bound_ms(ids.numel(), ids.element_size(), dim, unique)
-    case = {"max_abs_err": max(t_err, a_err), "ms": ms,
-            "device_ms": device_ms,
-            "sort_device_ms": prep_ms, "plain_ms": plain_ms,
-            "dense_path_ms": dense_ms, "host_us": host, "unique": unique,
-            **bound}
-    print(f"table {label} {path}: {ids.numel()} ids, {unique} rows touched,"
-          f" row {dim} f32; table err {t_err:.3e} / acc err {a_err:.3e} "
-          f"(tol {TABLE_TOL_REL} x {t_scale:.3e} / {a_scale:.3e}), "
-          f"untouched moved table={t_moved} acc={a_moved}, "
-          f"same_bits_twice={same}, launches {took1} {took2}; "
-          f"wrapper_ms={ms:.4f} device_ms={device_ms:.4f} "
-          f"sort_device_ms={prep_ms:.4f} "
-          f"plain_ms={plain_ms:.4f} dense_path_ms="
-          f"{'plain_ms' if combine else f'{dense_ms:.4f}'} "
-          f"bound_ms={bound['bound_ms']:.4f} ({bound['bytes']} B) "
-          f"wrapper/bound={ms / bound['bound_ms']:.1f} host_us={host:.1f} "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
-    if not ok:
-        raise SystemExit(f"table kernel {label} {path} failed")
-    return case
+    want = embedding.group_ids_plain(ids, vocab)
+    count = int(want.meta[0])
+    return (grouping.n == want.n and grouping.vocab == vocab
+            and grouping.keys.dtype == torch.int32
+            and torch.equal(grouping.keys, want.keys)
+            and torch.equal(grouping.pos, want.pos)
+            and torch.equal(grouping.meta, want.meta)
+            and torch.equal(grouping.seg_start, want.seg_start)
+            and torch.equal(grouping.seg_row[:count], want.seg_row[:count]))
 
 
-def wrapper_device_ms(call, calls: int = 20) -> tuple[float, float]:
-    """Device time per ``call()`` of the table wrapper (torch.profiler,
-    CUPTI): the table kernel's, and the rest (the id sort)."""
+def plain_on_cpu_rows(tables, ids, grads, lr: float, combine: bool):
+    """The plain update run on the CPU, whose ``index_add_`` adds a row's
+    occurrences in batch order, on copies of the touched rows only, the ids
+    remapped onto them (rows are independent, so the bits are those of the
+    whole tables).  Returns ``(touched rows, [(table rows, acc rows)])``."""
+    import torch
+
+    from tensorflowonspark_torch import embedding
+
+    vocab = tables[0][0].shape[0]
+    flat = embedding.wrap_ids(ids.reshape(-1).long(), vocab)
+    keep = (flat >= 0) & (flat < vocab)
+    rows, inverse = torch.unique(flat[keep], return_inverse=True)
+    out = []
+    for (table, acc), g in zip(tables, grads):
+        g = g.reshape(flat.shape[0], *table.shape[1:])[keep].cpu()
+        t, a = table[rows].cpu(), acc[rows].cpu()
+        embedding.sparse_adagrad_update_plain(t, a, inverse.cpu(), g, lr,
+                                              combine=combine)
+        out.append((t, a))
+    return rows, out
+
+
+def f64_rows(tables, ids, grads, lr: float, combine: bool, eps=1e-10):
+    """The update evaluated in float64 on the card, on the touched rows (as
+    :func:`plain_on_cpu_rows`): an f32 result's distance from it is its
+    rounding.  Returns ``(touched rows, [(table rows, acc rows)])``."""
+    import torch
+
+    from tensorflowonspark_torch import embedding
+
+    vocab = tables[0][0].shape[0]
+    flat = embedding.wrap_ids(ids.reshape(-1).long(), vocab)
+    keep = (flat >= 0) & (flat < vocab)
+    rows, inverse = torch.unique(flat[keep], return_inverse=True)
+    out = []
+    for (table, acc), g in zip(tables, grads):
+        g = g.reshape(flat.shape[0], *table.shape[1:])[keep].double()
+        t, a = table[rows].double(), acc[rows].double()
+        if combine:
+            s = torch.zeros_like(a).index_add_(0, inverse, g)
+            a += s * s
+            t += -lr * s * torch.rsqrt(a + eps)
+        else:
+            a.index_add_(0, inverse, g * g)
+            t.index_add_(0, inverse, -lr * g * torch.rsqrt(a[inverse] + eps))
+        out.append((t, a))
+    return rows, out
+
+
+def table_family(kernel: str) -> str | None:
+    """The table path's family of a profiled kernel name: the grouping
+    kernel, the update kernel, or ``None`` (the sort's kernels are CUB's,
+    named apart by the callers)."""
+    if "tfos_id_grouping" in kernel:
+        return "id grouping"
+    if "tfos_adagrad_segment_walk" in kernel:
+        return "table update"
+    return None
+
+
+def table_device_ms(call, calls: int = 20) -> dict:
+    """Device ms per ``call()`` (torch.profiler, CUPTI) by family: the
+    grouping kernel, the update kernel, everything else."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1309,19 +1349,157 @@ def wrapper_device_ms(call, calls: int = 20) -> tuple[float, float]:
         for _ in range(calls):
             call()
         torch.cuda.synchronize()
-    kernel = rest = 0.0
+    fams = dict.fromkeys(("id grouping", "table update", "other"), 0.0)
     for name, ms in device_kernels(prof, calls):
-        if "adagrad_segments" in name:
-            kernel += ms
+        fams[table_family(name) or "other"] += ms
+    return fams
+
+
+def measure_table_case(tables, ids, grads, combine: bool, label: str,
+                       atomic_gate: bool = True,
+                       replaced_ms: float | None = None) -> dict:
+    """One case of phase 8: ``tables`` (one or two ``(table, acc)`` pairs
+    sharing ``ids``; the deep and wide pair is a training step's) in one
+    mode.  Gates and times (see the module docstring); the tables are left
+    as they were: every call works on clones.  ``atomic_gate=False`` prints
+    the distance to the card's plain version without gating it: where one
+    row takes every occurrence, the atomic sum's own order moves it past
+    ``TABLE_TOL_REL`` (see :data:`TABLE_TOL_REL`).  ``replaced_ms``: the
+    replaced design's update time for the case, printed beside."""
+    import torch
+
+    from tensorflowonspark_torch import embedding
+    from tensorflowonspark_torch.kernels import sparse_adagrad
+
+    lr = 0.01
+    path = "combine" if combine else "sparse"
+    vocab = tables[0][0].shape[0]
+    flat = ids.reshape(-1)
+    wrapped = embedding.wrap_ids(flat, vocab)
+    inside = wrapped[(wrapped >= 0) & (wrapped < vocab)].long()
+    touched = torch.zeros(vocab, dtype=torch.bool, device="cuda")
+    touched[inside] = True
+    unique = int(touched.sum())
+
+    def entry(pairs):
+        if len(pairs) == 1:
+            embedding.sparse_adagrad_update(*pairs[0], ids, grads[0], lr,
+                                            combine=combine)
         else:
-            rest += ms
-    return kernel, rest
+            embedding.sparse_adagrad_update_tables(pairs, ids, grads, lr,
+                                                   combine=combine)
+
+    groupings = [embedding.group_ids(flat, vocab) for _ in range(2)]
+    torch.cuda.synchronize()
+    grouped = all(grouping_matches(g, flat, vocab) for g in groupings)
+    segments = int(groupings[0].meta[0])
+    outs = []
+    for _ in range(2):  # the path twice on fresh copies
+        pairs = [(t.clone(), a.clone()) for t, a in tables]
+        before = dict(sparse_adagrad.launches_by_path)
+        entry(pairs)
+        torch.cuda.synchronize()
+        outs.append((pairs, {k: v - before[k] for k, v in
+                             sparse_adagrad.launches_by_path.items()}))
+    (got, took1), (again, took2) = outs
+    same = all(torch.equal(x, y) for p, q in zip(got, again)
+               for x, y in zip(p, q))
+    launches_ok = all(took == {**dict.fromkeys(took, 0), "group": 1, path: 1}
+                      for took in (took1, took2))
+    rows, cpu = plain_on_cpu_rows(tables, ids, grads, lr, combine)
+    bit_identical = all(torch.equal(x[rows].cpu(), y)
+                        for p, q in zip(got, cpu) for x, y in zip(p, q))
+    err, worst, moved = 0.0, 0.0, False
+    f64 = {"kernel": 0.0, "card plain": 0.0}  # worst |x - f64| / max|f64|
+    _, exact = f64_rows(tables, ids, grads, lr, combine)
+    for (t, a), (t0, a0), g, pair64 in zip(got, tables, grads, exact):
+        tp, ap = t0.clone(), a0.clone()
+        embedding.sparse_adagrad_update_plain(tp, ap, ids, g, lr,
+                                              combine=combine)
+        for x, want, orig, x64 in ((t, tp, t0, pair64[0]),
+                                   (a, ap, a0, pair64[1])):
+            e, scale, _ = _table_diff(x, want, touched)
+            err, worst = max(err, e), max(worst, e / max(scale, 1e-30))
+            moved |= _table_diff(x, orig, touched)[2]
+            for k, y in (("kernel", x), ("card plain", want)):
+                d = (y[rows].double() - x64).abs().max()
+                f64[k] = max(f64[k], float(d / x64.abs().max().clamp_min(
+                    1e-300)))
+        del tp, ap
+    del exact
+    tol_ok = worst <= TABLE_TOL_REL or not atomic_gate
+    ok = (grouped and same and launches_ok and bit_identical and tol_ok
+          and not moved)
+    del outs, got, again, cpu
+
+    work = [(t.clone(), a.clone()) for t, a in tables]  # timed calls update
+    grouping = groupings[0]
+    rows3 = [(t, a, g.reshape(flat.numel(), *t.shape[1:]))
+             for (t, a), g in zip(work, grads)]
+    ms = time_ms(lambda: entry(work), 200)
+    group_ms = time_ms(lambda: sparse_adagrad.group(flat, vocab), 200)
+    sort_ms = time_ms(lambda: torch.sort(wrapped, stable=True), 200)
+    group_plain_ms = time_ms(lambda: embedding.group_ids_plain(flat, vocab),
+                             20)
+    update_ms = time_ms(lambda: sparse_adagrad.update(
+        rows3, grouping, lr, 1e-10, combine), 200)
+    plain_ms = time_ms(lambda: [embedding.sparse_adagrad_update_plain(
+        t, a, ids, g, lr, combine=combine)
+        for (t, a), g in zip(work, grads)], 50)
+    dense_ms = plain_ms if combine else time_ms(lambda: [
+        embedding.sparse_adagrad_update_plain(t, a, ids, g, lr, combine=True)
+        for (t, a), g in zip(work, grads)], 20)
+    host = host_us(lambda: entry(work))
+    # one profiler session for the path and the library sort, told apart by
+    # name: the path launches no kernel but its two (its other ops are
+    # views, no-op casts and an empty allocation), so "other" is the sort's
+    device = table_device_ms(lambda: (entry(work),
+                                      torch.sort(wrapped, stable=True)))
+    sort_device = device["other"]
+    del work, rows3
+    dims = [t[0].numel() for t, _ in tables]
+    bound = step_bound_ms(ids.numel(), ids.element_size(), dims, unique)
+    gbound = group_bound_ms(ids.numel(), ids.element_size(), segments)
+    case = {"max_abs_err": err, "ms": update_ms, "path_ms": ms,
+            "device_ms": device["table update"],
+            "group_ms": group_ms, "group_device_ms": device["id grouping"],
+            "sort_ms": sort_ms, "sort_device_ms": sort_device,
+            "group_plain_ms": group_plain_ms, "plain_ms": plain_ms,
+            "dense_path_ms": dense_ms, "host_us": host, "unique": unique,
+            "segments": segments, "group_bound_ms": gbound["bound_ms"],
+            **bound}
+    print(f"table {label} {path}: {ids.numel()} {ids.dtype} ids, {unique} "
+          f"rows touched, rows {dims} f32; grouping = sort_ids bit for bit "
+          f"{grouped}, update = plain on the CPU bit for bit "
+          f"{bit_identical}, vs plain on the card err {err:.3e}, worst "
+          f"err/max {worst:.3e} (tol {TABLE_TOL_REL}"
+          f"{'' if atomic_gate else ', not gated'}) {tol_ok}, vs float64 "
+          f"worst err/max: kernel {f64['kernel']:.3e} card plain "
+          f"{f64['card plain']:.3e}, untouched moved {moved}, "
+          f"same bits twice {same}, launches {took1} {took2}; device ms: "
+          f"grouping={device['id grouping']:.4f} update="
+          f"{device['table update']:.4f} torch.sort={sort_device:.4f} "
+          f"(replaced design: sort {REPLACED_MS['sort']}, update "
+          f"{replaced_ms if replaced_ms is not None else '-'}); "
+          f"event ms: path={ms:.4f} "
+          f"grouping={group_ms:.4f} torch.sort={sort_ms:.4f} "
+          f"grouping_plain={group_plain_ms:.4f} update={update_ms:.4f} "
+          f"plain={plain_ms:.4f} dense_path="
+          f"{'plain' if combine else f'{dense_ms:.4f}'}; bound_ms="
+          f"{bound['bound_ms']:.5f} ({bound['bytes']} B), grouping bound "
+          f"{gbound['bound_ms']:.5f}; host_us={host:.1f} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"table kernels {label} {path} failed")
+    return case
 
 
 def table_kernel_phase() -> dict:
-    """Phase 8: both modes × (deep, wide) × (uniform, Zipf) at batch 1024
-    on the full tables.  Returns, per mode, one training step's pair of
-    calls (deep + wide, uniform ids) with the other cases beside it."""
+    """Phase 8: both modes, on the full tables at batch 1024: the step's
+    deep and wide pair in one launch for uniform, Zipf, int64, 8-rank
+    all-gathered Zipf and all-equal ids; deep and wide alone for uniform
+    and Zipf ids.  Returns, per mode, the pair's Zipf case (the slice's
+    ids) with the others beside it."""
     import numpy as np
     import torch
 
@@ -1337,45 +1515,51 @@ def table_kernel_phase() -> dict:
         "wide": (0.01 * torch.randn(vocab, generator=gen, device="cuda"),
                  1e-6 * torch.rand(vocab, generator=gen, device="cuda"))}
     rng = np.random.RandomState(6)
-    draws = {}
-    for name, zipf in (("uniform", 0.0), ("zipf", WD_ZIPF)):
-        cat = torch.from_numpy(criteo_ids(rng, WD_BATCH, config.hash_buckets,
+
+    def draw(n, zipf):
+        cat = torch.from_numpy(criteo_ids(rng, n, config.hash_buckets,
                                           zipf).astype(np.int32)).cuda()
-        draws[name] = widedeep.fold_ids(cat, config)
+        return widedeep.fold_ids(cat, config)
+
+    draws = {"uniform": draw(WD_BATCH, 0.0), "zipf": draw(WD_BATCH, WD_ZIPF)}
+    draws["int64"] = draws["uniform"].long()
+    draws["ranks8_zipf"] = draw(8 * WD_BATCH, WD_ZIPF)
+    draws["same_id"] = torch.full_like(draws["uniform"], 7 * 100_000 + 3)
     result = {}
     for combine in (True, False):
-        cases = {}
-        for draw, ids in draws.items():
-            for label, (table, acc) in tables.items():
-                g = 1e-4 * torch.randn(*ids.shape, *table.shape[1:],
-                                       generator=gen, device="cuda")
-                cases[f"{label}_{draw}"] = measure_table_case(
-                    table, acc, ids, g, combine, f"{label} {draw}")
-        # int64 ids reach the same kernel (the deep table, uniform)
-        g = 1e-4 * torch.randn(*draws["uniform"].shape, dim, generator=gen,
-                               device="cuda")
-        measure_table_case(*tables["deep"], draws["uniform"].long(), g,
-                           combine, "deep uniform int64")
-        pair = (cases["deep_uniform"], cases["wide_uniform"])
-        step = {k: sum(c[k] for c in pair)
-                for k in ("ms", "device_ms", "sort_device_ms", "plain_ms",
-                          "dense_path_ms")}
-        step.update(_bound(*(sum(c[k] for c in pair)
-                             for k in ("bytes_ms", "ops_ms"))))
         path = "combine" if combine else "sparse"
-        print(f"table {path} per training step (deep + wide, uniform ids): "
-              + " ".join(f"{k}={v:.4f}" if isinstance(v, float)
-                         else f"{k}={v}" for k, v in step.items()),
-              flush=True)
-        if combine:  # the plain version is the dense path: one timing
-            del step["dense_path_ms"]
+        cases = {}
+        for name, ids in draws.items():
+            grads = [1e-4 * torch.randn(*ids.shape, *t.shape[1:],
+                                        generator=gen, device="cuda")
+                     for t, _ in tables.values()]
+            replaced = {k: REPLACED_MS.get(f"{k}_{name}") for k in tables}
+            cases[f"pair_{name}"] = measure_table_case(
+                list(tables.values()), ids, grads, combine, f"pair {name}",
+                atomic_gate=name != "same_id",
+                replaced_ms=(sum(replaced.values())
+                             if None not in replaced.values() else None))
+            if name in ("uniform", "zipf"):
+                for i, label in enumerate(tables):
+                    cases[f"{label}_{name}"] = measure_table_case(
+                        [tables[label]], ids, grads[i:i + 1], combine,
+                        f"{label} {name}", replaced_ms=replaced[label])
+        main = cases["pair_zipf"]
+        print(f"table {path} per training step (deep + wide in one launch, "
+              f"Zipf ids): " + " ".join(
+                  f"{k}={v:.5f}" if isinstance(v, float) else f"{k}={v}"
+                  for k, v in main.items()), flush=True)
         result[path] = {
+            **{k: main[k] for k in (
+                "ms", "path_ms", "device_ms", "plain_ms", "bound_ms",
+                "bytes_ms", "ops_ms", "bound_by", "host_us", "group_ms",
+                "group_device_ms", "sort_ms", "sort_device_ms",
+                "group_plain_ms", "group_bound_ms", "segments")},
             "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
-            **step,
-            "library_ms": step["plain_ms"] if combine else None,
-            "wrapper_host_us": cases["deep_uniform"]["host_us"],
-            **{f"{k}_{m}": c[m] for k, c in cases.items()
-               for m in ("ms", "device_ms", "bound_ms")}}
+            "library_ms": main["plain_ms"] if combine else None,
+            **({} if combine else {"dense_path_ms": main["dense_path_ms"]}),
+            **{f"{k}_{m}": c[m] for k, c in cases.items() if k != "pair_zipf"
+               for m in ("ms", "device_ms", "group_device_ms", "bound_ms")}}
     del tables
     torch.cuda.empty_cache()
     return result
@@ -1392,20 +1576,20 @@ def _wd_trainer(table_update: str, seed: int = 0):
                    device="cuda")
 
 
-def _plain_table_update(table, acc, ids, grad_rows, lr, eps=1e-10,
-                        combine=False, order=None):
-    """``embedding.sparse_adagrad_update`` with the plain version, run on
-    the CPU, whose ``index_add_`` adds a row's occurrences in batch order as
-    the kernel does (on the card it adds them with atomics, in no fixed
-    order): the step's twin the kernel path is held against."""
+def _plain_tables_update(tables, ids, grads, lr, eps=1e-10, combine=False):
+    """``embedding.sparse_adagrad_update_tables`` with the plain version,
+    run on the CPU, whose ``index_add_`` adds a row's occurrences in batch
+    order as the kernel does (on the card it adds them with atomics, in no
+    fixed order): the step's twin the kernel path is held against."""
     from tensorflowonspark_torch import embedding
 
-    t, a = table.cpu(), acc.cpu()
-    embedding.sparse_adagrad_update_plain(t, a, ids.cpu(), grad_rows.cpu(),
-                                          lr, eps, combine)
-    table.copy_(t)
-    acc.copy_(a)
-    return table, acc
+    for (table, acc), g in zip(tables, grads):
+        t, a = table.cpu(), acc.cpu()
+        embedding.sparse_adagrad_update_plain(t, a, ids.cpu(), g.cpu(), lr,
+                                              eps, combine)
+        table.copy_(t)
+        acc.copy_(a)
+    return tables
 
 
 def wd_train_model_phase() -> dict:
@@ -1436,12 +1620,12 @@ def wd_train_model_phase() -> dict:
         loss_k = float(kernel_t.step(batch))
         torch.cuda.synchronize()
         step_launches = dict(sparse_adagrad.launches_by_path)
-        kernel_update = embedding.sparse_adagrad_update
-        embedding.sparse_adagrad_update = _plain_table_update
+        kernel_update = embedding.sparse_adagrad_update_tables
+        embedding.sparse_adagrad_update_tables = _plain_tables_update
         try:
             loss_p = float(plain_t.step(batch))
         finally:
-            embedding.sparse_adagrad_update = kernel_update
+            embedding.sparse_adagrad_update_tables = kernel_update
         plain_launches = sparse_adagrad.launches - sum(step_launches.values())
 
         def mlp(t, grad):
@@ -1461,7 +1645,7 @@ def wd_train_model_phase() -> dict:
                 err, scale, _ = _table_diff(got, want, touched)
                 worst = max(worst, err / max(scale, 1e-30))
                 identical &= torch.equal(got, want)
-                table_ok &= err <= TABLE_TOL_REL * scale
+                table_ok &= err <= TABLE_TOL_REL * scale and identical
                 if k in before:
                     table_ok &= not _table_diff(got, before[k], touched)[2]
         del plain_t, before
@@ -1477,11 +1661,12 @@ def wd_train_model_phase() -> dict:
         if (grads > WD_MLP_REL or params > WD_MLP_REL or not table_ok
                 or loss_k != loss_p or plain_launches
                 or step_launches != {**dict.fromkeys(step_launches, 0),
-                                     path: 2}):
+                                     "group": 1, path: 1}):
             raise SystemExit(f"wide&deep training-model phase failed "
                              f"({table_update}, one step)")
 
-        # 20 steps on synth_criteo rows: the loss falls, 2 launches a step
+        # 20 steps on synth_criteo rows: the loss falls, a grouping and an
+        # update launch a step
         rows = synth_criteo(WD_BATCH * WD_STEPS, buckets, seed=8)
         sparse_adagrad.reset_launches()
         losses = [kernel_t.step(device_batch(
@@ -1495,7 +1680,7 @@ def wd_train_model_phase() -> dict:
               f"{WD_FALL}: {falls}); table launches {launches}", flush=True)
         if (not falls or not all(math.isfinite(v) for v in losses)
                 or launches != {**dict.fromkeys(launches, 0),
-                                path: 2 * WD_STEPS}):
+                                "group": WD_STEPS, path: WD_STEPS}):
             raise SystemExit(f"wide&deep training-model phase failed "
                              f"({table_update}, trajectory)")
 
@@ -1518,10 +1703,29 @@ def wd_train_model_phase() -> dict:
     return out
 
 
+def wd_step_family(kernel: str) -> str:
+    """The family of a kernel of the wide&deep step, by name: the table
+    path's two kernels by theirs (:func:`table_family`), then GEMMs, the
+    gather, any id sort (CUB's radix sort), AdamW, other."""
+    name = kernel.lower()
+    fam = table_family(kernel)
+    if fam is not None:
+        return fam
+    for fam, keys in (("GEMMs", ("gemm", "cutlass", "nvjet", "sm90_", "xmma",
+                                 "cublas")),
+                      ("gather", ("index", "gather")),
+                      ("id sort", ("sort", "radix", "cub::")),
+                      ("AdamW", ("adam", "multi_tensor", "foreach"))):
+        if any(k in name for k in keys):
+            return fam
+    return "other"
+
+
 def profile_wd_step(trainer, batch, step_ms: float, label: str,
                     steps: int = 5) -> None:
     """Device time per wide&deep step by family (torch.profiler, CUPTI):
-    GEMMs, the gather, the id sort, the table kernel, AdamW, other."""
+    GEMMs, the gather, the id grouping kernel, the table update kernel, any
+    id sort, AdamW, other."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1532,20 +1736,7 @@ def profile_wd_step(trainer, batch, step_ms: float, label: str,
         torch.cuda.synchronize()
     fams, kernels = collections.Counter(), collections.Counter()
     for kernel, ms in device_kernels(prof, steps):
-        name = kernel.lower()
-        if "adagrad_segments" in name:
-            fam = "table kernel"
-        elif any(k in name for k in ("gemm", "cutlass", "nvjet", "sm90_",
-                                     "xmma", "cublas")):
-            fam = "GEMMs"
-        elif any(k in name for k in ("index", "gather")):
-            fam = "gather"
-        elif any(k in name for k in ("sort", "radix", "cub::")):
-            fam = "id sort"
-        elif any(k in name for k in ("adam", "multi_tensor", "foreach")):
-            fam = "AdamW"
-        else:
-            fam = "other"
+        fam = wd_step_family(kernel)
         fams[fam] += ms
         kernels[f"[{fam}] {kernel[:50]}"] += ms
     busy = sum(fams.values())
@@ -1722,11 +1913,13 @@ def wd_slice_phase() -> dict:
                 or rel > WD_SLICE_VS_REPLAY
                 or not str(node["device"]).startswith("cuda")
                 or launches != {**dict.fromkeys(launches, 0),
-                                path: 2 * steps}
+                                "group": steps, path: steps}
                 or len(scored) != WD_SLICE_ROWS
                 or score_err > WD_SCORES_VS_FORWARD or not steps_per_s):
             raise SystemExit(f"wide&deep slice phase failed ({table_update})")
-        out[path] = {"launches": launches[path], "steps_per_s": steps_per_s}
+        out[path] = {"launches": launches[path],
+                     "group_launches": launches["group"],
+                     "steps_per_s": steps_per_s}
     return out
 
 
@@ -1795,6 +1988,18 @@ def main() -> int:
         "launches": main_path["launches"][path],
         "launches_serving": serving["launches"].get(path, 0), **kern[path]}
         for path in names]
+    grouping = tables["combine"]
+    kernels.append({
+        "name": "sparse_adagrad id grouping", "route": "cuda",
+        "source": "tensorflowonspark_torch/csrc/sparse_adagrad.cu",
+        "replaces": "tensorflowonspark_tpu/embedding.py:54",
+        "launches": sum(wd_slice[p]["group_launches"] for _, p in WD_MODES),
+        "max_abs_err": 0.0, "ms": grouping["group_ms"],
+        "device_ms": grouping["group_device_ms"],
+        "plain_ms": grouping["group_plain_ms"],
+        **group_bound_ms(WD_BATCH * 26, 4, grouping["segments"]),
+        "library_ms": grouping["sort_ms"],
+        "library_device_ms": grouping["sort_device_ms"]})
     kernels += [{
         "name": f"sparse_adagrad ({path})", "route": "cuda",
         "source": "tensorflowonspark_torch/csrc/sparse_adagrad.cu",

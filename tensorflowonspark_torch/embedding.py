@@ -21,9 +21,13 @@ Two modes:
   table, and ``x + (-0.0) == x`` bit for bit, so this is the same function
   as the full-table pass.
 
-On a CUDA tensor :func:`sparse_adagrad_update` launches the hand-written
-kernel (``kernels/sparse_adagrad.py``, ``csrc/sparse_adagrad.cu``) or
-raises; on a CPU tensor it computes :func:`sparse_adagrad_update_plain`.
+On CUDA tensors :func:`sparse_adagrad_update` and
+:func:`sparse_adagrad_update_tables` (several tables that share their ids,
+as the wide&deep step's deep and wide tables do) launch the hand-written
+kernels (``kernels/sparse_adagrad.py``, ``csrc/sparse_adagrad.cu``): one
+that groups the ids by row (:func:`group_ids`) and one that updates every
+table from that grouping, or raise; on CPU tensors they compute
+:func:`sparse_adagrad_update_plain`, once a table.
 What differs from the JAX package: the update is in place (the tables are
 333 MB each at ``widedeep.Config()``; a functional copy would double
 that), and the function returns the same ``(table, acc)`` tensors.  Ids
@@ -35,6 +39,8 @@ id lies outside ``[-vocab, vocab)`` is dropped, as JAX's scatter drops it.
 from __future__ import annotations
 
 import torch
+
+from tensorflowonspark_torch.kernels import sparse_adagrad
 
 EPS = 1e-10
 
@@ -117,7 +123,7 @@ def sparse_adagrad_update_plain(table: torch.Tensor, acc: torch.Tensor,
 def sparse_adagrad_update(table: torch.Tensor, acc: torch.Tensor,
                           ids: torch.Tensor, grad_rows: torch.Tensor,
                           lr: float, eps: float = EPS, combine: bool = False,
-                          order=None):
+                          grouping: sparse_adagrad.Grouping | None = None):
     """One AdaGrad step on only the rows of ``table`` named in ``ids``, in
     place; returns ``(table, acc)``.
 
@@ -125,30 +131,105 @@ def sparse_adagrad_update(table: torch.Tensor, acc: torch.Tensor,
     ``ids``: int32 or int64 of any shape; ``grad_rows``: the loss gradient
     with respect to ``table[ids]``, shape ``ids.shape + row``.  Rows not in
     ``ids`` stay bit-identical.  ``combine`` picks the mode (module
-    docstring).  ``order``, on the card, is :func:`sort_ids` of ``ids``
-    and the table's vocab, computed once for calls that share the ids and
-    the vocab (the wide&deep step's two tables)."""
+    docstring).  ``grouping``, on the card, is :func:`group_ids` of ``ids``
+    and the table's vocab, when the caller has it already."""
     device = table.device.type
     if device == "cpu":
         return sparse_adagrad_update_plain(table, acc, ids, grad_rows, lr,
                                            eps, combine)
-    if device != "cuda":
-        raise RuntimeError(
-            f"sparse_adagrad_update: tensors on {table.device} are not "
-            "supported (cpu takes the plain path, cuda the kernel)")
-    from tensorflowonspark_torch.kernels import sparse_adagrad
-
+    _require_cuda(table, "sparse_adagrad_update")
     flat, g = _flat_rows(table, acc, ids, grad_rows, "sparse_adagrad_update")
-    if order is None:
-        order = sort_ids(flat, table.shape[0])
-    sparse_adagrad.launch(table, acc, flat, g, lr, eps, combine, order)
+    if grouping is None:
+        grouping = group_ids(flat, table.shape[0])
+    sparse_adagrad.update([(table, acc, g.contiguous())], grouping, lr, eps,
+                          combine)
     return table, acc
+
+
+def sparse_adagrad_update_tables(tables, ids: torch.Tensor, grads, lr: float,
+                                 eps: float = EPS, combine: bool = False):
+    """:func:`sparse_adagrad_update` of one or two tables whose ids are the
+    same ``ids`` (the wide&deep step's deep and wide tables), in place;
+    returns ``tables``.
+
+    ``tables``: ``(table, acc)`` pairs with the same vocab, on one device;
+    ``grads``: each table's ``grad_rows``, in the same order.  On the CPU
+    it is one :func:`sparse_adagrad_update_plain` call a table; on the card
+    one grouping of the ids and one update launch for every table."""
+    tables, grads = list(tables), list(grads)
+    if not 1 <= len(tables) <= 2 or len(grads) != len(tables):
+        raise ValueError(f"sparse_adagrad_update_tables: takes 1 or 2 "
+                         f"(table, acc) pairs and a grad_rows each, got "
+                         f"{len(tables)} pairs and {len(grads)} grad_rows")
+    table0 = tables[0][0]
+    for table, _ in tables:
+        if table.dim() < 1 or table.shape[0] != table0.shape[0]:
+            raise ValueError(f"sparse_adagrad_update_tables: the tables "
+                             f"share their ids, so their vocab; got shapes "
+                             f"{[tuple(t.shape) for t, _ in tables]}")
+        if table.device != table0.device:
+            raise ValueError(f"sparse_adagrad_update_tables: tables on "
+                             f"{table.device} and {table0.device}")
+    if table0.device.type == "cpu":
+        for (table, acc), g in zip(tables, grads):
+            sparse_adagrad_update_plain(table, acc, ids, g, lr, eps, combine)
+        return tables
+    _require_cuda(table0, "sparse_adagrad_update_tables")
+    rows = [(table, acc, _flat_rows(table, acc, ids, g,
+                                    "sparse_adagrad_update_tables")[1]
+             .contiguous()) for (table, acc), g in zip(tables, grads)]
+    grouping = group_ids(ids.reshape(-1), table0.shape[0])
+    sparse_adagrad.update(rows, grouping, lr, eps, combine)
+    return tables
+
+
+def _require_cuda(table: torch.Tensor, name: str) -> None:
+    if table.device.type != "cuda":
+        raise RuntimeError(
+            f"{name}: tensors on {table.device} are not supported (cpu takes "
+            "the plain path, cuda the kernels)")
+
+
+def group_ids(ids: torch.Tensor, vocab: int) -> sparse_adagrad.Grouping:
+    """The occurrences of ``ids`` grouped by row for a table of ``vocab``
+    rows (:class:`~tensorflowonspark_torch.kernels.sparse_adagrad.Grouping`):
+    the grouping kernel on a CUDA tensor, :func:`group_ids_plain` on a CPU
+    tensor."""
+    flat = ids.reshape(-1)
+    if flat.device.type == "cpu":
+        return group_ids_plain(flat, vocab)
+    return sparse_adagrad.group(flat, vocab)
+
+
+def group_ids_plain(ids: torch.Tensor, vocab: int) -> sparse_adagrad.Grouping:
+    """:func:`group_ids` from :func:`sort_ids`: its in-range occurrences,
+    then the out-of-range ones in batch order under key ``vocab``, each
+    row's segment start and row (``seg_row``'s undefined tail zeroed)."""
+    sorted_ids, perm = sort_ids(ids, vocab)
+    inside = (sorted_ids >= 0) & (sorted_ids < vocab)
+    keys = sorted_ids[inside]
+    m, n = keys.numel(), sorted_ids.numel()
+    head = torch.ones(m, dtype=torch.bool, device=keys.device)
+    head[1:] = keys[1:] != keys[:-1]
+    starts = torch.nonzero(head).reshape(-1)
+    count = starts.numel()
+    seg_start = torch.full((n + 1,), m, dtype=torch.int32, device=keys.device)
+    seg_start[:count] = starts.int()
+    seg_row = torch.zeros(n, dtype=torch.int32, device=keys.device)
+    seg_row[:count] = keys[starts].int()
+    keys = torch.cat([keys, torch.full((n - m,), vocab, device=keys.device,
+                                       dtype=keys.dtype)])
+    pos = torch.cat([perm[inside], torch.sort(perm[~inside]).values])
+    meta = torch.tensor([count, m], dtype=torch.int32, device=keys.device)
+    return sparse_adagrad.Grouping(keys.int(), pos.int(), seg_start, seg_row,
+                                   meta, n, vocab)
 
 
 def sort_ids(ids: torch.Tensor, vocab: int):
     """``(sorted flat ids, int64 positions)``: the stable sort of ``ids``,
     its negative ids wrapped into ``[0, vocab)`` first (:func:`wrap_ids`),
-    that groups each row's occurrences, in batch order, for the kernel."""
+    which groups each row's occurrences in batch order: the library's
+    counterpart of the grouping kernel, and its gates' reference."""
     return torch.sort(wrap_ids(ids.reshape(-1), vocab), stable=True)
 
 

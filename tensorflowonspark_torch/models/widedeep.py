@@ -20,8 +20,9 @@ carry over:
 :func:`make_sharded_train_step` is the step the ``Trainer`` picks up: it
 gathers the rows (``index_select``), takes the gradient with respect to
 the gathered rows and the MLP, applies the optimizer to the MLP and
-``embedding.sparse_adagrad_update`` to both tables — the hand-written
-kernel on the card (``csrc/sparse_adagrad.cu``), ``combine=True`` for
+``embedding.sparse_adagrad_update_tables`` to both tables — on the card
+the hand-written kernels (``csrc/sparse_adagrad.cu``: one grouping of the
+ids, one update launch for both tables), ``combine=True`` for
 ``table_update="dense"`` (the reference's gather-VJP + full-table pass,
 restricted to the touched rows, which is the same function) and
 ``combine=False`` for ``"sparse"``.  Under a ``torch.distributed`` group
@@ -186,9 +187,9 @@ def make_forward_fn(model: WideDeep, config: Config):
 
 def make_sharded_train_step(model: WideDeep, config: Config, optimizer):
     """``step(state, batch) -> (state, loss)``: one step of the MLP
-    (``optimizer``) and of both tables (the AdaGrad kernel, one launch a
-    table); see the module docstring.  ``loss`` is the detached scalar,
-    averaged over the ranks of a group."""
+    (``optimizer``) and of both tables (on the card, the id grouping and
+    one AdaGrad launch for the two); see the module docstring.  ``loss``
+    is the detached scalar, averaged over the ranks of a group."""
     from tensorflowonspark_torch import embedding
     from tensorflowonspark_torch.parallel import train as train_lib
 
@@ -215,13 +216,9 @@ def make_sharded_train_step(model: WideDeep, config: Config, optimizer):
                 [ids, g_deep / world, g_wide / world])
         else:
             loss = loss.detach()
-        order = (embedding.sort_ids(ids, model.deep.shape[0]) if ids.is_cuda
-                 else None)
-        for table, acc, g in ((model.deep, model.deep_acc, g_deep),
-                              (model.wide, model.wide_acc, g_wide)):
-            embedding.sparse_adagrad_update(table, acc, ids, g,
-                                            config.table_lr, combine=combine,
-                                            order=order)
+        embedding.sparse_adagrad_update_tables(
+            ((model.deep, model.deep_acc), (model.wide, model.wide_acc)), ids,
+            (g_deep, g_wide), config.table_lr, combine=combine)
         optimizer.step()
         state.step += 1
         return state, loss

@@ -1,9 +1,11 @@
-"""Pieces of ``chip_smoke.py`` that need no card: its profiler filter, the
-table kernel's bound and the wide&deep data it draws."""
+"""Pieces of ``chip_smoke.py`` that need no card: its profiler filter and
+kernel families, the table path's bounds and the wide&deep data it
+draws; and the stamped source ``tools/torch_grouping_probe.py`` builds."""
 
 import types
 
 import numpy as np
+import pytest
 import torch
 
 import chip_smoke
@@ -33,12 +35,38 @@ def test_device_kernels_leave_out_host_ops_and_annotation_spans():
         _event("void multi_tensor_apply_kernel<...>", 150.0),
         _event("aten::mm", 500.0, device=False),
         _event(lambda_kernel, 100.0),  # a kernel whose name holds '#'
-        _event("adagrad_segments<int>", 50.0),
+        _event(GROUPING, 50.0),
     ])
     assert list(chip_smoke.device_kernels(prof, calls=5)) == [
         ("void multi_tensor_apply_kernel<...>", 0.03),
         (lambda_kernel, 0.02),
-        ("adagrad_segments<int>", 0.01)]
+        (GROUPING, 0.01)]
+
+
+#: the table path's kernels as the profiler names them on the card
+GROUPING = ("void (anonymous namespace)::tfos_id_grouping<int>(int const*, "
+            "long, int, int, int*, int*, int*, int*, int*, int*)")
+UPDATE = ("void (anonymous namespace)::tfos_adagrad_segment_walk<1, 2>(int "
+          "const*, int const*, int const*, int const*, (anonymous namespace)"
+          "::TableArg, (anonymous namespace)::TableArg, int, float, float, "
+          "int)")
+
+
+def test_step_families_name_the_table_kernels_apart_from_the_sort():
+    """The grouping kernel is a radix sort too: it must be booked under
+    its own family, not as ``torch.sort``'s, and the update not as
+    "other"."""
+    cub = ("void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel<"
+           "at_cuda_detail::cub::DeviceRadixSortPolicy<int, long, unsigned "
+           "int>::Policy900, true, int, long>")
+    assert chip_smoke.wd_step_family(GROUPING) == "id grouping"
+    assert chip_smoke.wd_step_family(UPDATE) == "table update"
+    assert chip_smoke.wd_step_family(cub) == "id sort"
+    assert chip_smoke.wd_step_family(
+        "sm80_xmma_gemm_f32f32_f32f32_f32_nn_n") == "GEMMs"
+    assert chip_smoke.wd_step_family(
+        "void at::native::vectorized_elementwise_kernel<4>") == "other"
+    assert chip_smoke.table_family(cub) is None
 
 
 def test_table_bound_counts_the_touched_rows_once():
@@ -66,6 +94,34 @@ def test_step_bound_sums_each_resource_over_the_pair():
         "bound_by": "operations"}
 
 
+def test_step_bound_of_the_pair_under_zipf_ids():
+    """The step's table path (deep and wide sharing 26,624 int32 ids, the
+    ≈ 17,300 rows a Zipf(1.1) batch touches): the ids counted once, each
+    table's gradient rows, and each touched row of both tables and
+    accumulators read and written; bytes bound it."""
+    rng = np.random.RandomState(0)
+    ids = chip_smoke.criteo_ids(rng, 1024, 100_000, chip_smoke.WD_ZIPF)
+    ids = ids + np.arange(widedeep.NUM_CAT) * 100_000
+    unique = len(np.unique(ids))
+    assert 15_000 < unique < 20_000
+    bound = chip_smoke.step_bound_ms(n=ids.size, id_bytes=4, dims=(32, 1),
+                                     unique=unique)
+    want = (26_624 * 4 + 26_624 * 32 * 4 + 26_624 * 4
+            + unique * 32 * 16 + unique * 16)
+    assert bound["bytes"] == want and bound["bound_by"] == "bytes"
+    assert bound["bound_ms"] == pytest.approx(
+        want / chip_smoke.HBM_BYTES_PER_S * 1e3, rel=1e-12)
+    deep = chip_smoke.table_bound_ms(26_624, 4, 32, unique)
+    assert bound["bytes"] < deep["bytes"] + chip_smoke.table_bound_ms(
+        26_624, 4, 1, unique)["bytes"]  # the ids once, not twice
+
+
+def test_grouping_bound_counts_ids_in_and_groups_out():
+    bound = chip_smoke.group_bound_ms(n=26_624, id_bytes=8, segments=17_000)
+    assert bound["bytes"] == 26_624 * 8 + 26_624 * 8 + 17_001 * 4 + 8
+    assert bound["bound_by"] == "bytes"
+
+
 def test_criteo_draws_are_seeded_and_zipf_is_heavy_tailed():
     rng = np.random.RandomState(0)
     uniform = chip_smoke.criteo_ids(rng, 1024, 100_000)
@@ -81,3 +137,20 @@ def test_criteo_draws_are_seeded_and_zipf_is_heavy_tailed():
     batch = chip_smoke.rows_to_batch(rows)
     assert batch["dense"].shape == (16, widedeep.NUM_DENSE)
     assert batch["cat"].dtype == np.int32 and batch["label"].dtype == np.int32
+
+
+def test_grouping_probe_stamps_every_phase_of_the_kernel_source():
+    """The probe finds each of its markers once in the shipped source
+    (it stops on a missing one, so a kernel edit that moves a phase shows
+    here, on the CPU, before a chip run)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(chip_smoke.__file__), "tools",
+                        "torch_grouping_probe.py")
+    spec = importlib.util.spec_from_file_location("probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    src = probe.stamped_source()
+    assert src.count("STAMP(") == len(probe.MARKS) + 2  # + STAMP(0), define
+    assert "tfos_probe_read" in src

@@ -79,7 +79,7 @@ def test_fit_then_transform_the_tiny_wide_deep(sc, tmp_path, table_update):
         assert node["state"] == "finished"
         assert node["device"] == "cpu"
         # the CPU runs the plain table update: no kernel launch
-        assert node["launches"] == {"sparse": 0, "combine": 0}
+        assert node["launches"] == {"group": 0, "sparse": 0, "combine": 0}
         assert len(node["losses"]) == steps
     assert published[0]["losses"] == published[1]["losses"]  # all-reduced
     np.testing.assert_allclose(published[0]["losses"],

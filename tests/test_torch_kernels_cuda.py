@@ -232,8 +232,18 @@ def test_forward_with_grad_reaches_upstream_conv_weight():
 
 #: |kernel - plain| <= this x max|plain| over the touched rows: f32, and
 #: only the order of the duplicates' sums differs (the plain version's
-#: index_add_ uses atomics), besides torch.rsqrt's ulps
+#: index_add_ uses atomics on the card), besides torch.rsqrt's ulps.  The
+#: plain version run on the CPU adds in batch order, as the kernel does:
+#: there the gate is bit for bit (see chip_smoke.TABLE_TOL_REL for the one
+#: case, a row that takes every occurrence, where the atomic order alone
+#: moves the card's plain version past this).
 TABLE_TOL_REL = 1e-5
+CONFIG_VOCAB = 26 * 100_000  # widedeep.Config()'s fused table
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
 
 
 def _table_case(vocab, row, ids_shape, id_dtype, dups, seed=0):
@@ -249,36 +259,118 @@ def _table_case(vocab, row, ids_shape, id_dtype, dups, seed=0):
     return table, acc, ids, g
 
 
-def _check_table(table, acc, ids, g, combine):
-    """The kernel twice on copies against the plain version: within
-    ``TABLE_TOL_REL``, untouched rows bit-identical, the same bits twice,
-    one launch a call on the mode's path."""
+def _check_tables(tables, ids, grads, combine, atomic_gate=True):
+    """The table path twice on copies: one grouping and one update launch a
+    call, the same bits twice, bit for bit the plain version run on the
+    CPU, within ``TABLE_TOL_REL`` of the plain version on the card (unless
+    ``atomic_gate`` is false), untouched rows bit-identical."""
     path = "combine" if combine else "sparse"
-    rows = table.shape[0]
+    rows = tables[0][0].shape[0]
     flat = embedding.wrap_ids(ids.reshape(-1).long(), rows)
     touched = torch.zeros(rows, dtype=torch.bool, device="cuda")
     touched[flat[(flat >= 0) & (flat < rows)]] = True
     outs = []
     for _ in range(2):
-        t, a = table.clone(), acc.clone()
+        pairs = [(t.clone(), a.clone()) for t, a in tables]
         before = dict(sparse_adagrad.launches_by_path)
-        assert embedding.sparse_adagrad_update(t, a, ids, g, 0.1,
-                                               combine=combine) == (t, a)
+        if len(pairs) == 1:
+            assert embedding.sparse_adagrad_update(
+                *pairs[0], ids, grads[0], 0.1, combine=combine) == pairs[0]
+        else:
+            assert embedding.sparse_adagrad_update_tables(
+                pairs, ids, grads, 0.1, combine=combine) == pairs
         torch.cuda.synchronize()
         assert sparse_adagrad.launches_by_path == {
-            **before, path: before[path] + 1}
-        outs.append((t, a))
-    tp, ap = embedding.sparse_adagrad_update_plain(
-        table.clone(), acc.clone(), ids, g, 0.1, combine=combine)
-    (t1, a1), (t2, a2) = outs
-    assert torch.equal(t1, t2) and torch.equal(a1, a2)
-    for got, want, orig in ((t1, tp, table), (a1, ap, acc)):
-        got2, want2 = got.reshape(rows, -1), want.reshape(rows, -1)
-        err = (got2 - want2).abs()[touched].max()
-        assert err <= TABLE_TOL_REL * want2.abs()[touched].max()
-        moved = (got != orig).reshape(rows, -1).any(dim=1)
-        assert not bool((moved & ~touched).any())
-        assert bool(moved[touched].any())
+            **before, "group": before["group"] + 1, path: before[path] + 1}
+        outs.append(pairs)
+    got, again = outs
+    touched_rows, cpu = chip_smoke.plain_on_cpu_rows(tables, ids, grads, 0.1,
+                                                     combine)
+    for (t1, a1), (t2, a2), (tc, ac), (t0, a0), g in zip(got, again, cpu,
+                                                         tables, grads):
+        assert torch.equal(t1, t2) and torch.equal(a1, a2)
+        assert torch.equal(t1[touched_rows].cpu(), tc)
+        assert torch.equal(a1[touched_rows].cpu(), ac)
+        tp, ap = embedding.sparse_adagrad_update_plain(
+            t0.clone(), a0.clone(), ids, g, 0.1, combine=combine)
+        for x, want, orig in ((t1, tp, t0), (a1, ap, a0)):
+            x2, want2 = x.reshape(rows, -1), want.reshape(rows, -1)
+            err = (x2 - want2).abs()[touched].max()
+            assert (err <= TABLE_TOL_REL * want2.abs()[touched].max()
+                    or not atomic_gate)
+            moved = (x != orig).reshape(rows, -1).any(dim=1)
+            assert not bool((moved & ~touched).any())
+            assert bool(moved[touched].any())
+
+
+def _zipf_ids(n, seed=0):
+    import numpy as np
+
+    cat = chip_smoke.criteo_ids(np.random.RandomState(seed), n, 100_000,
+                                chip_smoke.WD_ZIPF)
+    return (torch.from_numpy(cat).cuda()
+            + torch.arange(26, device="cuda") * 100_000)
+
+
+def _grouping_case(name):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    if name == "empty":
+        return torch.zeros(0, dtype=torch.int32, device="cuda"), 64
+    if name == "one":
+        return torch.tensor([5], dtype=torch.int32, device="cuda"), 64
+    if name == "all_equal":
+        return torch.full((26_624,), 1_234_567, dtype=torch.int32,
+                          device="cuda"), CONFIG_VOCAB
+    if name == "all_out_of_range":
+        return torch.tensor([64, 99, -65, -1000] * 50, dtype=torch.int64,
+                            device="cuda"), 64
+    if name == "negatives_wrap":
+        ids = torch.randint(-64, 64, (3000,), generator=gen, device="cuda")
+        ids[::11] = 64  # and some dropped
+        return ids.int(), 64
+    if name == "int64_rows":
+        return torch.randint(0, CONFIG_VOCAB, (26_624,), generator=gen,
+                             device="cuda"), CONFIG_VOCAB
+    if name == "int32_rows":
+        return torch.randint(0, CONFIG_VOCAB, (26_624,), generator=gen,
+                             device="cuda").int(), CONFIG_VOCAB
+    if name == "zipf_8_ranks":
+        return _zipf_ids(8 * 1024).reshape(-1).int(), CONFIG_VOCAB
+    return torch.randint(0, 5, (1000,), generator=gen, device="cuda"), 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [
+    "empty", "one", "all_equal", "all_out_of_range", "negatives_wrap",
+    "int64_rows", "int32_rows", "zipf_8_ranks", "vocab_5"])
+def test_grouping_equals_sort_ids_on_card(name):
+    """The grouping kernel's outputs equal ``sort_ids`` of the same ids bit
+    for bit (through ``group_ids_plain``): in-range occurrences, dropped
+    tail, segment starts, counts; the same bits twice; one launch."""
+    _needs_card()
+    ids, vocab = _grouping_case(name)
+    before = sparse_adagrad.launches_by_path["group"]
+    got = [embedding.group_ids(ids, vocab) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert sparse_adagrad.launches_by_path["group"] == before + 2
+    assert chip_smoke.grouping_matches(got[0], ids, vocab)
+    assert chip_smoke.grouping_matches(got[1], ids, vocab)
+
+
+@pytest.mark.cuda
+def test_grouping_rejects_what_it_does_not_take():
+    """A vocab whose out-of-range key would not fit int32, or more ids than
+    int32 positions, raises before any launch; nothing falls back."""
+    _needs_card()
+    ids = torch.zeros(4, dtype=torch.int32, device="cuda")
+    before = dict(sparse_adagrad.launches_by_path)
+    with pytest.raises(ValueError, match="vocab"):
+        embedding.group_ids(ids, 2**31)
+    with pytest.raises(ValueError, match="at most"):
+        sparse_adagrad.group(ids[:1].expand(2**31), 10)
+    with pytest.raises(TypeError, match="int32 or int64"):
+        embedding.group_ids(ids.float(), 10)
+    assert sparse_adagrad.launches_by_path == before
 
 
 @pytest.mark.cuda
@@ -290,26 +382,68 @@ def _check_table(table, acc, ids, g, combine):
     ((), (300,), torch.int64, True),
     ((5,), (7, 3), torch.int64, True),  # a row narrower than a warp
     ((40,), (50,), torch.int32, True),  # wider: lanes loop over the row
+    ((32,), (5000,), torch.int32, True),  # segments longer than 32
 ], ids=["deep_dups", "deep_unique_int64", "wide_dups", "wide_int64",
-        "row5", "row40"])
+        "row5", "row40", "deep_long_segments"])
 def test_table_kernel_matches_plain_on_card(row, ids_shape, id_dtype, dups,
                                             combine):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    _check_table(*_table_case(4096, row, ids_shape, id_dtype, dups),
-                 combine)
+    _needs_card()
+    table, acc, ids, g = _table_case(4096, row, ids_shape, id_dtype, dups)
+    _check_tables([(table, acc)], ids, [g], combine)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combine", [False, True], ids=["sparse", "combine"])
+@pytest.mark.parametrize("rows", [((32,), ()), ((), (32,)), ((5,), (40,)),
+                                  ((), ())],
+                         ids=["deep_wide", "wide_deep", "row5_row40",
+                              "wide_wide"])
+def test_two_tables_in_one_launch_match_plain_on_card(rows, combine):
+    """Two tables sharing the ids: one grouping and one update launch, each
+    table bit for bit its plain update on the CPU."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ids = torch.randint(0, 512, (64, 26), generator=gen, device="cuda").int()
+    tables = [(torch.randn(4096, *row, generator=gen, device="cuda"),
+               torch.rand(4096, *row, generator=gen, device="cuda"))
+              for row in rows]
+    grads = [torch.randn(64, 26, *row, generator=gen, device="cuda")
+             for row in rows]
+    _check_tables(tables, ids, grads, combine)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combine", [False, True], ids=["sparse", "combine"])
+@pytest.mark.parametrize("ids_kind", ["zipf_8_ranks", "all_equal"])
+def test_step_pair_at_config_vocab_matches_plain_on_card(ids_kind, combine):
+    """The wide&deep step's pair at ``Config()``'s vocab: the 8-rank
+    all-gathered batch of Zipf ids, and a batch whose ids are all one (held
+    bit for bit to the plain version on the CPU; its distance to the
+    card's atomic plain version is the atomic order's, not gated)."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ids = (_zipf_ids(8 * 1024) if ids_kind == "zipf_8_ranks"
+           else torch.full((1024, 26), 42, device="cuda")).int()
+    tables = [(0.01 * torch.randn(CONFIG_VOCAB, *row, generator=gen,
+                                  device="cuda"),
+               1e-6 * torch.rand(CONFIG_VOCAB, *row, generator=gen,
+                                 device="cuda"))
+              for row in ((32,), ())]
+    grads = [1e-4 * torch.randn(*ids.shape, *t.shape[1:], generator=gen,
+                                device="cuda") for t, _ in tables]
+    _check_tables(tables, ids, grads, combine,
+                  atomic_gate=ids_kind != "all_equal")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("combine", [False, True], ids=["sparse", "combine"])
 def test_table_kernel_drops_out_of_range_ids_on_card(combine):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _needs_card()
     table, acc, ids, g = _table_case(64, (32,), (40,), torch.int64, True)
     ids[::7] = 64
     ids[3] = -65  # below -vocab: dropped, as JAX's scatter drops it
     ids[4] = -1  # row 63, as JAX's .at[ids] reads a negative index
-    _check_table(table, acc, ids, g, combine)
+    _check_tables([(table, acc)], ids, [g], combine)
 
 
 @pytest.mark.cuda
@@ -318,12 +452,11 @@ def test_table_kernel_drops_out_of_range_ids_on_card(combine):
 def test_table_kernel_wraps_negative_ids_on_card(combine, id_dtype):
     """An id in ``[-vocab, 0)`` is row ``id + vocab``: the same bits as the
     wrapped ids, its occurrences in one segment with the row's others."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _needs_card()
     table, acc, ids, g = _table_case(64, (32,), (40,), id_dtype, True)
     ids[::3] -= 64
     assert bool((ids < 0).any())
-    _check_table(table, acc, ids, g, combine)
+    _check_tables([(table, acc)], ids, [g], combine)
     got = [x.clone() for x in (table, acc)]
     want = [x.clone() for x in (table, acc)]
     embedding.sparse_adagrad_update(*got, ids, g, 0.1, combine=combine)
@@ -333,31 +466,58 @@ def test_table_kernel_wraps_negative_ids_on_card(combine, id_dtype):
 
 @pytest.mark.cuda
 def test_table_kernel_rejects_what_it_does_not_take():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _needs_card()
     table, acc, ids, g = _table_case(64, (32,), (8,), torch.int32, False)
     with pytest.raises(ValueError, match="contiguous float32"):
         embedding.sparse_adagrad_update(table.double(), acc, ids, g, 0.1)
     with pytest.raises(ValueError, match="contiguous float32"):
         embedding.sparse_adagrad_update(table.t().contiguous().t(), acc, ids,
                                         g, 0.1)
-    with pytest.raises(ValueError, match="sort_ids"):
-        embedding.sparse_adagrad_update(table, acc, ids, g, 0.1,
-                                        order=embedding.sort_ids(ids.long(), 64))
+    with pytest.raises(ValueError, match="group_ids"):  # another vocab's
+        embedding.sparse_adagrad_update(
+            table, acc, ids, g, 0.1, grouping=embedding.group_ids(ids, 65))
+    with pytest.raises(ValueError, match="group_ids"):  # other ids'
+        embedding.sparse_adagrad_update(
+            table, acc, ids, g, 0.1,
+            grouping=embedding.group_ids(ids[:4], 64))
+    with pytest.raises(ValueError, match="1 or 2 tables"):
+        sparse_adagrad.update([(table, acc, g)] * 3,
+                              embedding.group_ids(ids, 64), 0.1, 1e-10, True)
+
+
+@pytest.mark.cuda
+def test_table_path_makes_no_host_sync():
+    """The grouping and the update of two tables under
+    ``torch.cuda.set_sync_debug_mode("error")``: no ``.item()``, no
+    read-back of the segment count."""
+    _needs_card()
+    table, acc, ids, g = _table_case(4096, (32,), (64, 26), torch.int32, True)
+    wide, wide_acc = torch.randn(4096, device="cuda"), torch.rand(
+        4096, device="cuda")
+    gw = torch.randn(64, 26, device="cuda")
+    embedding.sparse_adagrad_update_tables(  # build and load the library
+        [(table, acc), (wide, wide_acc)], ids, [g, gw], 0.1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for combine in (False, True):
+            embedding.sparse_adagrad_update_tables(
+                [(table, acc), (wide, wide_acc)], ids, [g, gw], 0.1,
+                combine=combine)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("table_update", ["dense", "sparse"])
-def test_wide_deep_step_launches_the_table_kernel_twice(table_update):
-    """``Trainer("wide_deep")`` on the card: 2 table launches a step on the
-    mode's path, a finite loss, and the same step with the plain table
-    update leaves the same MLP and tables within the kernel's tolerance.
-    The plain update runs on the CPU, where ``index_add_`` adds a row's
-    occurrences in batch order as the kernel does: at zero accumulators a
-    row whose occurrences nearly cancel makes the update ill-conditioned,
-    so the card's atomic order would not do as the reference."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+def test_wide_deep_step_launches_one_grouping_and_one_update(table_update):
+    """``Trainer("wide_deep")`` on the card: a grouping and one update
+    launch for both tables a step, on the mode's path, a finite loss, and
+    the same step with the plain table update run on the CPU (which adds a
+    row's occurrences in batch order, as the kernel does) leaves the same
+    MLP and tables bit for bit."""
+    _needs_card()
     import dataclasses
 
     from tensorflowonspark_torch.models import widedeep
@@ -371,20 +531,18 @@ def test_wide_deep_step_launches_the_table_kernel_twice(table_update):
     before = dict(sparse_adagrad.launches_by_path)
     loss = float(t.step(batch))
     torch.cuda.synchronize()
-    assert sparse_adagrad.launches_by_path == {**before,
-                                               path: before[path] + 2}
+    assert sparse_adagrad.launches_by_path == {
+        **before, "group": before["group"] + 1, path: before[path] + 1}
     assert loss == loss and loss > 0
     plain = Trainer("wide_deep", config=config, device="cuda")
-    kernel_update = embedding.sparse_adagrad_update
-    embedding.sparse_adagrad_update = chip_smoke._plain_table_update
+    kernel_update = embedding.sparse_adagrad_update_tables
+    embedding.sparse_adagrad_update_tables = chip_smoke._plain_tables_update
     try:
         assert float(plain.step(batch)) == loss
     finally:
-        embedding.sparse_adagrad_update = kernel_update
+        embedding.sparse_adagrad_update_tables = kernel_update
     for k, p in t.model.named_parameters():
         assert torch.equal(p, dict(plain.model.named_parameters())[k]), k
     for group, leaves in t.model.collections().items():
         for k, got in leaves.items():
-            want = plain.model.collections()[group][k]
-            assert float((got - want).abs().max()) <= \
-                TABLE_TOL_REL * float(want.abs().max()), k
+            assert torch.equal(got, plain.model.collections()[group][k]), k

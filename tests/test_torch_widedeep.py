@@ -37,7 +37,11 @@ RTOL, ATOL = 1e-5, 1e-6
 #: holds params: AdaGrad's step ``-lr·g·rsqrt(acc + eps)`` is ill-conditioned
 #: where a row's duplicate gradients nearly cancel (a wide-table entry moved
 #: 1.4e-6 away on the CPU, from a 1e-7 relative gap in ``g``), while a
-#: wrong sign or a lost occurrence moves an entry by ~lr = 1e-2
+#: wrong sign or a lost occurrence moves an entry by ~lr = 1e-2.  Not the
+#: order of the sums: both packages add duplicates in batch order, and the
+#: gap is the two f32 MLP backward passes' gradient gap amplified by up to
+#: lr / sqrt(eps) (``test_torch_embedding.py::
+#: test_cancelling_duplicates_gap_is_the_inputs_not_the_order``)
 PARAMS_ATOL = 1e-5
 STEPS = 5
 BATCH = 16
