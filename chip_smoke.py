@@ -88,13 +88,37 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    executor's table launches (one grouping and one update a step), its
    losses against an in-process replay, the scores against an in-process
    forward of the exported weights, and steps/s by ``cluster.metrics()``.
+11. ResNet-50 in ``InputMode.TENSORFLOW``, the way ``examples/imagenet/
+   resnet_spark.py`` launches: 512 synthetic 224² TFRecords in 4 part files
+   (``resnet.write_synthetic_tfrecords`` through the native codec, timed),
+   then ``TFCluster.run(tensorflowonspark_torch/examples/resnet_spark.py::
+   map_fun, InputMode.TENSORFLOW, master_node="chief")`` on one executor:
+   ``shard_files`` → ``tfrecord_batches(batch 64, one reader, a seeded
+   shuffle buffer, prefetch 2, device_put=trainer.shard)`` → 8
+   ``Trainer.step``s.  Gates: the executor on the card, every loss finite,
+   53 one-pass forward and 53 backward launches a step, the final loss
+   against an in-process replay of the same shard through the same
+   reader.  images/s by ``cluster.metrics()`` and over the loop's wall
+   time, beside phase 7's and phase 6's.
+12. Wide&deep in ``InputMode.TENSORFLOW`` over Parquet, the way
+   ``examples/criteo/criteo_pipeline.py --input parquet`` launches, in
+   phase 11's local application (its executor carries over): 8,192 Zipf
+   rows saved by ``dfutil.saveAsParquet`` in 4 part files, then
+   ``TFCluster.run(tensorflowonspark_torch/examples/criteo_pipeline.py::
+   parquet_train_fun)``: ``parquet_batches`` → the example's stager (f32
+   dense, i32 ids and labels, ``trainer.shard``) → 8 ``Trainer.step``s at
+   batch 1024 (full ``Config()``, the combine update).  Gates: the executor
+   on the card, one grouping and one update launch a step, every loss
+   within 1e-5 of an in-process replay over the same batches, and those
+   batches equal to the DataFrame's rows.  steps/s beside phase 10's.
 
 The last lines are the card line, one JSON line listing each kernel (the
 one-pass and two-pass forwards of ``group_norm_act`` and its one-pass and
 four-launch backwards, times at the training slice's batch and under
 ``_b32``/``_b256`` at the others; the table path's id grouping, and its
 update in each mode, times of a training step's pair on Zipf ids, the
-other cases suffixed), and ``{"ok": true, "device": {...}}``.
+other cases suffixed; ``launches_tf_mode`` counts phases 11-12's), and
+``{"ok": true, "device": {...}}``.
 Without a card it exits 1 and prints no result.
 """
 
@@ -110,6 +134,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
@@ -175,6 +200,10 @@ WD_STEPS = 20
 WD_SLICE_ROWS = 8192
 WD_SLICE_PARTITIONS = 4
 WD_MODES = (("dense", "combine"), ("sparse", "sparse"))  # table_update, path
+# InputMode.TENSORFLOW slices (phases 11-12)
+TF_RECORDS = 512  # ResNet: 224² TFRecords, ≈ 77 MB in all
+TF_PARTS = 4
+TF_SHUFFLE = 256  # seeded shuffle buffer of records; one reader thread
 # |kernel - plain| <= this x max|plain| over the touched rows, table and
 # accumulator: f32, and only the order of the duplicates' sums differs
 # (the plain version's index_add_ adds them with atomics) besides
@@ -1923,6 +1952,370 @@ def wd_slice_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# InputMode.TENSORFLOW: each node reads its own files (phases 11-12)
+# ---------------------------------------------------------------------------
+
+
+def tf_resnet_args(data_dir: str, tiny: bool = False):
+    """The port example's arguments for phase 11: batch 64, one reader (the
+    record order is then the same in every run, so a replay can follow
+    it), a seeded shuffle buffer, one epoch."""
+    from tensorflowonspark_torch.examples import resnet_spark
+
+    return resnet_spark.parse_args(
+        ["--batch_size", str(SLICE_TRAIN_BATCH), "--readers", "1",
+         "--shuffle_buffer", str(TF_SHUFFLE), "--lr", str(TRAIN_LR),
+         "--epochs", "1", "--data_dir", data_dir]
+        + (["--tiny"] if tiny else []))
+
+
+def tf_resnet_map_fun(args, ctx):
+    """``tensorflowonspark_torch/examples/resnet_spark.py::map_fun`` with
+    the node's GroupNorm launch counts set to 0 before it and published
+    after it."""
+    from tensorflowonspark_torch.examples import resnet_spark
+    from tensorflowonspark_torch.kernels import group_norm
+
+    ctx.mgr.set("map_fun_start", time.time())
+    group_norm.reset_launches()
+    resnet_spark.map_fun(args, ctx)
+    ctx.mgr.set("launches", dict(group_norm.launches_by_path))
+    ctx.mgr.set("map_fun_end", time.time())
+
+
+def tf_resnet_replay(args, device: str) -> list:
+    """Phase 11's in-process replay: the one node's shard read with the
+    same arguments through the port's ``tfrecord_batches`` (the example's
+    ``train_batches``) into a fresh seeded ``Trainer`` on ``device``."""
+    from tensorflowonspark_torch import readers
+    from tensorflowonspark_torch.examples import resnet_spark
+    from tensorflowonspark_torch.models import resnet
+    from tensorflowonspark_torch.trainer import Trainer
+
+    shard = readers.shard_files(os.path.join(args.data_dir, "part-*"), 0, 1)
+    config = resnet.Config.tiny() if args.tiny else resnet.Config()
+    t = Trainer("resnet50", config=config, learning_rate=args.lr,
+                device=device)
+    return [float(t.step(b))
+            for b in resnet_spark.train_batches(args, shard, 0, t.shard)]
+
+
+def tf_wd_args(work_dir: str, tiny: bool = False):
+    """The port example's arguments for phase 12: full ``widedeep.Config()``
+    (the combine table update), batch 1024, one epoch."""
+    from tensorflowonspark_torch.examples import criteo_pipeline
+
+    return criteo_pipeline.parse_args(
+        ["--batch_size", str(WD_BATCH), "--lr", str(WD_LR), "--epochs", "1",
+         "--input", "parquet",
+         "--parquet_dir", os.path.join(work_dir, "parquet"),
+         "--export_dir", os.path.join(work_dir, "export")]
+        + ([] if tiny else ["--full"]))
+
+
+def tf_wd_train_fun(args, ctx):
+    """``tensorflowonspark_torch/examples/criteo_pipeline.py::
+    parquet_train_fun`` with the node's table launch counts set to 0
+    before it and published after it."""
+    from tensorflowonspark_torch.examples import criteo_pipeline
+    from tensorflowonspark_torch.kernels import sparse_adagrad
+
+    ctx.mgr.set("map_fun_start", time.time())
+    sparse_adagrad.reset_launches()
+    criteo_pipeline.parquet_train_fun(args, ctx)
+    ctx.mgr.set("launches", dict(sparse_adagrad.launches_by_path))
+    ctx.mgr.set("map_fun_end", time.time())
+
+
+def tf_wd_replay(args, device: str) -> tuple[list, dict]:
+    """Phase 12's in-process replay: the one node's Parquet shard read with
+    the same arguments through the port's ``parquet_batches`` and the
+    example's stager into a fresh ``Trainer`` on ``device``.  Returns the
+    losses and the staged batches' columns as the steps took them,
+    concatenated on the host."""
+    import numpy as np
+
+    from tensorflowonspark_torch.examples import criteo_pipeline
+
+    t = criteo_pipeline.make_trainer(args, device=device)
+    stage = criteo_pipeline.stage_fn(t)
+    shard = criteo_pipeline.parquet_shard(args, 0, 1)
+    losses, seen = [], collections.defaultdict(list)
+
+    def keep_and_stage(batch):
+        staged = stage(batch)
+        for k, v in staged.items():
+            seen[k].append(v.cpu().numpy())
+        return staged
+
+    for b in criteo_pipeline.parquet_batches(args, shard, keep_and_stage):
+        losses.append(float(t.step(b)))
+    return losses, {k: np.concatenate(v) for k, v in seen.items()}
+
+
+def node_published(cluster, keys) -> list:
+    """What each node put on its kv blackboard under ``keys`` (read after
+    ``cluster.shutdown``), in executor order."""
+    from tensorflowonspark_torch import TFManager
+
+    authkey = bytes.fromhex(cluster.cluster_meta["authkey_hex"])
+    out = []
+    for meta in sorted(cluster.cluster_info, key=lambda m: m["executor_id"]):
+        mgr = TFManager.connect(tuple(meta["addr"]), authkey)
+        out.append({k: mgr.get(k) for k in keys})
+    return out
+
+
+def loss_rel(losses, replay, final_only: bool) -> float:
+    """Relative distance of the slice's losses from the replay's: of the
+    final loss, or the largest over the steps; ``inf`` when the step
+    counts differ."""
+    if not losses or len(losses) != len(replay):
+        return float("inf")
+    pairs = list(zip(losses, replay))[-1:] if final_only else zip(losses,
+                                                                   replay)
+    return max(abs(a - b) / abs(b) for a, b in pairs)
+
+
+def slice_failures(node: dict, replay: list, *, steps: int, want_launches:
+                   dict, tol: float, final_only: bool,
+                   device: str = "cuda") -> list:
+    """Every gate a TENSORFLOW-mode slice breaks (empty when it passes):
+    the node finished on ``device``, took ``steps`` steps with finite
+    losses within ``tol`` of the replay, and launched exactly
+    ``want_launches``."""
+    losses = node.get("losses") or []
+    failures = []
+    if node.get("state") != "finished":
+        failures.append(f"state {node.get('state')}")
+    if not str(node.get("device")).startswith(device):
+        failures.append(f"device {node.get('device')} (want {device})")
+    if len(losses) != steps:
+        failures.append(f"{len(losses)} steps (want {steps})")
+    if not all(math.isfinite(v) for v in losses):
+        failures.append("a loss is not finite")
+    rel = loss_rel(losses, replay, final_only)
+    if not rel <= tol:
+        failures.append(f"loss rel {rel:.3e} > {tol}")
+    if node.get("launches") != want_launches:
+        failures.append(f"launches {node.get('launches')} (want "
+                        f"{want_launches})")
+    return failures
+
+
+def slice_rates(agg: dict, unit: int) -> dict:
+    """A one-node cluster's rates from ``cluster.metrics()``: the windowed
+    examples/s of its metrics hook over ``unit`` (1: images/s, the batch:
+    steps/s), and the wall rate of its loop (every example over the time
+    from the hook's start to its last publication)."""
+    [snap] = agg["nodes"].values()
+    ex_per_s = agg.get("total_examples_per_sec")
+    wall = (snap["total_examples"] / snap["elapsed_sec"]
+            if snap.get("elapsed_sec") else None)
+    return {"rate": ex_per_s / unit if ex_per_s else None,
+            "wall_rate": wall / unit if wall else None,
+            "steps": snap.get("step")}
+
+
+def job_timeline(t_run: float, t_formed: float, t_done: float, node: dict,
+                 loop_s: float | None) -> str:
+    """Where a TENSORFLOW-mode job's wall time went: the cluster's forming
+    (``TFCluster.run`` returning), the node's ``map_fun`` until its loop
+    started (the trainer's build), the loop (the metrics hook's own
+    clock) and the rest up to ``cluster.shutdown`` returning; wall clock
+    seconds, driver and executor on one host."""
+    start, end = node.get("map_fun_start"), node.get("map_fun_end")
+    if start is None or end is None or loop_s is None:
+        return "timeline not published"
+    return (f"formed {t_formed - t_run:.1f} s, map_fun started at "
+            f"{start - t_run:.1f} s, trainer build "
+            f"{end - start - loop_s:.1f} s, loop {loop_s:.1f} s, after the "
+            f"loop {t_done - end:.1f} s")
+
+
+def run_tf_job(sc, map_fun, args, keys=()) -> tuple:
+    """``TFCluster.run(map_fun, InputMode.TENSORFLOW, master_node="chief")``
+    on one executor of ``sc``, to ``cluster.shutdown``.  Returns what the
+    node published (state, losses, launches, device and ``keys``),
+    ``cluster.metrics()``, the job's seconds and where they went."""
+    from tensorflowonspark_torch import TFCluster
+
+    t0, w0 = time.perf_counter(), time.time()
+    cluster = TFCluster.run(sc, map_fun, args, num_executors=1,
+                            input_mode=TFCluster.InputMode.TENSORFLOW,
+                            master_node="chief")
+    w_formed = time.time()
+    cluster.shutdown(grace_secs=600)
+    job_s, w_done = time.perf_counter() - t0, time.time()
+    [node] = node_published(cluster, ("state", "losses", "launches",
+                                      "device", "map_fun_start",
+                                      "map_fun_end", *keys))
+    agg = cluster.metrics()
+    [snap] = agg["nodes"].values()
+    return node, agg, job_s, job_timeline(w0, w_formed, w_done, node,
+                                          snap.get("elapsed_sec"))
+
+
+def feed_alone(batches) -> dict:
+    """Time a batch iterator consumed with no step: the reader, its parse,
+    its staging (a copy to the card) and nothing else.  Returns the batch
+    count, the wall seconds from the first request to the last batch on
+    the card, and those after the first batch (the reader's start left
+    out)."""
+    import torch
+
+    t0 = time.perf_counter()
+    t_first, n = None, 0
+    for _ in batches:
+        n += 1
+        if t_first is None:
+            torch.cuda.synchronize()
+            t_first = time.perf_counter()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    return {"batches": n, "seconds": t_end - t0,
+            "seconds_after_first": t_end - t_first if n else 0.0}
+
+
+def tf_resnet_slice_phase(sc) -> dict:
+    """Phase 11 (see the module docstring), on ``sc``."""
+    import torch
+
+    from tensorflowonspark_torch import tfrecord
+    from tensorflowonspark_torch.examples import resnet_spark
+    from tensorflowonspark_torch.models import resnet
+    from tensorflowonspark_torch.trainer import Trainer
+
+    data_dir = tempfile.mkdtemp(prefix="tfos_torch_tfr_")
+    try:
+        t0 = time.perf_counter()
+        files = resnet.write_synthetic_tfrecords(data_dir, TF_RECORDS,
+                                                 TF_PARTS, 224, seed=3)
+        write_s = time.perf_counter() - t0
+        native = tfrecord._native()
+        codec = (f"native ({os.path.basename(native.library_path())}, g++)"
+                 if native is not None else "python (google_crc32c)")
+        mb = sum(os.path.getsize(f) for f in files) / 1e6
+        args = tf_resnet_args(data_dir)
+        node, agg, job_s, timeline = run_tf_job(sc, tf_resnet_map_fun, args)
+        t2 = time.perf_counter()
+        replay = tf_resnet_replay(args, "cuda")
+        replay_s = time.perf_counter() - t2
+        # what sets the loop's rate: the feed alone (the same reader and
+        # copies, no step) and the step alone at the same batch
+        feed = feed_alone(resnet_spark.train_batches(args, files, 0, True))
+        t = Trainer("resnet50", config=resnet.Config(),
+                    learning_rate=TRAIN_LR, device="cuda")
+        batch = t.shard(resnet.example_batch(resnet.Config(),
+                                             SLICE_TRAIN_BATCH))
+        step_ms = time_ms(lambda: t.step(batch), 10)
+        del t, batch
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    feed_ips = ((feed["batches"] - 1) * SLICE_TRAIN_BATCH
+                / feed["seconds_after_first"])
+    step_ips = SLICE_TRAIN_BATCH / step_ms * 1e3
+    steps = TF_RECORDS // SLICE_TRAIN_BATCH
+    want = launch_counts(one_pass=53 * steps, backward_one_pass=53 * steps)
+    failures = slice_failures(node, replay, steps=steps, want_launches=want,
+                              tol=SLICE_TRAIN_VS_IN_PROCESS, final_only=True)
+    rates = slice_rates(agg, 1)
+    print(f"tf-mode slice resnet50: write_synthetic_tfrecords {TF_RECORDS} "
+          f"records 224² in {len(files)} files, {mb:.1f} MB in {write_s:.2f} s"
+          f" by the {codec} codec; TFCluster.run(InputMode.TENSORFLOW) -> "
+          f"shard_files -> tfrecord_batches(readers=1, shuffle_buffer="
+          f"{TF_SHUFFLE}, prefetch=2, device_put=trainer.shard) -> "
+          f"Trainer.step on {node['device']}: state {node['state']}, "
+          f"losses {[round(v, 5) for v in node['losses'] or []]}; in-process"
+          f" replay {[round(v, 5) for v in replay]}; final loss rel "
+          f"{loss_rel(node['losses'], replay, True):.3e} (tol "
+          f"{SLICE_TRAIN_VS_IN_PROCESS}); executor launches "
+          f"{node['launches']}; cluster.metrics() images/s={rates['rate']}; "
+          f"loop wall images/s={rates['wall_rate']}; job {job_s:.1f} s ("
+          f"{timeline}), "
+          f"replay {replay_s:.1f} s; the feed alone (tfrecord_batches + "
+          f"copies, no step) {feed['batches']} batches in "
+          f"{feed['seconds']:.3f} s, {feed_ips:.1f} images/s after its first "
+          f"batch; Trainer.step alone at batch {SLICE_TRAIN_BATCH} "
+          f"{step_ms:.3f} ms = {step_ips:.1f} images/s", flush=True)
+    if failures:
+        raise SystemExit("tf-mode resnet50 slice phase failed: "
+                         + "; ".join(failures))
+    return {"launches": node["launches"], "images_per_s": rates["rate"],
+            "wall_images_per_s": rates["wall_rate"], "seconds": job_s,
+            "feed_images_per_s": feed_ips, "step_images_per_s": step_ips}
+
+
+def tf_wd_slice_phase(sc) -> dict:
+    """Phase 12 (see the module docstring), on ``sc``."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch import dfutil, readers, sparkapi
+    from tensorflowonspark_torch.examples import criteo_pipeline
+    from tensorflowonspark_torch.models import widedeep
+
+    rows = synth_criteo(WD_SLICE_ROWS, widedeep.Config().hash_buckets,
+                        seed=9, zipf=WD_ZIPF)
+    work = tempfile.mkdtemp(prefix="tfos_torch_pq_")
+    try:
+        args = tf_wd_args(work)
+        df = sparkapi.LocalSparkSession(sc).createDataFrame(
+            rows, ["dense", "cat", "label"]).repartition(WD_SLICE_PARTITIONS)
+        t0 = time.perf_counter()
+        dfutil.saveAsParquet(df, args.parquet_dir)
+        save_s = time.perf_counter() - t0
+        node, agg, job_s, timeline = run_tf_job(sc, tf_wd_train_fun, args,
+                                                ("shard_files",))
+        replay, seen = tf_wd_replay(args, "cuda")
+        # the feed alone: the same reader and stager (casts, copies to the
+        # card as trainer.shard makes them), no step
+        feed = feed_alone(criteo_pipeline.parquet_batches(
+            args, criteo_pipeline.parquet_shard(args, 0, 1),
+            criteo_pipeline.stage_fn(types.SimpleNamespace(
+                shard=readers._stager(True)))))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    feed_steps = (feed["batches"] - 1) / feed["seconds_after_first"]
+    steps = WD_SLICE_ROWS // WD_BATCH
+    want = {**dict.fromkeys(node["launches"] or {}, 0), "group": steps,
+            "combine": steps}
+    failures = slice_failures(node, replay, steps=steps, want_launches=want,
+                              tol=WD_SLICE_VS_REPLAY, final_only=False)
+    # what the Parquet files gave back is the rows, in partition order,
+    # with the stager's dtypes
+    batch = rows_to_batch(rows)
+    rows_ok = all(seen[k].dtype == batch[k].dtype
+                  and np.array_equal(seen[k], batch[k]) for k in batch)
+    if not rows_ok:
+        failures.append("the Parquet batches are not the DataFrame's rows")
+    rates = slice_rates(agg, WD_BATCH)
+    print(f"tf-mode slice wide_deep combine: dfutil.saveAsParquet "
+          f"{WD_SLICE_ROWS} rows in {node['shard_files']} files in "
+          f"{save_s:.2f} s; TFCluster.run(InputMode.TENSORFLOW) -> "
+          f"parquet_batches(prefetch=2, device_put=stage) -> Trainer.step on "
+          f"{node['device']}: state {node['state']}, losses "
+          f"{[round(v, 6) for v in node['losses'] or []]}; in-process replay "
+          f"{[round(v, 6) for v in replay]}; max rel "
+          f"{loss_rel(node['losses'], replay, False):.3e} (tol "
+          f"{WD_SLICE_VS_REPLAY}); the batches are the rows: {rows_ok}; "
+          f"executor table launches {node['launches']}; cluster.metrics() "
+          f"steps/s={rates['rate']}; loop wall steps/s={rates['wall_rate']}; "
+          f"job {job_s:.1f} s ({timeline}); "
+          f"the feed alone (parquet_batches + stager, no "
+          f"step) {feed['batches']} batches in {feed['seconds']:.3f} s, "
+          f"{feed_steps:.1f} batches/s after its first", flush=True)
+    if failures:
+        raise SystemExit("tf-mode wide&deep slice phase failed: "
+                         + "; ".join(failures))
+    return {"launches": node["launches"], "steps_per_s": rates["rate"],
+            "wall_steps_per_s": rates["wall_rate"], "seconds": job_s,
+            "feed_steps_per_s": feed_steps}
+
+
 def main() -> int:
     import torch
 
@@ -1930,6 +2323,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false: this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import dataclasses
 
@@ -1963,7 +2357,7 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     kern.update(backward_phase(sites))
-    train_model_phase()
+    train_model = train_model_phase()
     main_path = train_slice_phase()
     tables = table_kernel_phase()
     wd_train = wd_train_model_phase()
@@ -1972,6 +2366,36 @@ def main() -> int:
         f"{mode}: Trainer.step {wd_train[mode]['steps_per_s']:.1f}, slice "
         f"{wd_slice[path]['steps_per_s']}" for mode, path in WD_MODES),
         flush=True)
+    # one application for both: its executor carries over from one job
+    # to the next, as a Spark application's executors do
+    from tensorflowonspark_torch import sparkapi
+
+    t11 = time.perf_counter()
+    sc = sparkapi.LocalSparkContext("local[1]")
+    try:
+        tf_resnet = tf_resnet_slice_phase(sc)
+        t12 = time.perf_counter()
+        tf_wd = tf_wd_slice_phase(sc)
+    finally:
+        sc.stop()
+    t_end = time.perf_counter()
+    print(f"resnet50 images/s at batch {SLICE_TRAIN_BATCH}: TENSORFLOW-mode "
+          f"slice {tf_resnet['images_per_s']} by cluster.metrics(), "
+          f"{tf_resnet['wall_images_per_s']} loop wall; SPARK-mode slice "
+          f"{main_path['images_per_s']} by cluster.metrics(), "
+          f"{main_path['wall_images_per_s']:.2f} cluster.train wall; "
+          f"the TFRecord feed alone {tf_resnet['feed_images_per_s']:.1f}; "
+          f"Trainer.step at batch {SLICE_TRAIN_BATCH} "
+          f"{tf_resnet['step_images_per_s']:.1f}, at batch {MODEL_BATCH} "
+          f"{train_model['images_per_s']:.1f}", flush=True)
+    print(f"wide_deep combine steps/s at batch {WD_BATCH}: TENSORFLOW-mode "
+          f"Parquet slice {tf_wd['steps_per_s']} by cluster.metrics(), "
+          f"{tf_wd['wall_steps_per_s']} loop wall; estimator slice "
+          f"{wd_slice['combine']['steps_per_s']}; the Parquet feed alone "
+          f"{tf_wd['feed_steps_per_s']:.1f}; Trainer.step "
+          f"{wd_train['dense']['steps_per_s']:.1f}", flush=True)
+    print(f"seconds: phase 11 {t12 - t11:.1f}, phase 12 {t_end - t12:.1f}; "
+          f"all phases {t_end - t_start:.1f}", flush=True)
 
     print(card)  # as nvidia-smi gives it: name, power limit
     names = {"one_pass": "group_norm_act (one_pass)",
@@ -1986,7 +2410,8 @@ def main() -> int:
                      if path.startswith("backward")
                      else "tensorflowonspark_tpu/models/resnet.py:59"),
         "launches": main_path["launches"][path],
-        "launches_serving": serving["launches"].get(path, 0), **kern[path]}
+        "launches_serving": serving["launches"].get(path, 0),
+        "launches_tf_mode": tf_resnet["launches"][path], **kern[path]}
         for path in names]
     grouping = tables["combine"]
     kernels.append({
@@ -1994,6 +2419,7 @@ def main() -> int:
         "source": "tensorflowonspark_torch/csrc/sparse_adagrad.cu",
         "replaces": "tensorflowonspark_tpu/embedding.py:54",
         "launches": sum(wd_slice[p]["group_launches"] for _, p in WD_MODES),
+        "launches_tf_mode": tf_wd["launches"]["group"],
         "max_abs_err": 0.0, "ms": grouping["group_ms"],
         "device_ms": grouping["group_device_ms"],
         "plain_ms": grouping["group_plain_ms"],
@@ -2006,7 +2432,8 @@ def main() -> int:
         "replaces": ("tensorflowonspark_tpu/models/widedeep.py:283"
                      if path == "combine"
                      else "tensorflowonspark_tpu/embedding.py:36"),
-        "launches": wd_slice[path]["launches"], **tables[path]}
+        "launches": wd_slice[path]["launches"],
+        "launches_tf_mode": tf_wd["launches"].get(path, 0), **tables[path]}
         for _, path in WD_MODES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

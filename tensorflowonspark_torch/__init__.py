@@ -16,5 +16,11 @@ Ported so far: ResNet-50 batch inference through
 through ``TFCluster.run`` → ``TFNode.DataFeed`` → ``trainer.Trainer.step``
 (``InputMode.SPARK``), both with the fused GroupNorm kernel and its
 backward (``kernels/group_norm.py``, ``csrc/group_norm.cu``,
-``csrc/group_norm_bwd.cu``).
+``csrc/group_norm_bwd.cu``); Criteo wide&deep through
+``pipeline.TFEstimator.fit`` with the AdaGrad table kernels
+(``csrc/sparse_adagrad.cu``); and ``InputMode.TENSORFLOW``, each node
+reading its own TFRecord or Parquet files (``tfrecord``, ``dfutil``,
+``readers``, the native codec in ``native/``), as the port's
+``examples/resnet_spark.py`` and ``examples/criteo_pipeline.py`` launch
+both models.
 """

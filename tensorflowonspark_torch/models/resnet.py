@@ -213,6 +213,64 @@ def example_batch(config: Config, batch_size: int = 8, seed: int = 0):
         batch_size=batch_size, seed=seed)
 
 
+def write_synthetic_tfrecords(data_dir: str, n: int, parts: int, side: int,
+                              seed: int = 0, num_classes: int = 1000) -> list:
+    """Synthesise ImageNet-shaped TFRecords (uint8 image bytes + int64
+    label in ``[0, num_classes)``), one ``part-NNNNN`` file per part;
+    returns the file paths.
+
+    The reference's schema and draw
+    (``tensorflowonspark_tpu/models/resnet.py::write_synthetic_tfrecords``):
+    at the default 1000 classes the same ``seed`` writes the same bytes.
+    The reference always draws 1000 classes, which the tiny config's 10
+    cannot hold (its loss is NaN there, and torch's cross-entropy
+    rejects such labels): pass the config's ``num_classes``.  The parse
+    side is :func:`tfrecord_parse_fn`.
+    """
+    import os
+
+    from tensorflowonspark_torch import tfrecord
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(data_dir, exist_ok=True)
+    per_part = (n + parts - 1) // parts
+    paths = []
+    for p in range(parts):
+        count = min(per_part, n - p * per_part)
+        if count <= 0:
+            break
+
+        def examples():
+            for _ in range(count):
+                img = rng.integers(0, 256, size=(side, side, 3), dtype=np.uint8)
+                yield tfrecord.encode_example({
+                    "image": (tfrecord.BYTES_LIST, [img.tobytes()]),
+                    "label": (tfrecord.INT64_LIST,
+                              [int(rng.integers(0, num_classes))]),
+                })
+
+        path = os.path.join(data_dir, f"part-{p:05d}")
+        tfrecord.write_records(path, examples())
+        paths.append(path)
+    return paths
+
+
+def tfrecord_parse_fn(side: int):
+    """Parse fn decoding :func:`write_synthetic_tfrecords` records into
+    ``{"image": f32 (side,side,3) in [0,1], "label": i32}``, on the host."""
+    from tensorflowonspark_torch import tfrecord
+
+    def parse(payload: bytes):
+        ex = tfrecord.decode_example(payload)
+        img = np.frombuffer(ex["image"][1][0], np.uint8)
+        return {
+            "image": img.reshape(side, side, 3).astype(np.float32) / 255.0,
+            "label": np.int32(ex["label"][1][0]),
+        }
+
+    return parse
+
+
 # ---------------------------------------------------------------------------
 # Weights: port state <-> module, flax tree -> port state
 # ---------------------------------------------------------------------------

@@ -53,7 +53,9 @@ def test_importing_every_port_module_loads_nothing_of_jax():
                  "chip_info", "gpu_info", "health", "trainer",
                  "parallel.train", "parallel.distributed", "obs.trace",
                  "obs.registry", "obs.flight", "obs.journal", "obs.ledger",
-                 "obs.fleet", "obs.httpd", "obs.anomaly", "obs.chrome"):
+                 "obs.fleet", "obs.httpd", "obs.anomaly", "obs.chrome",
+                 "tfrecord", "dfutil", "native.tfrecord_native",
+                 "examples.resnet_spark", "examples.criteo_pipeline"):
         assert f"tensorflowonspark_torch.{name}" in doc["modules"]
 
 

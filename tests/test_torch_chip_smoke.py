@@ -154,3 +154,128 @@ def test_grouping_probe_stamps_every_phase_of_the_kernel_source():
     src = probe.stamped_source()
     assert src.count("STAMP(") == len(probe.MARKS) + 2  # + STAMP(0), define
     assert "tfos_probe_read" in src
+
+
+# ---------------------------------------------------------------------------
+# Phases 11-12 (InputMode.TENSORFLOW): the replays, the gates, the rates
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture()
+def one_thread(monkeypatch):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_tf_resnet_replay_follows_the_examples_reader(tmp_path, one_thread):
+    """Phase 11's replay reads the one node's shard with the example's
+    arguments (batch 64, one reader, the seeded shuffle of task 0): the
+    same batches as a plain ``tfrecord_batches`` loop with them, into a
+    fresh trainer, the same losses each time."""
+    from tensorflowonspark_torch import readers
+    from tensorflowonspark_torch.models import resnet
+    from tensorflowonspark_torch.trainer import Trainer
+
+    resnet.write_synthetic_tfrecords(str(tmp_path), 2 * 64 + 5, 3, 16,
+                                     seed=1, num_classes=10)
+    args = chip_smoke.tf_resnet_args(str(tmp_path), tiny=True)
+    assert (args.batch_size, args.readers, args.shuffle_buffer, args.epochs,
+            args.lr) == (chip_smoke.SLICE_TRAIN_BATCH, 1,
+                         chip_smoke.TF_SHUFFLE, 1, chip_smoke.TRAIN_LR)
+    replay = chip_smoke.tf_resnet_replay(args, "cpu")
+    assert len(replay) == 2 and all(np.isfinite(replay))
+    assert chip_smoke.tf_resnet_replay(args, "cpu") == replay
+    t = Trainer("resnet50", config=resnet.Config.tiny(),
+                learning_rate=chip_smoke.TRAIN_LR, device="cpu")
+    files = sorted(str(p) for p in tmp_path.glob("part-*"))
+    want = [float(t.step(b)) for b in readers.tfrecord_batches(
+        files, 64, parse_fn=resnet.tfrecord_parse_fn(16), readers=1,
+        shuffle_buffer=chip_smoke.TF_SHUFFLE, shuffle_files=True, seed=0,
+        drop_remainder=True)]
+    assert replay == want
+
+
+def test_tf_wd_replay_trains_on_the_saved_rows(tmp_path, one_thread):
+    """Phase 12's replay: the DataFrame saved by ``dfutil.saveAsParquet``
+    comes back through ``parquet_batches`` and the example's stager as the
+    rows, in partition order, with the step's dtypes."""
+    from tensorflowonspark_torch import dfutil, sparkapi
+
+    rows = chip_smoke.synth_criteo(2 * 1024, widedeep.Config.tiny()
+                                   .hash_buckets, seed=9,
+                                   zipf=chip_smoke.WD_ZIPF)
+    args = chip_smoke.tf_wd_args(str(tmp_path), tiny=True)
+    assert (args.batch_size, args.epochs, args.input, args.tiny) == (
+        chip_smoke.WD_BATCH, 1, "parquet", True)
+    assert chip_smoke.tf_wd_args(str(tmp_path)).tiny is False
+    sc = sparkapi.LocalSparkContext("local[1]")
+    try:
+        df = sparkapi.LocalSparkSession(sc).createDataFrame(
+            rows, ["dense", "cat", "label"]).repartition(4)
+        dfutil.saveAsParquet(df, args.parquet_dir)
+    finally:
+        sc.stop()
+    losses, seen = chip_smoke.tf_wd_replay(args, "cpu")
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    want = chip_smoke.rows_to_batch(rows)
+    for k in want:
+        assert seen[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(seen[k], want[k], err_msg=k)
+    assert chip_smoke.tf_wd_replay(args, "cpu")[0] == losses
+
+
+def _node(**over):
+    node = {"state": "finished", "device": "cuda:0", "losses": [2.0, 1.5],
+            "launches": {"group": 2, "combine": 2, "sparse": 0}}
+    node.update(over)
+    return node
+
+
+def test_slice_gates_pass_a_good_node_and_name_each_fault():
+    want = {"group": 2, "combine": 2, "sparse": 0}
+    gate = dict(steps=2, want_launches=want, tol=1e-5, final_only=False)
+    assert chip_smoke.slice_failures(_node(), [2.0, 1.5], **gate) == []
+    assert chip_smoke.slice_failures(
+        _node(device="cpu"), [2.0, 1.5], **gate, device="cpu") == []
+    faults = {
+        "state": _node(state="failed"),
+        "device": _node(device="cpu"),
+        "steps": _node(losses=[2.0]),
+        "finite": _node(losses=[2.0, float("nan")]),
+        "rel": _node(losses=[2.0, 1.5 * (1 + 2e-5)]),
+        "launches": _node(launches={"group": 2, "combine": 1, "sparse": 0}),
+    }
+    for name, node in faults.items():
+        failures = chip_smoke.slice_failures(node, [2.0, 1.5], **gate)
+        assert failures, name
+    # the final loss only (phase 11): an earlier step may differ
+    assert chip_smoke.slice_failures(
+        _node(losses=[2.1, 1.5]), [2.0, 1.5], **{**gate, "final_only": True,
+                                                 "tol": 1e-2}) == []
+    assert chip_smoke.loss_rel([2.1, 1.5], [2.0, 1.5], False) == \
+        pytest.approx(0.05)
+    assert chip_smoke.loss_rel([], [], True) == float("inf")
+
+
+def test_slice_rates_read_the_one_nodes_metrics():
+    agg = {"total_examples_per_sec": 2048.0, "nodes": {"chief:0": {
+        "step": 8, "total_examples": 8192, "elapsed_sec": 4.0}}}
+    assert chip_smoke.slice_rates(agg, 1024) == {
+        "rate": 2.0, "wall_rate": 2.0, "steps": 8}
+    assert chip_smoke.slice_rates(agg, 1)["wall_rate"] == 2048.0
+    idle = {"total_examples_per_sec": None, "nodes": {"chief:0": {
+        "step": 0, "total_examples": 0, "elapsed_sec": 0.0}}}
+    assert chip_smoke.slice_rates(idle, 1) == {
+        "rate": None, "wall_rate": None, "steps": 0}
+
+
+def test_job_timeline_splits_the_wall_time():
+    node = {"map_fun_start": 102.0, "map_fun_end": 110.5}
+    assert chip_smoke.job_timeline(100.0, 101.0, 111.0, node, 2.5) == (
+        "formed 1.0 s, map_fun started at 2.0 s, trainer build 6.0 s, "
+        "loop 2.5 s, after the loop 0.5 s")
+    assert chip_smoke.job_timeline(100.0, 101.0, 111.0, {}, 2.5) == (
+        "timeline not published")
