@@ -84,9 +84,11 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    criteo_pipeline.py::train_fun``; one executor on the card, 8,192 rows in
    4 partitions, batch 1024) → ``TFCluster.run`` → ``cluster.train`` →
    ``DataFeed.next_batch(device_put=...)`` → 8 ``Trainer.step``s →
-   ``trainer.export``; then ``TFModel.transform`` of the export.  The
-   executor's table launches (one grouping and one update a step), its
-   losses against an in-process replay, the scores against an in-process
+   ``trainer.export``; then ``TFModel.transform`` of the export (its
+   serialized forward) and, by ``setModelName("wide_deep")``, of the same
+   weights exported weights-only (the zoo's forward).  The executor's
+   table launches (one grouping and one update a step), its losses against
+   an in-process replay, both transforms' scores against an in-process
    forward of the exported weights, and steps/s by ``cluster.metrics()``.
 11. ResNet-50 in ``InputMode.TENSORFLOW``, the way ``examples/imagenet/
    resnet_spark.py`` launches: 512 synthetic 224² TFRecords in 4 part files
@@ -99,7 +101,12 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    53 one-pass forward and 53 backward launches a step, the final loss
    against an in-process replay of the same shard through the same
    reader.  images/s by ``cluster.metrics()`` and over the loop's wall
-   time, beside phase 7's and phase 6's.
+   time, beside phase 7's and phase 6's.  The job checkpoints at its
+   last step, 8 (``--ckpt_dir``, asynchronously), and its chief writes
+   the self-describing export (``--model_dir``): phase 13 goes on from
+   both.
+   The same job runs again with neither (PR 7's phase 11): its losses
+   must be the first job's, and its images/s are printed beside.
 12. Wide&deep in ``InputMode.TENSORFLOW`` over Parquet, the way
    ``examples/criteo/criteo_pipeline.py --input parquet`` launches, in
    phase 11's local application (its executor carries over): 8,192 Zipf
@@ -111,13 +118,42 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    on the card, one grouping and one update launch a step, every loss
    within 1e-5 of an in-process replay over the same batches, and those
    batches equal to the DataFrame's rows.  steps/s beside phase 10's.
+13. Persistence, in phase 11's application: (a) a second ``TFCluster.run``
+   of the example restores phase 11's newest checkpoint
+   (``restore_latest()`` must give 8) and takes 4 more steps on the next
+   records: 53 + 53 launches a step, its losses within 1e-5 of steps
+   9-12 of phase 11's replay (12 uninterrupted steps through the same
+   reader), and its step-12 checkpoint (params, AdamW moments, steps)
+   within 1e-4 of the replay's state; the reader of a restart at step
+   500 is timed.  (b) In process, ResNet-50 at batch 64: a
+   device-side clone of the state when an asynchronous cadence save
+   fires, two more steps at once while the writer is held back, then
+   ``finish_checkpoints``: the checkpoint equals the clone bit for bit
+   (params, AdamW moments, steps), so does the trainer after restoring
+   it, and a planted fault (the writer reading the live tensors) must be
+   caught.  (c) Wide&deep ``Config()``
+   at batch 1024, combine: a checkpoint at step 4 restored into a trainer
+   of another seed, 4 steps on each: every tensor bit-identical, one
+   grouping and one update launch a step after the restore.  (d)
+   ``TFModel`` with no ``model_name`` and no ``predict_fn`` serves phase
+   4's 127 rows from phase 11's export (written on the card) and from the
+   same weights exported in a spawned CPU process: scores within phase
+   4's tolerance of the weights in process (whether the bits match is
+   printed), 53 ``gn_one_pass`` launches a batch on the executor, the
+   program's bytes beside the weights'; then (c)'s wide&deep export.  (e)
+   A re-export with new weights to phase 11's path is served fresh.
+   Printed: checkpoint bytes, the cadence save's cost on the step path
+   against the background write, restore, export (trace and writes) and
+   model-load seconds, and the host µs of ``torch.ops.tfos.
+   group_norm_act`` against ``group_norm_act``.
 
 The last lines are the card line, one JSON line listing each kernel (the
 one-pass and two-pass forwards of ``group_norm_act`` and its one-pass and
 four-launch backwards, times at the training slice's batch and under
 ``_b32``/``_b256`` at the others; the table path's id grouping, and its
 update in each mode, times of a training step's pair on Zipf ids, the
-other cases suffixed; ``launches_tf_mode`` counts phases 11-12's), and
+other cases suffixed; ``launches_tf_mode`` counts phases 11-12's,
+``launches_phase13`` phase 13's), and
 ``{"ok": true, "device": {...}}``.
 Without a card it exits 1 and prints no result.
 """
@@ -204,6 +240,24 @@ WD_MODES = (("dense", "combine"), ("sparse", "sparse"))  # table_update, path
 TF_RECORDS = 512  # ResNet: 224² TFRecords, ≈ 77 MB in all
 TF_PARTS = 4
 TF_SHUFFLE = 256  # seeded shuffle buffer of records; one reader thread
+# persistence (phase 13)
+# each job of phases 11 and 13(a) checkpoints once, at its last step: the
+# save's host call then falls after the last step's time, outside the
+# windowed rate, and the write runs while the job winds down.  Phase
+# 13(b) times a save and its write against the steps around them
+RESUME_STEPS = 4  # the resumed job's steps after the restored step 8
+# the resumed job against the uninterrupted replay, the same kernels on
+# the same records: the losses rel, and at step 12 each tensor of the
+# state by max |Δ| / max |replay|.  The losses read rel 0 in every run so
+# far; a restore that dropped the AdamW moments or the step moves those
+# tensors by half their size or more
+RESUME_LOSS_REL = 1e-5
+RESUME_STATE_REL = 1e-4
+# the step a restart's reader is timed at (phase 13(a)): 500 batches of
+# 64 are 62.5 passes over phase 11's records, dropped unparsed
+RESTART_AT_STEP = 500
+WD_CKPT_STEPS = 4  # wide&deep: checkpoint at 4, then 4 steps on each side
+PHASE13_BUDGET_S = 60
 # |kernel - plain| <= this x max|plain| over the touched rows, table and
 # accumulator: f32, and only the order of the duplicates' sums differs
 # (the plain version's index_add_ adds them with atomics) besides
@@ -1878,7 +1932,7 @@ def wd_slice_phase() -> dict:
     import numpy as np
     import torch
 
-    from tensorflowonspark_torch import ckpt, sparkapi
+    from tensorflowonspark_torch import ckpt, compat, pipeline, sparkapi
     from tensorflowonspark_torch.models import widedeep
 
     buckets = widedeep.Config().hash_buckets
@@ -1900,6 +1954,16 @@ def wd_slice_phase() -> dict:
             seconds = time.perf_counter() - t0
             agg = cluster.metrics()
             state = ckpt.load_pytree(os.path.join(export_dir, "model"))
+            # the export serves its serialized forward; the zoo's forward
+            # by name serves the same weights exported weights-only
+            weights_only = os.path.join(export_dir, "weights_only")
+            compat.export_saved_model(state, weights_only)
+            by_name = (pipeline.TFModel(device="cuda")
+                       .setExportDir(weights_only).setModelName("wide_deep")
+                       .setBatchSize(WD_BATCH)
+                       .setInputMapping({"dense": "dense", "cat": "cat"})
+                       .setOutputMapping({"prediction": "ctr"})
+                       .transform(df.select("dense", "cat"))).collect()
         finally:
             sc.stop()
             shutil.rmtree(export_dir, ignore_errors=True)
@@ -1917,12 +1981,15 @@ def wd_slice_phase() -> dict:
             for i in range(steps)])
         del served
         torch.cuda.empty_cache()
-        got = torch.tensor([r.ctr for r in scored])
+        def score_err(rows_scored):
+            got = torch.tensor([r.ctr for r in rows_scored])
+            return (float((got - want).abs().max())
+                    if got.shape == want.shape else float("inf"))
+
         losses = node["losses"] or []
         rel = max((abs(a - b) / abs(b) for a, b in zip(losses, replay)),
                   default=float("inf"))
-        score_err = (float((got - want).abs().max())
-                     if got.shape == want.shape else float("inf"))
+        serialized_err, by_name_err = score_err(scored), score_err(by_name)
         ex_per_s = agg.get("total_examples_per_sec")
         steps_per_s = ex_per_s / WD_BATCH if ex_per_s else None
         launches = node["launches"] or {}
@@ -1932,9 +1999,11 @@ def wd_slice_phase() -> dict:
               f"{[round(v, 6) for v in losses]}; in-process replay "
               f"{[round(v, 6) for v in replay]}; max rel {rel:.3e} (tol "
               f"{WD_SLICE_VS_REPLAY}); executor table launches {launches}; "
-              f"TFModel.transform {len(scored)} rows, max |score - "
-              f"in-process forward| {score_err:.3e} (tol "
-              f"{WD_SCORES_VS_FORWARD}); cluster.metrics() steps/s="
+              f"TFModel.transform {len(scored)} rows from the export's "
+              f"serialized forward, max |score - in-process forward| "
+              f"{serialized_err:.3e}, by model name from a weights-only "
+              f"export {by_name_err:.3e} (tol {WD_SCORES_VS_FORWARD}); "
+              f"cluster.metrics() steps/s="
               f"{steps_per_s} ({ex_per_s} examples/s); fit + transform "
               f"{seconds:.1f} s", flush=True)
         if (node["state"] != "finished" or len(losses) != steps
@@ -1944,7 +2013,9 @@ def wd_slice_phase() -> dict:
                 or launches != {**dict.fromkeys(launches, 0),
                                 "group": steps, path: steps}
                 or len(scored) != WD_SLICE_ROWS
-                or score_err > WD_SCORES_VS_FORWARD or not steps_per_s):
+                or not serialized_err <= WD_SCORES_VS_FORWARD
+                or not by_name_err <= WD_SCORES_VS_FORWARD
+                or not steps_per_s):
             raise SystemExit(f"wide&deep slice phase failed ({table_update})")
         out[path] = {"launches": launches[path],
                      "group_launches": launches["group"],
@@ -1957,37 +2028,72 @@ def wd_slice_phase() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def tf_resnet_args(data_dir: str, tiny: bool = False):
+def tf_resnet_args(data_dir: str, tiny: bool = False,
+                   ckpt_dir: str | None = None,
+                   model_dir: str | None = None):
     """The port example's arguments for phase 11: batch 64, one reader (the
     record order is then the same in every run, so a replay can follow
-    it), a seeded shuffle buffer, one epoch."""
+    it), a seeded shuffle buffer, one epoch; with ``ckpt_dir`` the
+    chief's checkpoint at the job's last step (``ckpt_every_steps``, which
+    :func:`tf_resnet_map_fun` hands the example), with ``model_dir`` its
+    self-describing export (phase 13 reads both)."""
     from tensorflowonspark_torch.examples import resnet_spark
 
-    return resnet_spark.parse_args(
+    args = resnet_spark.parse_args(
         ["--batch_size", str(SLICE_TRAIN_BATCH), "--readers", "1",
          "--shuffle_buffer", str(TF_SHUFFLE), "--lr", str(TRAIN_LR),
          "--epochs", "1", "--data_dir", data_dir]
-        + (["--tiny"] if tiny else []))
+        + (["--tiny"] if tiny else [])
+        + (["--ckpt_dir", ckpt_dir] if ckpt_dir else [])
+        + (["--model_dir", model_dir] if model_dir else []))
+    args.ckpt_every_steps = TF_RECORDS // SLICE_TRAIN_BATCH
+    return args
+
+
+def tf_resnet_resume_args(args):
+    """Phase 13's second job: phase 11's arguments over two epochs of the
+    same records, stopping ``RESUME_STEPS`` after the first epoch's end,
+    with no export.  The reader's first epoch is phase 11's, record for
+    record (one reader, the shuffle's generator carried across epochs)."""
+    import argparse
+
+    steps = TF_RECORDS // args.batch_size
+    return argparse.Namespace(**{**vars(args), "epochs": 2,
+                                 "max_steps": steps + RESUME_STEPS,
+                                 "model_dir": None,
+                                 "ckpt_every_steps": RESUME_STEPS})
 
 
 def tf_resnet_map_fun(args, ctx):
     """``tensorflowonspark_torch/examples/resnet_spark.py::map_fun`` with
     the node's GroupNorm launch counts set to 0 before it and published
-    after it."""
+    after it, and ``TFOS_CKPT_EVERY_STEPS`` (the example's checkpoint
+    cadence) set to ``args.ckpt_every_steps`` in the executor's
+    environment while it runs."""
     from tensorflowonspark_torch.examples import resnet_spark
     from tensorflowonspark_torch.kernels import group_norm
 
     ctx.mgr.set("map_fun_start", time.time())
     group_norm.reset_launches()
-    resnet_spark.map_fun(args, ctx)
+    cadence = os.environ.get("TFOS_CKPT_EVERY_STEPS")
+    os.environ["TFOS_CKPT_EVERY_STEPS"] = str(args.ckpt_every_steps)
+    try:
+        resnet_spark.map_fun(args, ctx)
+    finally:
+        if cadence is None:
+            os.environ.pop("TFOS_CKPT_EVERY_STEPS")
+        else:
+            os.environ["TFOS_CKPT_EVERY_STEPS"] = cadence
     ctx.mgr.set("launches", dict(group_norm.launches_by_path))
     ctx.mgr.set("map_fun_end", time.time())
 
 
-def tf_resnet_replay(args, device: str) -> list:
+def tf_resnet_replay(args, device: str, with_state: bool = False):
     """Phase 11's in-process replay: the one node's shard read with the
     same arguments through the port's ``tfrecord_batches`` (the example's
-    ``train_batches``) into a fresh seeded ``Trainer`` on ``device``."""
+    ``train_batches``) into a fresh seeded ``Trainer`` on ``device``.
+    Returns the losses; with ``with_state`` also the trainer's state at
+    the end (:func:`flat_state`)."""
     from tensorflowonspark_torch import readers
     from tensorflowonspark_torch.examples import resnet_spark
     from tensorflowonspark_torch.models import resnet
@@ -1997,8 +2103,13 @@ def tf_resnet_replay(args, device: str) -> list:
     config = resnet.Config.tiny() if args.tiny else resnet.Config()
     t = Trainer("resnet50", config=config, learning_rate=args.lr,
                 device=device)
-    return [float(t.step(b))
-            for b in resnet_spark.train_batches(args, shard, 0, t.shard)]
+    from tensorflowonspark_torch.parallel import train as train_lib
+
+    losses = [float(t.step(b)) for b in resnet_spark.steps_of(
+        args, resnet_spark.train_batches(args, shard, 0, t.shard))]
+    if not with_state:
+        return losses
+    return losses, flat_state(train_lib.state_tree(t.state))
 
 
 def tf_wd_args(work_dir: str, tiny: bool = False):
@@ -2178,8 +2289,9 @@ def feed_alone(batches) -> dict:
             "seconds_after_first": t_end - t_first if n else 0.0}
 
 
-def tf_resnet_slice_phase(sc) -> dict:
-    """Phase 11 (see the module docstring), on ``sc``."""
+def tf_resnet_slice_phase(sc, work: str) -> dict:
+    """Phase 11 (see the module docstring), on ``sc``, its records,
+    checkpoints and export under ``work`` (phase 13 goes on from them)."""
     import torch
 
     from tensorflowonspark_torch import tfrecord
@@ -2187,41 +2299,51 @@ def tf_resnet_slice_phase(sc) -> dict:
     from tensorflowonspark_torch.models import resnet
     from tensorflowonspark_torch.trainer import Trainer
 
-    data_dir = tempfile.mkdtemp(prefix="tfos_torch_tfr_")
-    try:
-        t0 = time.perf_counter()
-        files = resnet.write_synthetic_tfrecords(data_dir, TF_RECORDS,
-                                                 TF_PARTS, 224, seed=3)
-        write_s = time.perf_counter() - t0
-        native = tfrecord._native()
-        codec = (f"native ({os.path.basename(native.library_path())}, g++)"
-                 if native is not None else "python (google_crc32c)")
-        mb = sum(os.path.getsize(f) for f in files) / 1e6
-        args = tf_resnet_args(data_dir)
-        node, agg, job_s, timeline = run_tf_job(sc, tf_resnet_map_fun, args)
-        t2 = time.perf_counter()
-        replay = tf_resnet_replay(args, "cuda")
-        replay_s = time.perf_counter() - t2
-        # what sets the loop's rate: the feed alone (the same reader and
-        # copies, no step) and the step alone at the same batch
-        feed = feed_alone(resnet_spark.train_batches(args, files, 0, True))
-        t = Trainer("resnet50", config=resnet.Config(),
-                    learning_rate=TRAIN_LR, device="cuda")
-        batch = t.shard(resnet.example_batch(resnet.Config(),
-                                             SLICE_TRAIN_BATCH))
-        step_ms = time_ms(lambda: t.step(batch), 10)
-        del t, batch
-    finally:
-        shutil.rmtree(data_dir, ignore_errors=True)
+    data_dir = os.path.join(work, "records")
+    t0 = time.perf_counter()
+    files = resnet.write_synthetic_tfrecords(data_dir, TF_RECORDS, TF_PARTS,
+                                             224, seed=3)
+    write_s = time.perf_counter() - t0
+    native = tfrecord._native()
+    codec = (f"native ({os.path.basename(native.library_path())}, g++)"
+             if native is not None else "python (google_crc32c)")
+    mb = sum(os.path.getsize(f) for f in files) / 1e6
+    args = tf_resnet_args(data_dir, ckpt_dir=os.path.join(work, "ckpt"),
+                          model_dir=os.path.join(work, "export"))
+    node, agg, job_s, timeline = run_tf_job(sc, tf_resnet_map_fun, args)
+    # the same job with no checkpoint and no export: PR 7's phase 11, and
+    # what the saves cost the loop end to end
+    plain, plain_agg, plain_s, plain_timeline = run_tf_job(
+        sc, tf_resnet_map_fun, tf_resnet_args(data_dir))
+    t2 = time.perf_counter()
+    # the replay goes on past phase 11's steps: phase 13's resumed job is
+    # held to the rest, and to its state at the end
+    replay, replay_state = tf_resnet_replay(tf_resnet_resume_args(args),
+                                            "cuda", with_state=True)
+    replay_s = time.perf_counter() - t2
+    # what sets the loop's rate: the feed alone (the same reader and
+    # copies, no step) and the step alone at the same batch
+    feed = feed_alone(resnet_spark.train_batches(args, files, 0, True))
+    t = Trainer("resnet50", config=resnet.Config(),
+                learning_rate=TRAIN_LR, device="cuda")
+    batch = t.shard(resnet.example_batch(resnet.Config(),
+                                         SLICE_TRAIN_BATCH))
+    step_ms = time_ms(lambda: t.step(batch), 10)
+    del t, batch
     torch.cuda.empty_cache()
     feed_ips = ((feed["batches"] - 1) * SLICE_TRAIN_BATCH
                 / feed["seconds_after_first"])
     step_ips = SLICE_TRAIN_BATCH / step_ms * 1e3
     steps = TF_RECORDS // SLICE_TRAIN_BATCH
     want = launch_counts(one_pass=53 * steps, backward_one_pass=53 * steps)
-    failures = slice_failures(node, replay, steps=steps, want_launches=want,
+    failures = slice_failures(node, replay[:steps], steps=steps,
+                              want_launches=want,
                               tol=SLICE_TRAIN_VS_IN_PROCESS, final_only=True)
+    failures += [f"the job with no checkpoint: {f}" for f in slice_failures(
+        plain, node["losses"] or [], steps=steps, want_launches=want,
+        tol=0.0, final_only=False)]
     rates = slice_rates(agg, 1)
+    plain_rates = slice_rates(plain_agg, 1)
     print(f"tf-mode slice resnet50: write_synthetic_tfrecords {TF_RECORDS} "
           f"records 224² in {len(files)} files, {mb:.1f} MB in {write_s:.2f} s"
           f" by the {codec} codec; TFCluster.run(InputMode.TENSORFLOW) -> "
@@ -2229,12 +2351,16 @@ def tf_resnet_slice_phase(sc) -> dict:
           f"{TF_SHUFFLE}, prefetch=2, device_put=trainer.shard) -> "
           f"Trainer.step on {node['device']}: state {node['state']}, "
           f"losses {[round(v, 5) for v in node['losses'] or []]}; in-process"
-          f" replay {[round(v, 5) for v in replay]}; final loss rel "
-          f"{loss_rel(node['losses'], replay, True):.3e} (tol "
+          f" replay {[round(v, 5) for v in replay[:steps]]}; final loss rel "
+          f"{loss_rel(node['losses'], replay[:steps], True):.3e} (tol "
           f"{SLICE_TRAIN_VS_IN_PROCESS}); executor launches "
           f"{node['launches']}; cluster.metrics() images/s={rates['rate']}; "
           f"loop wall images/s={rates['wall_rate']}; job {job_s:.1f} s ("
-          f"{timeline}), "
+          f"{timeline}); the job again with no checkpoint and no export "
+          f"(its losses the same: {plain['losses'] == node['losses']}): "
+          f"cluster.metrics() images/s={plain_rates['rate']}, loop wall "
+          f"images/s={plain_rates['wall_rate']}, job {plain_s:.1f} s "
+          f"({plain_timeline}); "
           f"replay {replay_s:.1f} s; the feed alone (tfrecord_batches + "
           f"copies, no step) {feed['batches']} batches in "
           f"{feed['seconds']:.3f} s, {feed_ips:.1f} images/s after its first "
@@ -2245,7 +2371,10 @@ def tf_resnet_slice_phase(sc) -> dict:
                          + "; ".join(failures))
     return {"launches": node["launches"], "images_per_s": rates["rate"],
             "wall_images_per_s": rates["wall_rate"], "seconds": job_s,
-            "feed_images_per_s": feed_ips, "step_images_per_s": step_ips}
+            "no_ckpt_images_per_s": plain_rates["rate"],
+            "feed_images_per_s": feed_ips, "step_images_per_s": step_ips,
+            "args": args, "replay": replay, "replay_state": replay_state,
+            "feed_ms_per_batch": SLICE_TRAIN_BATCH / feed_ips * 1e3}
 
 
 def tf_wd_slice_phase(sc) -> dict:
@@ -2316,6 +2445,662 @@ def tf_wd_slice_phase(sc) -> dict:
             "feed_steps_per_s": feed_steps}
 
 
+# ---------------------------------------------------------------------------
+# Persistence (phase 13): checkpoints, restart, the self-describing export
+# ---------------------------------------------------------------------------
+
+#: a script that writes the self-describing export of a weights export in
+#: a CPU process (no card visible): argv is the repository, the weights'
+#: export and the new export's directory
+CPU_EXPORT_SCRIPT = r"""
+import sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from tensorflowonspark_torch import ckpt, compat, saved_model
+from tensorflowonspark_torch.models import resnet
+t0 = time.perf_counter()
+state = ckpt.load_pytree(sys.argv[2] + "/model")
+config = resnet.config_from_state(state)
+compat.export_saved_model(
+    state, sys.argv[3], forward_fn=saved_model.wrap_state_forward(
+        resnet.serving_forward, resnet.make_serving_model(config)),
+    example_batch={"image": np.zeros((2, config.image_size,
+                                      config.image_size, 3), np.float32)},
+    model_name="resnet50")
+print(f"cpu export {time.perf_counter() - t0:.1f} s")
+"""
+
+
+def start_cpu_export(weights_export: str, out_dir: str):
+    """Start :data:`CPU_EXPORT_SCRIPT` in a process that sees no card
+    (``TFOS_TORCH_DEVICE=cpu``, ``CUDA_VISIBLE_DEVICES`` empty)."""
+    env = {**os.environ, "TFOS_TORCH_DEVICE": "cpu",
+           "CUDA_VISIBLE_DEVICES": ""}
+    return subprocess.Popen(
+        [sys.executable, "-c", CPU_EXPORT_SCRIPT,
+         os.path.dirname(os.path.abspath(__file__)), weights_export,
+         out_dir], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def host_flat(flat: dict) -> dict:
+    """``{key path: leaf}`` with every leaf a numpy array on the host."""
+    import numpy as np
+    import torch
+
+    return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v)) for k, v in flat.items()}
+
+
+def flat_state(tree) -> dict:
+    """A train-state tree (``parallel.train.state_tree``) as ``{key path:
+    numpy array}``, tensors copied to the host."""
+    from tensorflowonspark_torch import ckpt
+
+    return host_flat(ckpt._flatten(tree))
+
+
+def state_rel(got: dict, want: dict) -> tuple:
+    """``(key, rel)`` of the tensor of two flat states furthest apart, by
+    max |got - want| / max |want| (inf where a key or shape is missing on
+    one side, or ``want`` is all zero and ``got`` is not)."""
+    import numpy as np
+
+    worst = (None, 0.0)
+    for k in sorted(set(got) | set(want)):
+        if (k not in got or k not in want
+                or np.shape(got[k]) != np.shape(want[k])):
+            return k, float("inf")
+        a = np.asarray(got[k], np.float64)
+        b = np.asarray(want[k], np.float64)
+        diff = float(np.abs(a - b).max()) if a.size else 0.0
+        scale = float(np.abs(b).max()) if b.size else 0.0
+        rel = (diff / scale if scale else
+               0.0 if diff == 0 else float("inf"))
+        if rel > worst[1]:
+            worst = (k, rel)
+    return worst
+
+
+def restart_reader_s(args, skip: int) -> float:
+    """Seconds from opening the example's reader for a restart at step
+    ``skip`` (``train_batches(..., skip)``: the trained batches dropped
+    as raw records) to its first batch on the card."""
+    import argparse
+
+    import torch
+
+    from tensorflowonspark_torch import readers
+    from tensorflowonspark_torch.examples import resnet_spark
+
+    per_epoch = TF_RECORDS // args.batch_size
+    longer = argparse.Namespace(**{**vars(args),
+                                   "epochs": skip // per_epoch + 1})
+    shard = readers.shard_files(os.path.join(args.data_dir, "part-*"), 0, 1)
+    t0 = time.perf_counter()
+    batches = resnet_spark.train_batches(longer, shard, 0, True, skip)
+    next(batches)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    batches.close()
+    return seconds
+
+
+def state_diff(got: dict, want: dict) -> list:
+    """The key paths where two flat states differ in a bit (or exist in
+    only one)."""
+    import numpy as np
+
+    keys = set(got) | set(want)
+    return sorted(k for k in keys if k not in got or k not in want
+                  or got[k].dtype != want[k].dtype
+                  or not np.array_equal(got[k], want[k]))
+
+
+class _LiveSnapshot:
+    """The planted fault of phase 13(b): a "snapshot" that keeps the live
+    tensors and reads them when the writer runs, as a save without a
+    snapshot would."""
+
+    block = None  # nothing on the card to stage
+
+    def take(self, flat):
+        self.flat = dict(flat)
+        return self
+
+    def arrays(self, staging):
+        return host_flat(self.flat)
+
+
+def snapshot_run(trainer, batch, directory: str, planted: bool) -> dict:
+    """Phase 13(b), once: 4 steps with no checkpoint on, then the trainer's
+    cadence save fires at its second step (a device-side clone of the
+    state taken at that moment), two more steps run at once while the
+    writer's file write is held back, then 4 steps while it writes, then
+    ``finish_checkpoints``.  Returns the key paths where the committed
+    checkpoint differs from the clone, the checkpoint's bytes, the save
+    call's host ms, the ms a step (synchronized walls) with no checkpoint,
+    in the pair with the save (the check's own clone included), in the
+    pair after it (the writer copies the snapshot to the host meanwhile)
+    and while the file is written, the write's seconds, the seconds of
+    ``Trainer.checkpoint`` (which reserves the buffers), and the clone
+    (host arrays)."""
+    import threading
+
+    import torch
+
+    from tensorflowonspark_torch import ckpt
+    from tensorflowonspark_torch.parallel import train as train_lib
+
+    gate, timing = threading.Event(), {}
+    write = ckpt._write
+
+    def held_write(flat, path):
+        gate.wait(120)
+        t0 = time.perf_counter()
+        write(flat, path)
+        timing["write_s"] = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):  # steps with no checkpoint on: the baseline
+        trainer.step(batch)
+    torch.cuda.synchronize()
+    timing["step_plain_ms"] = (time.perf_counter() - t0) * 1e3 / 4
+    snapshot_cls = ckpt._Snapshot
+    if planted:  # before the manager reserves its snapshots
+        ckpt._Snapshot = _LiveSnapshot
+    try:
+        t0 = time.perf_counter()
+        mgr = trainer.checkpoint(directory, every_steps=2, async_save=True)
+        timing["checkpoint_s"] = time.perf_counter() - t0
+    finally:
+        ckpt._Snapshot = snapshot_cls
+    save, captured = mgr.save, {}
+
+    def cloning_save(step, tree):
+        captured["step"] = step
+        captured["clone"] = {k: (v.detach().clone()
+                                 if isinstance(v, torch.Tensor) else v)
+                             for k, v in ckpt._flatten(tree).items()}
+        t0 = time.perf_counter()
+        save(step, tree)
+        captured["save_ms"] = (time.perf_counter() - t0) * 1e3
+        trainer._ckpt_every = 0  # one save a run
+
+    mgr.save = cloning_save
+    ckpt._write = held_write
+    try:
+        trainer._steps_done = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step(batch)
+        trainer.step(batch)  # the save fires here
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.step(batch)
+        trainer.step(batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        gate.set()
+        for _ in range(4):  # steps while the file is written
+            trainer.step(batch)
+        torch.cuda.synchronize()
+        timing["step_during_write_ms"] = (time.perf_counter() - t2) * 1e3 / 4
+        trainer.finish_checkpoints()
+        if not planted:
+            # a later save of the same manager: its buffers reused
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            save(captured["step"] + 1, train_lib.state_tree(trainer.state))
+            timing["warm_save_ms"] = (time.perf_counter() - t3) * 1e3
+            torch.cuda.synchronize()
+            timing["warm_save_synced_ms"] = (time.perf_counter() - t3) * 1e3
+            mgr.wait_until_finished()
+    finally:
+        gate.set()
+        ckpt._write = write
+    step = captured["step"]
+    got = flat_state(mgr.restore(step))
+    want = host_flat(captured["clone"])
+    return {"diff": state_diff(got, want), "step": step, "clone": want,
+            "leaves": len(want),
+            "bytes": dir_bytes(os.path.join(directory, str(step))),
+            "save_ms": captured["save_ms"],
+            "step_with_save_ms": (t1 - t0) * 1e3 / 2,
+            "step_after_ms": (t2 - t1) * 1e3 / 2,
+            "step_plain_ms": timing["step_plain_ms"],
+            "step_during_write_ms": timing["step_during_write_ms"],
+            "write_s": timing.get("write_s"),
+            "checkpoint_s": timing["checkpoint_s"],
+            "warm_save_ms": timing.get("warm_save_ms"),
+            "warm_save_synced_ms": timing.get("warm_save_synced_ms")}
+
+
+def scores_in_process(model, images, sizes, batch: int):
+    """``model``'s scores of ``images`` chunked as the executor chunks
+    them: ``batch`` rows of each partition, padded to ``batch``."""
+    import numpy as np
+    import torch
+
+    ref, start = [], 0
+    with torch.inference_mode():
+        for size in sizes:
+            for lo in range(start, start + size, batch):
+                n = min(batch, start + size - lo)
+                chunk = np.zeros((batch, *images.shape[1:]), np.float32)
+                chunk[:n] = images[lo:lo + n]
+                ref.append(model(torch.from_numpy(chunk).cuda())[:n].cpu())
+            start += size
+    return torch.cat(ref)
+
+
+def serve_export(sc, df, export_dir: str, batch: int, in_map: dict,
+                 out_col: str) -> dict:
+    """``TFModel`` with no ``model_name`` and no ``predict_fn`` over
+    ``df`` on the card: the scores, the seconds, and the GroupNorm
+    launches of the executor and of the driver (its schema sample), each
+    counted from 0."""
+    import torch
+
+    from tensorflowonspark_torch import pipeline
+    from tensorflowonspark_torch.kernels import group_norm
+
+    tfmodel = (pipeline.TFModel(device="cuda").setExportDir(export_dir)
+               .setBatchSize(batch).setBucketSizes([batch])
+               .setInputMapping(in_map)
+               .setOutputMapping({"prediction": out_col}))
+    sc.parallelize([0], 1).mapPartitions(_reset_launches).collect()
+    group_norm.reset_launches()
+    t0 = time.perf_counter()
+    out = tfmodel.transform(df).collect()
+    seconds = time.perf_counter() - t0
+    driver = dict(group_norm.launches_by_path)
+    [(executor, _)] = sc.parallelize([0], 1).mapPartitions(
+        _executor_state).collect()
+    return {"scores": torch.tensor([getattr(r, out_col) for r in out]),
+            "rows": len(out), "seconds": seconds, "executor": executor,
+            "driver": driver}
+
+
+def _time_loads(exports):
+    """An executor job: the seconds of ``_RunModel._load`` (a cache miss:
+    the weights read, the forward built or deserialized, the state placed
+    on the card) for each ``(export_dir, model_name)``."""
+
+    def load(_):
+        import torch
+
+        from tensorflowonspark_torch import pipeline
+
+        out = []
+        for export_dir, name in exports:
+            run = pipeline._RunModel(export_dir, name, None, SLICE_BATCH,
+                                     {"image": "image"}, None, ["image"],
+                                     device="cuda")
+            pipeline._MODEL_CACHE.pop(pipeline.model_cache_key(export_dir,
+                                                               name), None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run._load()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return [out]
+
+    return load
+
+
+def export_timed(trainer, export_dir: str) -> dict:
+    """``trainer.export`` with its seconds split into the trace
+    (``torch.export.export``) and the rest (the weights' and the
+    program's writes)."""
+    import torch
+
+    trace, export = [], torch.export.export
+
+    def timed_export(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return export(*a, **k)
+        finally:
+            trace.append(time.perf_counter() - t0)
+
+    torch.export.export = timed_export
+    try:
+        t0 = time.perf_counter()
+        trainer.export(export_dir)
+        total = time.perf_counter() - t0
+    finally:
+        torch.export.export = export
+    return {"seconds": total, "trace_s": sum(trace),
+            "write_s": total - sum(trace)}
+
+
+def op_host_us() -> dict:
+    """Host µs a call of ``torch.ops.tfos.group_norm_act`` against
+    ``group_norm_act`` at a small shape (the dispatcher's cost)."""
+    import torch
+
+    from tensorflowonspark_torch.kernels import group_norm
+
+    xs, _, gamma, beta = draw_case((2, 64, 8, 8), False, 0, 1)
+    return {"op_us": host_us(lambda: torch.ops.tfos.group_norm_act(
+        xs[0], gamma, beta, 32, 1e-6, None, True)),
+        "wrapper_us": host_us(lambda: group_norm.group_norm_act(
+            xs[0], gamma, beta, 32, 1e-6))}
+
+
+def persistence_phase(sc, work: str, tf_resnet: dict) -> dict:
+    """Phase 13 (see the module docstring), on phase 11's application and
+    work directory."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch import ckpt, sparkapi
+    from tensorflowonspark_torch.kernels import sparse_adagrad
+    from tensorflowonspark_torch.models import resnet, widedeep
+    from tensorflowonspark_torch.parallel import train as train_lib
+    from tensorflowonspark_torch.trainer import Trainer
+
+    t_start = time.perf_counter()
+    failures, launches = [], collections.Counter()
+    args = tf_resnet["args"]
+    export_a = args.model_dir
+    cpu_export = os.path.join(work, "export_cpu")
+    cpu_proc = start_cpu_export(export_a, cpu_export)
+
+    # (a) the second job restores step 8 and takes 4 more steps
+    steps = TF_RECORDS // args.batch_size
+    args2 = tf_resnet_resume_args(args)
+    node, agg, job_s, timeline = run_tf_job(sc, tf_resnet_map_fun, args2,
+                                            ("restored_step",))
+    want = launch_counts(one_pass=53 * RESUME_STEPS,
+                         backward_one_pass=53 * RESUME_STEPS)
+    resumed = slice_failures(node, tf_resnet["replay"][steps:],
+                             steps=RESUME_STEPS, want_launches=want,
+                             tol=RESUME_LOSS_REL, final_only=False)
+    if node.get("restored_step") != steps:
+        resumed.append(f"restored step {node.get('restored_step')} (want "
+                       f"{steps})")
+    ckpt_dir = args.ckpt_dir
+    mgr = ckpt.CheckpointManager(ckpt_dir)
+    # the resumed job's last checkpoint against the replay's state there:
+    # params, AdamW moments and steps
+    end = steps + RESUME_STEPS
+    if end in mgr.all_steps():
+        end_state = host_flat(ckpt._flatten(mgr.restore(end)))
+        state_key, state_err = state_rel(end_state,
+                                         tf_resnet["replay_state"])
+        state_bits = not state_diff(end_state, tf_resnet["replay_state"])
+        del end_state
+    else:
+        state_key, state_err, state_bits = None, float("inf"), False
+    if not state_err <= RESUME_STATE_REL:
+        resumed.append(f"step {end}'s state is {state_err:.3e} from the "
+                       f"replay's at {state_key} (tol {RESUME_STATE_REL})")
+    failures += [f"(a) {f}" for f in resumed]
+    launches.update(node.get("launches") or {})
+    rates = slice_rates(agg, 1)
+    rel = loss_rel(node.get("losses"), tf_resnet["replay"][steps:], False)
+    restart_s = restart_reader_s(args, RESTART_AT_STEP)
+    print(f"persistence (a) resnet50 resumed: TFCluster.run(InputMode."
+          f"TENSORFLOW) -> Trainer.checkpoint + restore_latest() = "
+          f"{node.get('restored_step')} -> {RESUME_STEPS} steps on "
+          f"{node.get('device')}: losses "
+          f"{[round(v, 5) for v in node.get('losses') or []]}; the "
+          f"uninterrupted replay's steps {steps + 1}-{end} "
+          f"{[round(v, 5) for v in tf_resnet['replay'][steps:]]}; max rel "
+          f"{rel:.3e} (tol {RESUME_LOSS_REL}); the job's step-{end} "
+          f"checkpoint against the replay's state: max rel {state_err:.3e} "
+          f"at {state_key} (tol {RESUME_STATE_REL}), the same bits "
+          f"{state_bits}; executor launches {node.get('launches')}; "
+          f"committed steps {mgr.all_steps()}, step {steps} "
+          f"{dir_bytes(os.path.join(ckpt_dir, str(steps)))} bytes; "
+          f"cluster.metrics() images/s={rates['rate']}; job {job_s:.1f} s "
+          f"({timeline}); a restart at step {RESTART_AT_STEP}: the reader's "
+          f"first batch after {restart_s:.3f} s "
+          f"({restart_s / RESTART_AT_STEP * 1e3:.3f} ms a dropped batch; "
+          f"read, parsed and staged as phase 11's feed "
+          f"{tf_resnet['feed_ms_per_batch']:.3f} ms a batch)", flush=True)
+
+    # (b) the asynchronous snapshot, and the planted fault it must catch
+    t = Trainer("resnet50", config=resnet.Config(), learning_rate=TRAIN_LR,
+                device="cuda")
+    batch = t.shard(resnet.example_batch(resnet.Config(), SLICE_TRAIN_BATCH))
+    t.step(batch)
+    t.step(batch)
+    good = snapshot_run(t, batch, os.path.join(work, "snap"), planted=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.restore(os.path.join(work, "snap", str(good["step"])))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    # the live trainer after the restore: params, AdamW moments, steps
+    restored_diff = state_diff(flat_state(train_lib.state_tree(t.state)),
+                               good.pop("clone"))
+    planted = snapshot_run(t, batch, os.path.join(work, "snap_fault"),
+                           planted=True)
+    if good["diff"]:
+        failures.append(f"(b) the checkpoint is not the snapshot at "
+                        f"{good['diff'][:3]}")
+    if restored_diff:
+        failures.append(f"(b) the restored trainer is not the snapshot at "
+                        f"{restored_diff[:3]}")
+    if not planted["diff"]:
+        failures.append("(b) the planted fault (the writer reading the live "
+                        "tensors) went unseen")
+    print(f"persistence (b) async snapshot, resnet50 batch "
+          f"{SLICE_TRAIN_BATCH}: checkpoint step {good['step']}, "
+          f"{good['leaves']} leaves, {good['bytes']} bytes; bit for bit the "
+          f"device clone taken when the save fired: {not good['diff']}; "
+          f"planted fault (writer reads the live tensors) caught: "
+          f"{bool(planted['diff'])} ({len(planted['diff'])} leaves differ); "
+          f"Trainer.checkpoint {good['checkpoint_s']:.3f} s (reserves the "
+          f"clones' device buffers and the writer's pinned block); the "
+          f"cadence save's call {good['save_ms']:.3f} ms on the host; a "
+          f"later save of the same manager {good['warm_save_ms']:.3f} ms on"
+          f" the host, "
+          f"{good['warm_save_synced_ms']:.3f} ms to the clone's end; "
+          f"ms a step (synchronized): with no checkpoint "
+          f"{good['step_plain_ms']:.3f}, in the pair with the save (the "
+          f"check's clone included) {good['step_with_save_ms']:.3f}, in "
+          f"the pair after it (the writer's copy to the host meanwhile) "
+          f"{good['step_after_ms']:.3f}, while the file is written "
+          f"{good['step_during_write_ms']:.3f}; "
+          f"background write {good['write_s']:.3f} s; restore "
+          f"{restore_s:.3f} s, after it the trainer bit for bit the clone: "
+          f"{not restored_diff}", flush=True)
+    del t, batch
+
+    # (c) wide&deep: restore into a trainer of another seed, 4 steps each
+    rows = synth_criteo(WD_BATCH * 2 * WD_CKPT_STEPS,
+                        widedeep.Config().hash_buckets, seed=13,
+                        zipf=WD_ZIPF)
+    batches = [rows_to_batch(rows[i * WD_BATCH:(i + 1) * WD_BATCH])
+               for i in range(2 * WD_CKPT_STEPS)]
+    wd = _wd_trainer("dense", seed=0)
+    wd_dir = os.path.join(work, "wd_ckpt")
+    wd.checkpoint(wd_dir, every_steps=WD_CKPT_STEPS, async_save=True)
+    for b in batches[:WD_CKPT_STEPS]:
+        wd.step(wd.shard(b))
+    wd.finish_checkpoints()
+    wd2 = _wd_trainer("dense", seed=1)
+    wd2.checkpoint(wd_dir, every_steps=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = wd2.restore_latest()
+    torch.cuda.synchronize()
+    wd_restore_s = time.perf_counter() - t0
+    sparse_adagrad.reset_launches()
+    for b in batches[WD_CKPT_STEPS:]:
+        wd2.step(wd2.shard(b))
+    wd_launches = dict(sparse_adagrad.launches_by_path)
+    launches.update(wd_launches)
+    for b in batches[WD_CKPT_STEPS:]:
+        wd.step(wd.shard(b))
+    wd_diff = state_diff(flat_state(train_lib.state_tree(wd2.state)),
+                         flat_state(train_lib.state_tree(wd.state)))
+    want_wd = {**dict.fromkeys(wd_launches, 0), "group": WD_CKPT_STEPS,
+               "combine": WD_CKPT_STEPS}
+    if restored != WD_CKPT_STEPS:
+        failures.append(f"(c) restored step {restored}")
+    if wd_diff:
+        failures.append(f"(c) the restored trainer differs at "
+                        f"{wd_diff[:3]}")
+    if wd_launches != want_wd:
+        failures.append(f"(c) table launches {wd_launches} (want "
+                        f"{want_wd})")
+    wd_export = os.path.join(work, "wd_export")
+    wd_export_t = export_timed(wd2, wd_export)
+    print(f"persistence (c) wide_deep Config() batch {WD_BATCH} combine: "
+          f"checkpoint step {WD_CKPT_STEPS} "
+          f"{dir_bytes(os.path.join(wd_dir, str(WD_CKPT_STEPS)))} bytes, "
+          f"restore_latest() = {restored} into a trainer of seed 1 in "
+          f"{wd_restore_s:.3f} s; after {WD_CKPT_STEPS} more steps each, "
+          f"tables, accumulators, MLP and AdamW state bit-identical: "
+          f"{not wd_diff}; table launches after the restore {wd_launches}; "
+          f"export {wd_export_t['seconds']:.2f} s (trace "
+          f"{wd_export_t['trace_s']:.2f}, writes {wd_export_t['write_s']:.2f}"
+          f"), model/ {dir_bytes(os.path.join(wd_export, 'model'))} bytes, "
+          f"forward.pt2 {dir_bytes(os.path.join(wd_export, 'saved_forward'))}"
+          f" bytes", flush=True)
+
+    # (d) serving the serialized forwards on the card
+    cpu_out, _ = cpu_proc.communicate(timeout=300)
+    if cpu_proc.returncode != 0:
+        failures.append(f"(d) the CPU export failed: {cpu_out[-2000:]}")
+    state_a = ckpt.load_pytree(os.path.join(export_a, "model"))
+    weights_only = os.path.join(work, "export_weights_only")
+    from tensorflowonspark_torch import compat
+
+    compat.export_saved_model(state_a, weights_only)
+    model_a = resnet.load_state(resnet.make_model(resnet.Config()),
+                                state_a).cuda().eval()
+    images = np.random.RandomState(1).rand(
+        SLICE_ROWS, 224, 224, 3).astype(np.float32)
+    spark = sparkapi.LocalSparkSession(sc)
+    df = spark.createDataFrame(
+        [{"id": i, "image": images[i]} for i in range(SLICE_ROWS)]
+    ).repartition(3)
+    sizes = [len(p) for p in df.rdd._partitions]
+    n_batches = sum(-(-n // SLICE_BATCH) for n in sizes)
+    ref = scores_in_process(model_a, images, sizes, SLICE_BATCH)
+    served = {}
+    for label, export_dir in (("card", export_a), ("cpu", cpu_export)):
+        if label == "cpu" and cpu_proc.returncode != 0:
+            continue
+        got = serve_export(sc, df, export_dir, SLICE_BATCH,
+                           {"image": "image"}, "logits")
+        got["err"] = (rel_err(got["scores"], ref)
+                      if got["scores"].shape == ref.shape else float("inf"))
+        got["bits"] = bool(torch.equal(got["scores"], ref))
+        served[label] = got
+        launches.update(got["executor"])
+        launches.update(got["driver"])
+        if (got["rows"] != SLICE_ROWS or got["err"] > SLICE_VS_IN_PROCESS
+                or got["executor"] != launch_counts(
+                    one_pass=53 * n_batches)):
+            failures.append(f"(d) the {label}-written export: rows "
+                            f"{got['rows']}, rel {got['err']:.3e}, executor "
+                            f"launches {got['executor']} (want "
+                            f"{53 * n_batches} one_pass)")
+    [loads] = sc.parallelize([0], 1).mapPartitions(_time_loads(
+        [(export_a, None), (weights_only, "resnet50")])).collect()
+    for label, got in served.items():
+        print(f"persistence (d) TFModel (no model_name, no predict_fn) "
+              f"serves the {label}-written serialized forward of resnet50 on"
+              f" cuda: {got['rows']} rows in partitions {sizes}, "
+              f"{got['seconds']:.3f} s, {SLICE_ROWS / got['seconds']:.2f} "
+              f"rows/s (first, with the loads); scores rel vs the weights in "
+              f"process {got['err']:.3e} (tol {SLICE_VS_IN_PROCESS}), the "
+              f"same bits {got['bits']}; executor launches "
+              f"{got['executor']['one_pass']} one_pass for {n_batches} "
+              f"batches ({got['executor']['one_pass'] / n_batches:.1f} a "
+              f"batch), driver {got['driver']['one_pass']}", flush=True)
+    if {"card", "cpu"} <= set(served):
+        alike = bool(torch.equal(served["card"]["scores"],
+                                 served["cpu"]["scores"]))
+        program_bytes = dir_bytes(os.path.join(export_a, "saved_forward"))
+        print(f"persistence (d) the two exports score alike bit for bit: "
+              f"{alike}; saved_forward/ {program_bytes} bytes (card) / "
+              f"{dir_bytes(os.path.join(cpu_export, 'saved_forward'))} (cpu), "
+              f"model/ {dir_bytes(os.path.join(export_a, 'model'))} bytes; "
+              f"executor model load: serialized {loads[0]:.3f} s, "
+              f"weights-only {loads[1]:.3f} s", flush=True)
+    del model_a
+
+    # (d) wide&deep's export from (c), served the same way
+    wd_rows = rows[:2 * WD_BATCH]
+    wd_df = spark.createDataFrame(wd_rows, ["dense", "cat", "label"]
+                                  ).repartition(2)
+    wd_sizes = [len(p) for p in wd_df.rdd._partitions]
+    wd_served = serve_export(sc, wd_df.select("dense", "cat"), wd_export,
+                             WD_BATCH, {"dense": "dense", "cat": "cat"},
+                             "ctr")
+    start, want_ctr = 0, []
+    for size in wd_sizes:
+        part = wd_rows[start:start + size]
+        want_ctr.append(wd2.predict({k: v for k, v in rows_to_batch(
+            part).items() if k != "label"}).cpu())
+        start += size
+    want_ctr = torch.cat(want_ctr)
+    wd_err = (float((wd_served["scores"] - want_ctr).abs().max())
+              if wd_served["scores"].shape == want_ctr.shape
+              else float("inf"))
+    if wd_served["rows"] != len(wd_rows) or wd_err > WD_SCORES_VS_FORWARD:
+        failures.append(f"(d) wide_deep: rows {wd_served['rows']}, max "
+                        f"|diff| {wd_err:.3e}")
+    print(f"persistence (d) TFModel serves the wide_deep serialized forward "
+          f"on cuda: {wd_served['rows']} rows in {wd_sizes}, "
+          f"{wd_served['seconds']:.3f} s; max |score - in-process forward| "
+          f"{wd_err:.3e} (tol {WD_SCORES_VS_FORWARD})", flush=True)
+    del wd, wd2
+
+    # (e) a re-export to phase 11's path with new weights is served fresh
+    fresh = Trainer("resnet50", config=resnet.Config(), seed=5,
+                    learning_rate=TRAIN_LR, device="cuda")
+    export_t = export_timed(fresh, export_a)
+    ref_e = scores_in_process(fresh.model.eval(), images, sizes, SLICE_BATCH)
+    again = serve_export(sc, df, export_a, SLICE_BATCH, {"image": "image"},
+                         "logits")
+    err_e = (rel_err(again["scores"], ref_e)
+             if again["scores"].shape == ref_e.shape else float("inf"))
+    err_old = (rel_err(again["scores"], ref)
+               if again["scores"].shape == ref.shape else float("inf"))
+    launches.update(again["executor"])
+    launches.update(again["driver"])
+    if err_e > SLICE_VS_IN_PROCESS or err_old <= SLICE_VS_IN_PROCESS:
+        failures.append(f"(e) the re-export was not served fresh: rel "
+                        f"{err_e:.3e} to the new weights, {err_old:.3e} to "
+                        "the old")
+    print(f"persistence (e) re-export to the same path (Trainer.export on "
+          f"cuda, {export_t['seconds']:.2f} s: trace "
+          f"{export_t['trace_s']:.2f}, writes {export_t['write_s']:.2f}): the "
+          f"next transform's scores rel {err_e:.3e} to the new weights, "
+          f"{err_old:.3e} to the old", flush=True)
+    del fresh
+    torch.cuda.empty_cache()
+    host = op_host_us()
+    seconds = time.perf_counter() - t_start
+    print(f"persistence host µs a call at 2x64x8x8: torch.ops.tfos."
+          f"group_norm_act {host['op_us']:.1f}, group_norm_act "
+          f"{host['wrapper_us']:.1f}; phase 13 {seconds:.1f} s (budget "
+          f"{PHASE13_BUDGET_S} s)", flush=True)
+    if seconds > PHASE13_BUDGET_S:
+        print(f"persistence: phase 13 took {seconds:.1f} s, past its "
+              f"{PHASE13_BUDGET_S} s budget", flush=True)
+    if failures:
+        raise SystemExit("persistence phase failed: " + "; ".join(failures))
+    return {"launches": dict(launches), "seconds": seconds,
+            "op_host_us": host["op_us"],
+            "wrapper_host_us": host["wrapper_us"]}
+
+
 def main() -> int:
     import torch
 
@@ -2372,15 +3157,21 @@ def main() -> int:
 
     t11 = time.perf_counter()
     sc = sparkapi.LocalSparkContext("local[1]")
+    work = tempfile.mkdtemp(prefix="tfos_torch_tf_")
     try:
-        tf_resnet = tf_resnet_slice_phase(sc)
+        tf_resnet = tf_resnet_slice_phase(sc, work)
         t12 = time.perf_counter()
         tf_wd = tf_wd_slice_phase(sc)
+        t13 = time.perf_counter()
+        persistence = persistence_phase(sc, work, tf_resnet)
     finally:
         sc.stop()
+        shutil.rmtree(work, ignore_errors=True)
     t_end = time.perf_counter()
     print(f"resnet50 images/s at batch {SLICE_TRAIN_BATCH}: TENSORFLOW-mode "
-          f"slice {tf_resnet['images_per_s']} by cluster.metrics(), "
+          f"slice {tf_resnet['images_per_s']} by cluster.metrics() "
+          f"(a checkpoint at its last step; "
+          f"{tf_resnet['no_ckpt_images_per_s']} with no checkpoint), "
           f"{tf_resnet['wall_images_per_s']} loop wall; SPARK-mode slice "
           f"{main_path['images_per_s']} by cluster.metrics(), "
           f"{main_path['wall_images_per_s']:.2f} cluster.train wall; "
@@ -2394,8 +3185,9 @@ def main() -> int:
           f"{wd_slice['combine']['steps_per_s']}; the Parquet feed alone "
           f"{tf_wd['feed_steps_per_s']:.1f}; Trainer.step "
           f"{wd_train['dense']['steps_per_s']:.1f}", flush=True)
-    print(f"seconds: phase 11 {t12 - t11:.1f}, phase 12 {t_end - t12:.1f}; "
-          f"all phases {t_end - t_start:.1f}", flush=True)
+    print(f"seconds: phase 11 {t12 - t11:.1f}, phase 12 {t13 - t12:.1f}, "
+          f"phase 13 {t_end - t13:.1f}; all phases {t_end - t_start:.1f}",
+          flush=True)
 
     print(card)  # as nvidia-smi gives it: name, power limit
     names = {"one_pass": "group_norm_act (one_pass)",
@@ -2411,7 +3203,9 @@ def main() -> int:
                      else "tensorflowonspark_tpu/models/resnet.py:59"),
         "launches": main_path["launches"][path],
         "launches_serving": serving["launches"].get(path, 0),
-        "launches_tf_mode": tf_resnet["launches"][path], **kern[path]}
+        "launches_tf_mode": tf_resnet["launches"][path],
+        "launches_phase13": persistence["launches"].get(path, 0),
+        **kern[path]}
         for path in names]
     grouping = tables["combine"]
     kernels.append({
@@ -2420,6 +3214,7 @@ def main() -> int:
         "replaces": "tensorflowonspark_tpu/embedding.py:54",
         "launches": sum(wd_slice[p]["group_launches"] for _, p in WD_MODES),
         "launches_tf_mode": tf_wd["launches"]["group"],
+        "launches_phase13": persistence["launches"].get("group", 0),
         "max_abs_err": 0.0, "ms": grouping["group_ms"],
         "device_ms": grouping["group_device_ms"],
         "plain_ms": grouping["group_plain_ms"],
@@ -2433,7 +3228,9 @@ def main() -> int:
                      if path == "combine"
                      else "tensorflowonspark_tpu/embedding.py:36"),
         "launches": wd_slice[path]["launches"],
-        "launches_tf_mode": tf_wd["launches"].get(path, 0), **tables[path]}
+        "launches_tf_mode": tf_wd["launches"].get(path, 0),
+        "launches_phase13": persistence["launches"].get(path, 0),
+        **tables[path]}
         for _, path in WD_MODES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ Reference anchor: ``tensorflowonspark/TFNode.py`` (``DataFeed``,
 ``hdfs_path``).  A copy of ``tensorflowonspark_tpu/TFNode.py`` with its
 imports rewritten; ``next_batch(device_put=True)`` stages each column
 onto the node's torch device (pinned memory, a non-blocking copy) where
-the JAX package calls ``jax.device_put``.  ``start_cluster_server`` and
-``export_saved_model`` are not ported yet.
+the JAX package calls ``jax.device_put``; ``export_saved_model`` passes
+through to ``compat.export_saved_model``.  ``start_cluster_server`` is not
+ported yet.
 
 The central class is :class:`DataFeed`, the trainer-side endpoint of the
 SPARK input mode.  Deliberate TPU-first departure from the reference
@@ -530,3 +531,36 @@ def hdfs_path(ctx, path: str) -> str:
     joined = working_dir.rstrip("/") + "/" + path
     return joined if local else default_fs.rstrip("/") + joined
 
+
+
+def export_saved_model(sess_or_state, export_dir: str, *_a, **kwargs) -> str:
+    """Reference-parity passthrough to :func:`compat.export_saved_model`.
+
+    Keyword arguments (``forward_fn``/``example_batch``/``model_name`` for
+    a self-describing export) pass through; legacy positional TF arguments
+    are accepted and ignored, and so are the documented legacy TF
+    keywords.  Any other keyword (a typo such as ``exmaple_batch``) raises
+    ``TypeError`` instead of quietly writing a weights-only export."""
+    import inspect
+
+    from tensorflowonspark_torch import compat
+
+    legacy_tf_kwargs = {
+        "signatures", "tag_set", "signature_def_key", "as_text",
+        "clear_devices", "strip_default_attrs", "serving_input_receiver_fn",
+    }
+    accepted = inspect.signature(compat.export_saved_model).parameters
+    known, dropped = {}, []
+    for k, v in kwargs.items():
+        if k in accepted:
+            known[k] = v
+        elif k in legacy_tf_kwargs:
+            logger.info("export_saved_model: ignoring legacy TF kwarg %r", k)
+        else:
+            dropped.append(k)
+    if dropped:
+        raise TypeError(
+            f"export_saved_model got unexpected keyword argument(s) "
+            f"{sorted(dropped)}; accepted: {list(accepted)[2:]} plus "
+            f"legacy TF kwargs {sorted(legacy_tf_kwargs)}")
+    return compat.export_saved_model(sess_or_state, export_dir, **known)

@@ -11,8 +11,9 @@ A port of ``examples/criteo/criteo_pipeline.py`` (``train_fun``,
   ``readers.parquet_batches`` — row groups to column buffers to the device,
   no Spark feed.
 
-Either way the chief exports the weights and ``TFModel.transform`` scores
-the DataFrame back (``ctr``).
+Either way the chief writes the self-describing export (weights and the
+serialized forward, ``Trainer.export``) and ``TFModel.transform`` scores
+the DataFrame back (``ctr``) from the serialized forward.
 
     python -m tensorflowonspark_torch.examples.criteo_pipeline --cluster_size 2 --input parquet
 
@@ -99,8 +100,8 @@ def train_fun(args, ctx):
     ctx.mgr.set("final_loss", float(loss) if loss is not None else None)
     ctx.mgr.set("steps", steps)
     if ctx.job_name == "chief":
-        # weights + serving collections; Trainer.export strips the
-        # tables' _opt accumulators
+        # weights + serving collections + the serialized forward;
+        # Trainer.export strips the tables' _opt accumulators
         trainer.export(ctx.absolute_path(args.export_dir))
 
 

@@ -10,6 +10,15 @@ staging the next batch onto the device (``trainer.shard``) while the
 current one trains.  ``--synthetic`` trains on one device-resident batch
 instead: the step's ceiling without the input pipeline.
 
+``--ckpt_dir`` makes the job restartable, TFoS's recovery model: the
+chief checkpoints every ``TFOS_CKPT_EVERY_STEPS`` steps (asynchronously),
+and every node first restores the newest committed checkpoint and has its
+reader drop the batches it already trained on unparsed, so a job run
+again after a lost executor continues where the checkpoint left it
+(``--max_steps`` bounds the run).  With
+``--model_dir`` the chief writes the self-describing export
+(``Trainer.export``), which ``TFModel`` serves with no model code.
+
 Throughput is reported through the step-metrics hook
 (``metrics.MetricsReporter`` → ``TFCluster.metrics()``).  Only
 ``resnet50`` is ported to the port's model zoo.
@@ -27,10 +36,11 @@ import os
 import tempfile
 
 
-def train_batches(args, files, seed: int, device_put):
+def train_batches(args, files, seed: int, device_put, skip: int = 0):
     """The TFRecord batches ``map_fun`` trains on: ``files`` read through
     :func:`readers.tfrecord_batches` with the script's arguments, shuffled
-    from ``seed``, staged by ``device_put``.  Replays call it too."""
+    from ``seed``, staged by ``device_put``, the first ``skip`` (a
+    restart's trained batches) dropped unparsed.  Replays call it too."""
     from tensorflowonspark_torch import models as model_zoo
     from tensorflowonspark_torch import readers
     from tensorflowonspark_torch.models import resnet
@@ -49,7 +59,17 @@ def train_batches(args, files, seed: int, device_put):
         drop_remainder=True,
         prefetch=2,
         device_put=device_put,
+        skip_batches=skip,
     )
+
+
+def steps_of(args, batches, start: int = 0):
+    """The batches a run trains on: ``batches`` (the stream after the
+    restored step ``start``) up to ``--max_steps`` (0: to the end)."""
+    import itertools
+
+    return itertools.islice(
+        batches, max(0, args.max_steps - start) if args.max_steps else None)
 
 
 def map_fun(args, ctx):
@@ -62,6 +82,13 @@ def map_fun(args, ctx):
     arch_lib = model_zoo.get_model(args.arch)
     config = arch_lib.Config.tiny() if args.tiny else arch_lib.Config()
     trainer = Trainer(args.arch, config=config, learning_rate=args.lr)
+    start = 0
+    if args.ckpt_dir:
+        # every node restores; only the chief writes
+        trainer.checkpoint(ctx.absolute_path(args.ckpt_dir),
+                           every_steps=None if ctx.executor_id == 0 else 0)
+        start = trainer.restore_latest() or 0
+        ctx.mgr.set("restored_step", start)
     reporter = metrics.MetricsReporter(ctx, interval=5)
     trainer.add_step_callback(reporter)
 
@@ -83,11 +110,12 @@ def map_fun(args, ctx):
         # same shard while another went unread
         shard = readers.shard_files(os.path.join(args.data_dir, "part-*"),
                                     ctx.executor_id, ctx.num_workers)
-        for batch in train_batches(args, shard, ctx.task_index,
-                                   trainer.shard):
+        for batch in steps_of(args, train_batches(
+                args, shard, ctx.task_index, trainer.shard, start), start):
             losses.append(trainer.step(batch))
-
+    # the loop's numbers, before the last checkpoint write is waited for
     snap = reporter.publish()
+    trainer.finish_checkpoints()
     losses = [float(v) for v in losses]  # one sync, after the last step
     ctx.mgr.set("images_per_sec", snap["examples_per_sec"])
     ctx.mgr.set("final_loss", losses[-1] if losses else None)
@@ -127,7 +155,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="TFRecord dir (synthesised on first run)")
     p.add_argument("--synthetic", action="store_true",
                    help="skip the input pipeline; device-resident batch")
-    p.add_argument("--model_dir", default=None)
+    p.add_argument("--model_dir", default=None,
+                   help="the chief's self-describing export")
+    p.add_argument("--ckpt_dir", default=None,
+                   help="checkpoint here every TFOS_CKPT_EVERY_STEPS "
+                        "steps; resume from the newest step")
+    p.add_argument("--max_steps", type=int, default=0,
+                   help="stop at this step (0: at the data's end)")
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--master", default=None)
     return p.parse_args(argv)

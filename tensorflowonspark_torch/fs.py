@@ -53,6 +53,10 @@ class FileSystem:
         """Full paths matching a glob pattern (sorted)."""
         raise NotImplementedError
 
+    def remove(self, path: str) -> None:
+        """Delete a file, or a directory and everything under it."""
+        raise NotImplementedError
+
 
 class LocalFS(FileSystem):
     """Plain paths and ``file://`` URIs."""
@@ -79,6 +83,15 @@ class LocalFS(FileSystem):
     def glob(self, pattern: str) -> list[str]:
         prefix = "file://" if pattern.startswith("file://") else ""
         return sorted(prefix + p for p in _glob_mod.glob(self._strip(pattern)))
+
+    def remove(self, path: str) -> None:
+        import shutil
+
+        path = self._strip(path)
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        else:
+            os.remove(path)
 
 
 class FsspecFS(FileSystem):
@@ -116,6 +129,9 @@ class FsspecFS(FileSystem):
 
     def glob(self, pattern: str) -> list[str]:
         return sorted(self._qualify(p) for p in self._fs.glob(pattern))
+
+    def remove(self, path: str) -> None:
+        self._fs.rm(path, recursive=True)
 
 
 _LOCAL = LocalFS()
@@ -184,6 +200,10 @@ def makedirs(path: str) -> None:
 
 def glob(pattern: str) -> list[str]:
     return get_fs(pattern).glob(pattern)
+
+
+def remove(path: str) -> None:
+    get_fs(path).remove(path)
 
 
 def join(base: str, *parts: str) -> str:

@@ -242,6 +242,34 @@ def group_norm_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return _launch(x, gamma, beta, groups, eps, residual, relu)
 
 
+@torch.library.custom_op(
+    "tfos::group_norm_act", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor gamma, Tensor beta, int groups, float eps, "
+           "Tensor? residual, bool relu) -> Tensor")
+def group_norm_act_op(x, gamma, beta, groups, eps, residual, relu):
+    """``torch.ops.tfos.group_norm_act``: the inference forward of
+    :func:`group_norm_act` as an operator that ``torch.export`` records
+    as one node, so an exported program picks the device's
+    implementation when it runs: :func:`group_norm_act_plain` on the CPU,
+    the kernel (:func:`_launch`, counted) on a card.  The branch on
+    ``x.device`` and the ``ctypes`` call of :func:`group_norm_act` cannot
+    be traced, and a trace on the CPU would bake the plain ops into the
+    program.  Every argument is positional (``_Norm.forward`` passes all
+    seven); there is no gradient: training calls :func:`group_norm_act`."""
+    return group_norm_act_plain(x, gamma, beta, groups, eps, residual, relu)
+
+
+@group_norm_act_op.register_kernel("cuda")
+def _group_norm_act_op_cuda(x, gamma, beta, groups, eps, residual, relu):
+    return _launch(x, gamma, beta, groups, eps, residual, relu)
+
+
+@group_norm_act_op.register_fake
+def _group_norm_act_op_fake(x, gamma, beta, groups, eps, residual, relu):
+    # both implementations return x's shape and dtype in channels_last
+    return torch.empty_like(x, memory_format=torch.channels_last)
+
+
 def _check(x: torch.Tensor, gamma, beta, groups: int, residual) -> None:
     if x.dim() != 4:
         raise ValueError(f"group_norm_act: x must be 4-D (N, C, H, W), got "

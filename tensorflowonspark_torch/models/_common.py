@@ -41,12 +41,43 @@ def flax_leaves(tree, prefix=()):
             yield prefix + (str(k),), v
 
 
+def classification_outputs(model: torch.nn.Module, batch) -> torch.Tensor:
+    """Logits of ``model`` over ``batch['image']``: the serving forward an
+    export traces (``saved_model.wrap_state_forward``)."""
+    return model(batch["image"])
+
+
 def classification_forward(model: torch.nn.Module, batch) -> torch.Tensor:
-    """Logits of ``model`` over ``batch['image']``, without autograd.
-    ``model`` rides as the first argument, where the reference's forward
-    takes its params pytree."""
+    """:func:`classification_outputs` without autograd.  ``model`` rides
+    as the first argument, where the reference's forward takes its params
+    pytree."""
     with torch.inference_mode():
-        return model(batch["image"])
+        return classification_outputs(model, batch)
+
+
+def adam_state_from_optax(opt_state, params_from_flax) -> dict:
+    """The port's optimizer-state tree (``parallel.train.state_tree``'s
+    ``opt_state``: AdamW's ``step``, ``exp_avg`` and ``exp_avg_sq`` by
+    parameter name) from an ``optax.adamw`` state: the live chain of
+    namedtuples, or the list of dicts a checkpoint restores as numpy.
+    ``count`` becomes every parameter's ``step`` (torch counts completed
+    steps, as optax does); ``mu`` and ``nu`` go through
+    ``params_from_flax`` (flax tree → ``{name: array}``), so the moments
+    take the weights' layout changes."""
+    adam = None
+    for part in opt_state:
+        fields = part if isinstance(part, dict) else getattr(
+            part, "_asdict", lambda: {})()
+        if "mu" in fields and "nu" in fields:
+            adam = fields
+            break
+    if adam is None:
+        raise KeyError("no ScaleByAdamState (count, mu, nu) in the optax "
+                       "state")
+    step = np.float32(np.asarray(adam["count"]))
+    mu, nu = params_from_flax(adam["mu"]), params_from_flax(adam["nu"])
+    return {name: {"step": step, "exp_avg": mu[name],
+                   "exp_avg_sq": nu[name]} for name in mu}
 
 
 def make_classification_loss_fn(model: torch.nn.Module):

@@ -200,6 +200,21 @@ def make_loss_fn(model: ResNet, config: Config):
     return _common.make_classification_loss_fn(model)
 
 
+#: the serving forward an export traces: ``logits = model(batch["image"])``
+serving_forward = _common.classification_outputs
+
+
+def make_serving_model(config: Config) -> ResNet:
+    """The model an export binds its weights to: built on the ``meta``
+    device (no storage, no init), each GroupNorm through
+    ``torch.ops.tfos.group_norm_act``, which ``torch.export`` records as
+    one node that dispatches on the device the program runs on."""
+    with torch.device("meta"):
+        model = ResNet(config)
+    model.norm_act = group_norm.group_norm_act_op
+    return model.eval()
+
+
 def make_forward_fn(model: ResNet, config: Config):
     """``forward(model, batch) -> logits`` (BatchNorm statistics live in the
     module, so one forward serves both norms)."""
@@ -372,3 +387,18 @@ def params_from_flax(params, batch_stats=None) -> dict:
                 leaf, dtype=np.float32)
         state["collections"] = {"batch_stats": stats}
     return state
+
+
+def opt_state_from_optax(opt_state, params) -> dict:
+    """The reference ``Trainer``'s ``optax.adamw`` state (``count``,
+    ``mu``, ``nu``; live or restored as numpy) as the port's AdamW state
+    by parameter name (``parallel.train.state_tree``'s ``opt_state``),
+    the moments converted as :func:`params_from_flax` converts ``params``
+    (HWIO → OIHW, the head transposed)."""
+    names = set(params_from_flax(params)["params"])
+    out = _common.adam_state_from_optax(
+        opt_state, lambda tree: params_from_flax(tree)["params"])
+    if set(out) != names:
+        raise KeyError("the optax moments and the params name different "
+                       "leaves")
+    return out

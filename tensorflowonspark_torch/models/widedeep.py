@@ -174,13 +174,25 @@ def make_loss_fn(model: WideDeep, config: Config):
     return loss_fn
 
 
+def serving_forward(model: WideDeep, batch) -> torch.Tensor:
+    """(B,) click probabilities: the serving forward an export traces."""
+    return torch.sigmoid(model(batch["dense"], batch["cat"]))
+
+
+def make_serving_model(config: Config) -> WideDeep:
+    """The model an export binds its weights to, built on the ``meta``
+    device: no 2.6 M-row tables are allocated or drawn."""
+    with torch.device("meta"):
+        return WideDeep(config).eval()
+
+
 def make_forward_fn(model: WideDeep, config: Config):
     """``forward(model, batch) -> (B,) click probabilities``."""
     del model, config
 
     def forward(model, batch):
         with torch.inference_mode():
-            return torch.sigmoid(model(batch["dense"], batch["cat"]))
+            return serving_forward(model, batch)
 
     return forward
 
@@ -334,3 +346,18 @@ def params_from_flax(params, collections=None) -> dict:
             cols.setdefault(path[0], {})[path[1]] = np.asarray(leaf)
         state["collections"] = cols
     return state
+
+
+def opt_state_from_optax(opt_state, params) -> dict:
+    """The reference ``Trainer``'s ``optax.adamw`` state of the MLP (the
+    tables train by AdaGrad, whose accumulators ride in the
+    ``embedding_opt`` collection) as the port's AdamW state by parameter
+    name, the moments converted as :func:`params_from_flax` converts
+    ``params``."""
+    names = set(params_from_flax(params)["params"])
+    out = _common.adam_state_from_optax(
+        opt_state, lambda tree: params_from_flax(tree)["params"])
+    if set(out) != names:
+        raise KeyError("the optax moments and the params name different "
+                       "leaves")
+    return out

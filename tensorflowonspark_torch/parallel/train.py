@@ -29,6 +29,7 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 
@@ -52,6 +53,76 @@ def create_train_state(model: torch.nn.Module, optimizer) -> TrainState:
     collections = getattr(model, "collections", None)
     return TrainState(dict(model.named_parameters()), optimizer,
                       collections=collections() if collections else None)
+
+
+def state_tree(state: TrainState) -> dict:
+    """The checkpoint tree of ``state``, the reference's ``_state_tree``:
+    ``{"params", "opt_state", "step", "collections"}``, leaves the LIVE
+    tensors (a save snapshots them).  ``opt_state`` is the optimizer's
+    ``state_dict()["state"]`` keyed by parameter name instead of index,
+    each parameter's ``step`` included (AdamW: ``step``, ``exp_avg``,
+    ``exp_avg_sq``); a parameter the optimizer holds nothing for yet is
+    left out, and so is ``opt_state`` before the first step.  The
+    hyperparameters stay the optimizer's own, as optax keeps them in the
+    transformation.  ``collections`` carries the model's buffers by
+    collection (wide&deep's tables and their AdaGrad accumulators,
+    ``embedding_opt``)."""
+    optimizer = state.opt_state
+    opt = {name: dict(optimizer.state[p]) for name, p in state.params.items()
+           if optimizer.state.get(p)}
+    tree: dict[str, Any] = {"params": dict(state.params),
+                            "step": int(state.step)}
+    if opt:
+        tree["opt_state"] = opt
+    if state.collections:
+        tree["collections"] = state.collections
+    return tree
+
+
+def load_state_tree(state: TrainState, tree: dict) -> None:
+    """Load a :func:`state_tree` (numpy leaves, as ``ckpt.load_pytree``
+    returns them) into ``state`` IN PLACE: the parameters and the
+    collections' tensors are copied into, never rebound, because the
+    optimizer and a model's own step (wide&deep's table update) hold
+    them; the optimizer's state tensors are copied into where they exist
+    and then handed to ``optimizer.load_state_dict``, which keeps them;
+    a parameter the tree holds no optimizer state for starts fresh."""
+    from tensorflowonspark_torch import ckpt
+
+    target = {"params": state.params, "step": int(state.step)}
+    if state.collections:
+        target["collections"] = state.collections
+    loaded = ckpt.copy_into(
+        target, {k: v for k, v in tree.items() if k != "opt_state"})
+    optimizer = state.opt_state
+    saved = tree.get("opt_state") or {}
+    unknown = sorted(set(saved) - set(state.params))
+    if unknown:
+        raise KeyError(f"checkpoint optimizer state for unknown parameters "
+                       f"{unknown[:5]}")
+    index = {id(p): i for i, p in enumerate(
+        p for group in optimizer.param_groups for p in group["params"])}
+    by_index = {}
+    for name, p in state.params.items():
+        if name not in saved:
+            continue
+        live = optimizer.state.get(p) or {}
+        entry = {}
+        for key, value in saved[name].items():
+            src = torch.as_tensor(np.asarray(value))
+            cur = live.get(key)
+            if (isinstance(cur, torch.Tensor) and cur.shape == src.shape
+                    and cur.dtype == src.dtype):
+                with torch.no_grad():
+                    cur.copy_(src)
+                entry[key] = cur
+            else:
+                entry[key] = src
+        by_index[index[id(p)]] = entry
+    state_dict = optimizer.state_dict()
+    state_dict["state"] = by_index
+    optimizer.load_state_dict(state_dict)
+    state.step = loaded["step"]
 
 
 def world_size():

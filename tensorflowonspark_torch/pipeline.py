@@ -7,20 +7,24 @@ Reference anchor: ``tensorflowonspark_tpu/pipeline.py`` (``TFParams`` +
 ``TFModel.transform(df)`` → ``df.rdd.mapPartitions(_RunModel)`` with a
 per-executor cached model).
 
-The port serves by ``model_name``: the export holds weights only
-(``compat.export_saved_model``), and each executor rebuilds the zoo model,
-loads the weights once into ``_MODEL_CACHE`` and moves it to its device.
-Per partition the bucketed serving data plane runs: columnar ingest → pad
-to a bucket → stage onto the device on a pump thread (batch N+1 while
-batch N computes) → forward → masked emit one batch behind.
+Which forward an executor serves, in the reference's precedence: an
+explicit ``predict_fn``; else the export's serialized forward
+(``saved_model.load_forward``: a self-describing export serves with no
+model code, the state loaded onto the executor's device); else the zoo
+model of ``model_name``, rebuilt, loaded and moved to the device.  Each
+executor keeps what it loaded in ``_MODEL_CACHE``, keyed by
+:func:`model_cache_key`.  Per partition the bucketed serving data plane
+runs: columnar ingest → pad to a bucket → stage onto the device on a pump
+thread (batch N+1 while batch N computes) → forward → masked emit one
+batch behind.
 
 Device rule: ``TFModel(device=...)``; unset, each executor reads
 ``TFOS_TORCH_DEVICE`` (inherited from the driver) and otherwise runs on
 ``cuda``, raising where there is no card (``util.select_device``).
 
-Not ported yet: the self-describing serialized forward, the obs spans /
-flight recorder / cost ledger of the reference's ``_RunModel.__call__``,
-the persistent compile cache and the serving health probe.
+Not ported yet: the flight recorder and cost ledger of the reference's
+``_RunModel.__call__``, the persistent compile cache and the serving
+health probe.
 """
 
 from __future__ import annotations
@@ -256,9 +260,10 @@ class TFEstimator(TFParams, HasBatchSize, HasEpochs, HasSteps, HasClusterSize,
 # ---------------------------------------------------------------------------
 
 #: per-executor-process singleton: {cache_key: (forward, params, export
-#: param specs)}; the key holds the export path's mtime, so a re-export
+#: param specs, signature or None)}; the key holds the export's cache
+#: token (mtime, or the signature's fingerprint), so a re-export
 #: invalidates it
-_MODEL_CACHE: dict[tuple, tuple[Callable, Any, dict]] = {}
+_MODEL_CACHE: dict[tuple, tuple[Callable, Any, dict, Any]] = {}
 
 
 class TFModel(TFParams, HasBatchSize, HasInputMapping, HasOutputMapping,
@@ -306,26 +311,29 @@ class TFModel(TFParams, HasBatchSize, HasInputMapping, HasOutputMapping,
         (``shapes.resolve_buckets(batch_size, buckets or bucket_sizes)``),
         so the first real partition pays neither the load nor the first
         kernel build.  Row shapes come from ``example`` (input name → ONE
-        row) or, serving by ``model_name``, from the zoo's example batch.
-        Returns the bucket sizes warmed."""
+        row), else a self-describing export's signature, else, serving by
+        ``model_name``, the zoo's example batch.  Returns the bucket sizes
+        warmed."""
         from tensorflowonspark_torch import serving, shapes, sql_compat
 
         bucket_sizes = (list(buckets) if buckets
                         else self.getOrDefault("bucket_sizes"))
         ladder = shapes.resolve_buckets(self.getOrDefault("batch_size"),
                                         bucket_sizes)
-        if example is None and not self.getOrDefault("model_name"):
-            raise ValueError(
-                "warmup needs input shapes: pass example= (model input name "
-                "→ one example row) or set model_name so the zoo's example "
-                "batch supplies them")
         run_model = self._run_model([], sql_compat.SPARKAPI, bucket_sizes)
         fn, params = run_model._load()
         if example is not None:
-            specs = shapes.input_specs(example)
-        else:
+            specs = shapes.input_specs(example=example)
+        elif run_model._signature is not None:
+            specs = shapes.input_specs(signature=run_model._signature)
+        elif self.getOrDefault("model_name"):
             specs = shapes.policy_specs(self.getOrDefault("model_name"),
                                         run_model._export_specs)
+        else:
+            raise ValueError(
+                "warmup needs input shapes: pass example= (model input name "
+                "→ one example row), serve a self-describing export, or set "
+                "model_name so the zoo's example batch supplies them")
         serving.warm_buckets(fn, params, specs, ladder, run_model._cache_key,
                              run_model._device)
         logger.info("warmed %s for buckets %s", run_model.export_dir,
@@ -366,25 +374,62 @@ class TFModel(TFParams, HasBatchSize, HasInputMapping, HasOutputMapping,
         return sql_compat.create_dataframe(out_rdd, fields, backend, session)
 
 
+def _cache_token(path: str, export_dir: str):
+    """Cache-invalidation token for the per-executor model cache.
+
+    A local export: its weights directory's mtime (a re-export renames a
+    new file into it).  A remote (``fs``) export has no trustworthy mtime,
+    and a constant would serve a re-export to the same path from the stale
+    cache for the life of the executor, so the signature JSON is
+    fingerprinted: it embeds a fresh ``export_id`` per export.  A
+    weights-only remote export has no signature and keeps 0.0 (re-export
+    those to a new path)."""
+    import os
+
+    from tensorflowonspark_torch import saved_model
+
+    if "://" not in path:
+        try:
+            return os.path.getmtime(path)
+        except OSError:
+            return 0.0
+    fp = saved_model.signature_fingerprint(export_dir)
+    return fp if fp is not None else 0.0
+
+
+def _weights_path(export_dir: str) -> str:
+    """Where an export's weights are: ``export_dir/model`` in the layout
+    ``compat.export_saved_model`` writes, else ``export_dir`` itself."""
+    import os
+
+    from tensorflowonspark_torch import fs
+
+    model_sub = fs.join(export_dir, "model")
+    if "://" in export_dir:
+        return (model_sub if fs.exists(fs.join(model_sub, "pytree.npz"))
+                else export_dir)
+    return model_sub if os.path.isdir(model_sub) else export_dir
+
+
 def model_cache_key(export_dir: str, model_name: str | None = None,
                     predict_fn: Callable | None = None) -> tuple:
     """The ``_MODEL_CACHE`` identity of a model artifact:
-    ``(resolved path, forward id, mtime)``, computable without loading."""
-    import os
+    ``(weights path, forward id, cache-invalidation token)``, computable
+    without loading.  The forward id follows the reference's precedence:
+    an explicit ``predict_fn`` beats the export's serialized forward
+    (``"saved_forward"``), which beats ``model_name`` (namespaced
+    ``model:<name>``, so no name collides with it)."""
+    from tensorflowonspark_torch import saved_model
 
-    path = export_dir
-    model_sub = os.path.join(path, "model")
-    if os.path.isdir(model_sub):
-        path = model_sub  # layout written by compat.export_saved_model
-    try:
-        mtime = os.path.getmtime(path)
-    except OSError:
-        mtime = 0.0
-    if predict_fn is not None:
+    path = _weights_path(export_dir)
+    token = _cache_token(path, export_dir)
+    if predict_fn is None and saved_model.has_forward(export_dir):
+        fn_id = "saved_forward"
+    elif predict_fn is not None:
         fn_id = getattr(predict_fn, "__qualname__", None)
     else:
         fn_id = f"model:{model_name}" if model_name else None
-    return (path, fn_id, mtime)
+    return (path, fn_id, token)
 
 
 def _cache_insert(key: tuple, entry: tuple) -> None:
@@ -426,6 +471,7 @@ class _RunModel:
         self._cache_key = None
         self._device = None
         self._export_specs = None  # the export's tree of shapes
+        self._signature = None  # a self-describing export's signature
 
     def sampler(self) -> "_RunModel":
         """A copy that scores only the FIRST row of its partition."""
@@ -443,23 +489,39 @@ class _RunModel:
         self._cache_key = key
         self._device = single_node_env(self.device)
         if key not in _MODEL_CACHE:
-            _cache_insert(key, self._load_uncached(key[0]))
-        fn, params, self._export_specs = _MODEL_CACHE[key]
+            from tensorflowonspark_torch import obs
+
+            with obs.span("serving.model_load", export_dir=self.export_dir,
+                          fn=key[1] or "?"):
+                _cache_insert(key, self._load_uncached(
+                    key[0], serialized=key[1] == "saved_forward"))
+        fn, params, self._export_specs, self._signature = _MODEL_CACHE[key]
         return fn, params
 
-    def _load_uncached(self, path):
-        """``(forward, params, export specs)``: the forward, what it takes
-        as params (the model on the device, or the export's params for a
-        ``predict_fn``), and the shapes of the export's params."""
-        from tensorflowonspark_torch import ckpt, shapes
+    def _load_uncached(self, path, serialized: bool):
+        """``(forward, params, export specs, signature)``: the forward,
+        what it takes as params (the export's state on the device for a
+        serialized forward, the model on the device for a zoo model, the
+        export's params for a ``predict_fn``), the shapes of the export's
+        tree and a self-describing export's signature (else None)."""
+        from tensorflowonspark_torch import ckpt, saved_model
 
         state = ckpt.load_pytree(path)
-        params = state.get("params", state)
         specs = _spec_tree(state)
+        if serialized:
+            # a self-describing export: served from the artifact alone
+            fn, signature = saved_model.load_forward(self.export_dir,
+                                                     self._device)
+            logger.info("executor loaded the serialized forward of %s onto "
+                        "%s", self.export_dir, self._device)
+            return (fn, saved_model.state_on_device(state, self._device),
+                    specs, signature)
+        params = state.get("params", state)
         if self.predict_fn is not None:
-            return self.predict_fn, params, specs
+            return self.predict_fn, params, specs, None
         if not self.model_name:
-            raise ValueError("TFModel needs model_name or predict_fn")
+            raise ValueError("TFModel needs model_name or predict_fn (or "
+                             "a self-describing export)")
         from tensorflowonspark_torch import models as model_zoo
 
         lib = model_zoo.get_model(self.model_name)
@@ -468,7 +530,7 @@ class _RunModel:
         model = model.to(self._device).eval()
         logger.info("executor loaded %s from %s onto %s", self.model_name,
                     self.export_dir, self._device)
-        return lib.make_forward_fn(model, config), model, specs
+        return lib.make_forward_fn(model, config), model, specs, None
 
     def __call__(self, iterator):
         import itertools
@@ -545,6 +607,41 @@ def _spec_tree(tree: dict) -> dict:
 
     return {k: _spec_tree(v) if isinstance(v, dict)
             else shapes.TensorSpec(v.shape, v.dtype) for k, v in tree.items()}
+
+
+def get_meta_graph_def(export_dir: str, tag_set: str = "serve") -> dict:
+    """Describe an export: weight leaf names → ``{"shape", "dtype"}``, plus,
+    for a self-describing export, its serving signature (input and output
+    names, dtypes, shapes) under the reserved ``"__signature__"`` key: the
+    MetaGraphDef's signature_def.
+
+    Reference anchor: ``tensorflowonspark_tpu/pipeline.py::
+    get_meta_graph_def``."""
+    del tag_set  # parity only
+    from tensorflowonspark_torch import ckpt, saved_model
+
+    flat = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (str(k),))
+            else:
+                flat["/".join(prefix + (str(k),))] = {
+                    "shape": tuple(v.shape), "dtype": str(v.dtype)}
+
+    walk(ckpt.load_pytree(_weights_path(export_dir)), ())
+    try:
+        signature = saved_model.read_signature(export_dir)
+    except FileNotFoundError:
+        return flat  # weights-only export: the leaf listing is all there is
+    if "__signature__" in flat:  # a (pathological) leaf of that name wins
+        logger.warning(
+            "export %s has a '__signature__' leaf; omitting the serving "
+            "signature from get_meta_graph_def", export_dir)
+    else:
+        flat["__signature__"] = signature
+    return flat
 
 
 def single_node_env(device: str | None = None) -> torch.device:

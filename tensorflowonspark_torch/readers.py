@@ -186,6 +186,7 @@ def tfrecord_batches(
     drop_remainder: bool = False,
     prefetch: int = 2,
     device_put: bool | Callable[[dict[str, Any]], dict[str, Any]] = False,
+    skip_batches: int = 0,
 ) -> Iterator[dict[str, Any]]:
     """Yield columnar batches from TFRecord files.
 
@@ -195,7 +196,10 @@ def tfrecord_batches(
     ``device_put=True`` stages each batch onto the selected device from
     the pipeline thread — the double-buffered host→device path (see
     :func:`_stager`).  ``device_put`` may also be a callable applied to
-    each columnar batch (e.g. ``Trainer.shard``).
+    each columnar batch (e.g. ``Trainer.shard``).  ``skip_batches`` drops
+    the stream's first batches (a restart's trained ones) as raw records:
+    read and shuffled, so the rest is what the stream would yield after
+    them, but neither parsed nor staged.
     """
     if isinstance(files, str):
         files = fs.glob(files)
@@ -208,11 +212,23 @@ def tfrecord_batches(
     def batch_gen() -> Iterator[dict[str, Any]]:
         from tensorflowonspark_torch import obs
 
+        skipped = 0
+
+        def batch_of(rows: list) -> Iterator[dict[str, Any]]:
+            """The batch of ``rows``, or nothing while batches are
+            skipped."""
+            nonlocal skipped
+            if skipped < skip_batches:
+                skipped += 1
+                return
+            obs.counter("reader_records_total").inc(len(rows))
+            yield _stage(_columnarize(rows))
+
         for epoch in range(num_epochs):
             epoch_files = list(files)
             if shuffle_files:
                 np.random.default_rng(seed + epoch).shuffle(epoch_files)
-            rows: list[dict[str, Any]] = []
+            rows: list = []
             # the epoch is recorded as a manually-timed complete event, NOT
             # a `with obs.span(...)` around the loop: a generator suspends
             # inside the with-block at every yield, which would leave
@@ -222,14 +238,14 @@ def tfrecord_batches(
             t0_wall, t0 = _time_mod.time(), _time_mod.perf_counter()
             for payload in _record_stream(epoch_files, readers,
                                           shuffle_buffer, rng):
-                rows.append(parse(payload))
+                # a skipped batch's records stay raw
+                rows.append(payload if skipped < skip_batches
+                            else parse(payload))
                 if len(rows) == batch_size:
-                    obs.counter("reader_records_total").inc(len(rows))
-                    yield _stage(_columnarize(rows))
+                    yield from batch_of(rows)
                     rows = []
             if rows and not drop_remainder:
-                obs.counter("reader_records_total").inc(len(rows))
-                yield _stage(_columnarize(rows))
+                yield from batch_of(rows)
             obs.get_tracer().record(
                 "readers.epoch", "X", t0_wall * 1e6,
                 (_time_mod.perf_counter() - t0) * 1e6,

@@ -45,16 +45,11 @@ def bucketing_enabled() -> bool:
 
 
 def pad_columns(cols: Mapping[str, Any], target: int) -> dict:
-    """Zero-pad every column's leading axis out to ``target`` rows.  Arrays
-    already at least ``target`` rows long, and 0-d inputs (no batch axis),
-    pass through unchanged."""
-    out = {}
-    for k, v in cols.items():
-        v = np.asarray(v)
-        if v.ndim >= 1 and v.shape[0] < target:
-            v = np.pad(v, [(0, target - v.shape[0])] + [(0, 0)] * (v.ndim - 1))
-        out[k] = v
-    return out
+    """Zero-pad every column's leading axis out to ``target`` rows: the one
+    padding convention, ``saved_model.pad_batch``."""
+    from tensorflowonspark_torch import saved_model
+
+    return saved_model.pad_batch(cols, target)
 
 
 def warm_buckets(fn, params, specs: Mapping[str, tuple[tuple, Any]],

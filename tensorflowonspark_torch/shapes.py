@@ -98,15 +98,34 @@ def choose_bucket(n: int, buckets: Sequence[int]) -> int:
     return int(n)
 
 
-def input_specs(example: Mapping[str, Any]) -> dict[str, tuple[tuple, Any]]:
-    """Per-input row templates ``{input_name: (row_shape, dtype)}`` from
-    ``example``, a dict of input name → ONE example row (no batch axis).
-    (The reference also reads a self-describing export's signature; that
-    export is not ported yet.)"""
+def input_specs(example: Mapping[str, Any] | None = None,
+                signature: Mapping[str, Any] | None = None
+                ) -> dict[str, tuple[tuple, Any]]:
+    """Per-input row templates ``{input_name: (row_shape, dtype)}``: from
+    ``example`` (a dict of input name → ONE example row, no batch axis),
+    the rows' own shapes and dtypes; from a self-describing export's
+    ``signature`` (``saved_model.read_signature``), each input's shape
+    less the leading batch dim.  Exactly one source must be given."""
+    if (example is None) == (signature is None):
+        raise ValueError("input_specs needs exactly one of example= / "
+                         "signature=")
     specs: dict[str, tuple[tuple, Any]] = {}
-    for name, row in example.items():
-        a = np.asarray(row)
-        specs[str(name)] = (tuple(a.shape), a.dtype)
+    if example is not None:
+        for name, row in example.items():
+            a = np.asarray(row)
+            specs[str(name)] = (tuple(a.shape), a.dtype)
+        return specs
+    for entry in signature.get("inputs", []):
+        shape = entry.get("shape") or []
+        if any(d is None for d in shape[1:]):
+            raise ValueError(
+                f"input {entry.get('name')!r} has a polymorphic non-batch "
+                f"dim {shape}: warmup needs concrete row shapes; pass "
+                "example= instead")
+        specs[str(entry["name"])] = (tuple(int(d) for d in shape[1:]),
+                                     np.dtype(entry["dtype"]))
+    if not specs:
+        raise ValueError("signature carries no inputs")
     return specs
 
 
@@ -127,7 +146,7 @@ def model_specs(model_name: str, *, tiny: bool = False, config: Any = None
         raise ValueError(
             f"model {model_name!r}: example batch carries only label "
             f"columns {sorted(example)} — no serving inputs to derive")
-    return input_specs(rows)
+    return input_specs(example=rows)
 
 
 def policy_specs(model_name: str, export_specs: Any

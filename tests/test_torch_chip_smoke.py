@@ -2,6 +2,7 @@
 kernel families, the table path's bounds and the wide&deep data it
 draws; and the stamped source ``tools/torch_grouping_probe.py`` builds."""
 
+import os
 import types
 
 import numpy as np
@@ -279,3 +280,189 @@ def test_job_timeline_splits_the_wall_time():
         "loop 2.5 s, after the loop 0.5 s")
     assert chip_smoke.job_timeline(100.0, 101.0, 111.0, {}, 2.5) == (
         "timeline not published")
+
+
+# ---------------------------------------------------------------------------
+# Phase 13 (persistence): the resumed job's arguments, the snapshot check
+# and its planted fault, the CPU export, the gates and the last line
+# ---------------------------------------------------------------------------
+
+
+def test_resume_args_continue_phase_11s_reader(tmp_path, one_thread):
+    """The resumed job reads two epochs of the same records and stops
+    ``RESUME_STEPS`` after the first epoch: its first epoch is phase 11's,
+    batch for batch, so steps 9-12 of one replay are what it trains on."""
+    from tensorflowonspark_torch.models import resnet
+
+    resnet.write_synthetic_tfrecords(str(tmp_path / "r"), 2 * 64, 2, 16,
+                                     seed=1, num_classes=10)
+    args = chip_smoke.tf_resnet_args(str(tmp_path / "r"), tiny=True,
+                                     ckpt_dir=str(tmp_path / "ck"),
+                                     model_dir=str(tmp_path / "ex"))
+    assert (args.ckpt_dir, args.model_dir) == (str(tmp_path / "ck"),
+                                               str(tmp_path / "ex"))
+    resume = chip_smoke.tf_resnet_resume_args(args)
+    assert (resume.epochs, resume.model_dir, resume.ckpt_dir) == (
+        2, None, args.ckpt_dir)
+    assert resume.max_steps == (chip_smoke.TF_RECORDS // args.batch_size
+                                + chip_smoke.RESUME_STEPS)
+    resume.max_steps = 3  # 2 batches an epoch here
+    longer, state = chip_smoke.tf_resnet_replay(resume, "cpu",
+                                                with_state=True)
+    assert len(longer) == 3
+    assert longer[:2] == chip_smoke.tf_resnet_replay(args, "cpu")
+    assert int(state["step"]) == 3
+    assert any(k.startswith("opt_state/") for k in state)
+
+
+def test_the_cadence_reaches_the_example_through_the_environment(
+        monkeypatch):
+    """Phase 11's and 13's jobs checkpoint at their last steps (8, then 4
+    after the restore) by ``TFOS_CKPT_EVERY_STEPS``, set in the executor
+    only while the example's ``map_fun`` runs."""
+    from tensorflowonspark_torch.examples import resnet_spark
+
+    seen = []
+    monkeypatch.setattr(resnet_spark, "map_fun", lambda args, ctx: seen.append(
+        os.environ.get("TFOS_CKPT_EVERY_STEPS")))
+    ctx = types.SimpleNamespace(mgr=types.SimpleNamespace(
+        set=lambda k, v: None))
+    args = chip_smoke.tf_resnet_args("records", ckpt_dir="ck")
+    resume = chip_smoke.tf_resnet_resume_args(args)
+    monkeypatch.delenv("TFOS_CKPT_EVERY_STEPS", raising=False)
+    chip_smoke.tf_resnet_map_fun(args, ctx)
+    assert "TFOS_CKPT_EVERY_STEPS" not in os.environ
+    monkeypatch.setenv("TFOS_CKPT_EVERY_STEPS", "7")
+    chip_smoke.tf_resnet_map_fun(resume, ctx)
+    assert os.environ["TFOS_CKPT_EVERY_STEPS"] == "7"
+    steps = chip_smoke.TF_RECORDS // chip_smoke.SLICE_TRAIN_BATCH
+    assert seen == [str(steps), str(chip_smoke.RESUME_STEPS)]
+
+
+def test_snapshot_check_passes_and_catches_the_planted_fault(
+        tmp_path, one_thread, monkeypatch):
+    """Phase 13(b) on the tiny ResNet on the CPU: the committed checkpoint
+    is the clone taken when the save fired; the planted fault (a writer
+    reading the live tensors) differs from it in every tensor the next
+    steps moved."""
+    from tensorflowonspark_torch import ckpt
+    from tensorflowonspark_torch.models import resnet
+    from tensorflowonspark_torch.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    t = Trainer("resnet50", config=resnet.Config.tiny(), device="cpu",
+                learning_rate=1e-2)
+    batch = t.shard(resnet.example_batch(resnet.Config.tiny(), 8))
+    good = chip_smoke.snapshot_run(t, batch, str(tmp_path / "a"), False)
+    # each run takes 4 steps before checkpointing is on, and the save
+    # fires at the second step after
+    assert good["diff"] == [] and good["step"] == 6 and good["bytes"] > 0
+    assert ckpt._Snapshot is not chip_smoke._LiveSnapshot
+    planted = chip_smoke.snapshot_run(t, batch, str(tmp_path / "b"), True)
+    assert ckpt._Snapshot is not chip_smoke._LiveSnapshot  # restored
+    assert planted["step"] == 18  # the first run took 12 steps
+    assert any(k.startswith("params/") for k in planted["diff"])
+    assert any(k.startswith("opt_state/") for k in planted["diff"])
+
+
+def test_state_rel_finds_the_tensor_furthest_from_the_replay():
+    want = {"a": np.array([1.0, -4.0]), "b": np.zeros(2), "step": 12}
+    assert chip_smoke.state_rel(dict(want), want) == (None, 0.0)
+    assert chip_smoke.state_rel(
+        {**want, "a": np.array([1.0, -3.0])}, want) == ("a", 0.25)
+    assert chip_smoke.state_rel({**want, "step": 4}, want) == (
+        "step", 8 / 12)
+    assert chip_smoke.state_rel({**want, "b": np.ones(2)}, want) == (
+        "b", float("inf"))
+    assert chip_smoke.state_rel({"a": want["a"]}, want)[1] == float("inf")
+    assert chip_smoke.state_rel({**want, "a": np.ones(3)}, want)[1] == (
+        float("inf"))
+
+
+def test_restart_reader_is_timed_after_the_skipped_batches(
+        tmp_path, monkeypatch):
+    """Phase 13(a)'s restart reader on the CPU: the first batch after
+    ``skip`` trained ones arrives, over as many passes as that takes."""
+    from tensorflowonspark_torch.models import resnet
+
+    monkeypatch.setenv("TFOS_TORCH_DEVICE", "cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "TF_RECORDS", 32)
+    resnet.write_synthetic_tfrecords(str(tmp_path / "r"), 32, 2, 16,
+                                     seed=1, num_classes=10)
+    args = chip_smoke.tf_resnet_args(str(tmp_path / "r"), tiny=True)
+    args.batch_size = 4
+    assert chip_smoke.restart_reader_s(args, 21) > 0
+
+
+def test_state_diff_names_every_difference():
+    a = {"x": np.zeros(2), "y": np.ones(1, np.float32)}
+    assert chip_smoke.state_diff(a, dict(a)) == []
+    assert chip_smoke.state_diff(a, {"x": np.zeros(2)}) == ["y"]
+    assert chip_smoke.state_diff(
+        a, {"x": np.array([0.0, -0.0]), "y": np.ones(1)}) == ["y"]
+    assert chip_smoke.state_diff(
+        a, {"x": np.array([0.0, 1e-30]), "y": a["y"]}) == ["x"]
+
+
+def test_cpu_export_process_writes_a_servable_export(tmp_path, one_thread):
+    """Phase 13(d)'s second export: a process that sees no card re-exports
+    a weights export with its serialized forward; it serves as the weights
+    do."""
+    from tensorflowonspark_torch import ckpt, compat, saved_model
+    from tensorflowonspark_torch.models import resnet
+
+    config = resnet.Config.tiny()
+    model = resnet.make_model(config, seed=3).eval()
+    compat.export_saved_model(resnet.state_of(model), str(tmp_path / "w"))
+    proc = chip_smoke.start_cpu_export(str(tmp_path / "w"),
+                                       str(tmp_path / "cpu"))
+    out, _ = proc.communicate(timeout=300)
+    assert proc.returncode == 0, out
+    fn, sig = saved_model.load_forward(str(tmp_path / "cpu"), "cpu")
+    assert sig["model_name"] == "resnet50" and sig["batch"] == "polymorphic"
+    images = np.random.RandomState(0).rand(3, 16, 16, 3).astype(np.float32)
+    state = ckpt.load_pytree(str(tmp_path / "cpu" / "model"))
+    with torch.inference_mode():
+        want = model(torch.from_numpy(images))
+    torch.testing.assert_close(fn(state, {"image": images}), want, rtol=0,
+                               atol=0)
+
+
+def test_phase_13_gates_and_the_last_line():
+    """Every gate of phase 13 raises through one ``SystemExit``; its
+    launches reach the kernels line; the last line is the contract's."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke.persistence_phase)
+    for gate in ("(a) ", "(b) the checkpoint is not the snapshot",
+                 "(b) the restored trainer is not the snapshot",
+                 "'s state is {state_err:.3e} from the ",
+                 "tol=RESUME_LOSS_REL",
+                 "(b) the planted fault", "(c) restored step",
+                 "(c) the restored trainer differs", "(c) table launches",
+                 "(d) the {label}-written export", "(d) wide_deep",
+                 "(e) the re-export was not served fresh",
+                 "restored step"):
+        assert gate in src, gate
+    assert 'raise SystemExit("persistence phase failed: "' in src
+    main = inspect.getsource(chip_smoke.main)
+    assert main.count('"launches_phase13"') == 3
+    assert main.index("persistence_phase(") < main.index("print(card)")
+    last = main[main.rindex("print(json.dumps("):]
+    assert '{"ok": True, "device": {' in last
+    assert '"platform": "gpu", "kind": torch.cuda.get_device_name(0)' in last
+    assert '"count": torch.cuda.device_count()}}' in last
+
+
+def test_phase_10_serves_wide_deep_by_name_and_serialized():
+    """Phase 10 scores the export through its serialized forward and, by
+    ``setModelName("wide_deep")``, a weights-only export of the same
+    weights through the zoo's forward; both gate."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke.wd_slice_phase)
+    assert "compat.export_saved_model(state, weights_only)" in src
+    assert '.setExportDir(weights_only).setModelName("wide_deep")' in src
+    assert "not serialized_err <= WD_SCORES_VS_FORWARD" in src
+    assert "not by_name_err <= WD_SCORES_VS_FORWARD" in src

@@ -105,6 +105,57 @@ def test_resnet_spark_tensorflow_mode_equals_an_in_process_replay(
     np.testing.assert_allclose(losses0, replay, rtol=REPLAY_REL)
 
 
+def test_resnet_spark_restart_continues_the_uninterrupted_run(
+        tmp_path, cluster_env, monkeypatch):
+    """The example's recovery on 2 executors: a job checkpointing every 2
+    steps (``TFOS_CKPT_EVERY_STEPS``) stops at step 3; a second job
+    restores step 2, its readers drop the 2 trained batches unparsed,
+    and its 4 steps (across the epoch's end) are steps 3-6 of one
+    uninterrupted run."""
+    monkeypatch.setenv("TFOS_CKPT_EVERY_STEPS", "2")
+    data_dir = str(tmp_path / "tfr")
+    port.write_synthetic_tfrecords(data_dir, 32, 4, 16, seed=0,
+                                   num_classes=10)
+    argv = ["--tiny", "--batch_size", "4", "--readers", "1",
+            "--shuffle_buffer", "8", "--lr", "1e-2", "--epochs", "2",
+            "--data_dir", data_dir, "--ckpt_dir", str(tmp_path / "ckpt")]
+    jobs = []
+    sc = LocalSparkContext("local-cluster[2,1,1024]", "torch-tf-restart")
+    try:
+        for max_steps in (3, 6):
+            args = resnet_spark.parse_args(argv + ["--max_steps",
+                                                   str(max_steps)])
+            cluster = TFCluster.run(sc, resnet_spark.map_fun, args,
+                                    num_executors=2,
+                                    input_mode=TFCluster.InputMode.TENSORFLOW,
+                                    master_node="chief")
+            cluster.shutdown(grace_secs=60)
+            jobs.append(_published(cluster, ("state", "losses",
+                                             "restored_step")))
+    finally:
+        sc.stop()
+    first, second = jobs
+    assert [n["restored_step"] for n in first.values()] == [0, 0]
+    assert [n["restored_step"] for n in second.values()] == [2, 2]
+    assert [len(n["losses"]) for n in first.values()] == [3, 3]
+    assert [len(n["losses"]) for n in second.values()] == [4, 4]
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["2", "4", "6"]
+
+    shards = [readers.shard_files(os.path.join(data_dir, "part-*"), r, 2)
+              for r in (0, 1)]
+    t = PortTrainer("resnet50", config=port.Config.tiny(), learning_rate=1e-2,
+                    device="cpu")
+    replay = []
+    for _, b0, b1 in zip(range(6), *(resnet_spark.train_batches(
+            resnet_spark.parse_args(argv), s, 0, False) for s in shards)):
+        replay.append(float(t.step({k: np.concatenate([b0[k], b1[k]])
+                                    for k in b0})))
+    np.testing.assert_allclose(first[0]["losses"], replay[:3],
+                               rtol=REPLAY_REL)
+    np.testing.assert_allclose(second[0]["losses"], replay[2:],
+                               rtol=REPLAY_REL)
+
+
 def test_criteo_pipeline_parquet_scores_every_row(tmp_path, cluster_env):
     rows = criteo_pipeline.main([
         "--cluster_size", "2", "--epochs", "2", "--num_samples", "512",

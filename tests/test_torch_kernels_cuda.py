@@ -228,6 +228,32 @@ def test_forward_with_grad_reaches_upstream_conv_weight():
         assert float(t.grad.float().abs().sum()) > 0
 
 
+@pytest.mark.cuda
+def test_group_norm_op_is_the_kernel_on_card():
+    """``torch.ops.tfos.group_norm_act`` (what an exported program calls)
+    launches the same kernel as ``group_norm_act``: the same bits at a
+    ResNet-50 site, one counted launch a call; its fake returns the
+    kernel's shape, dtype and channels_last strides."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    x, res, gamma, beta = _inputs((8, 256, 56, 56), seed=5)
+    before = group_norm.launches_by_path["one_pass"]
+    got = torch.ops.tfos.group_norm_act(x, gamma, beta, 32, EPS, res, True)
+    want = group_norm.group_norm_act(x, gamma, beta, 32, EPS, res, True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert group_norm.launches_by_path["one_pass"] == before + 2
+    assert got.stride() == want.stride()
+    with FakeTensorMode() as mode:
+        fake = torch.ops.tfos.group_norm_act(
+            mode.from_tensor(x), mode.from_tensor(gamma),
+            mode.from_tensor(beta), 32, EPS, None, True)
+    assert (fake.shape, fake.dtype, fake.stride()) == (
+        want.shape, want.dtype, want.stride())
+
+
 # --- the AdaGrad table update (csrc/sparse_adagrad.cu) ---------------------
 
 #: |kernel - plain| <= this x max|plain| over the touched rows: f32, and

@@ -480,3 +480,34 @@ def test_reader_records_counter_and_epoch_events(parts):
               if e.get("name") == "readers.epoch" and e.get("ts", 0) >= t0]
     assert sorted(e["attrs"]["epoch"] for e in epochs) == [0, 1]
     assert all(e["attrs"]["files"] == 4 for e in epochs)
+
+
+@pytest.mark.parametrize("drop_remainder", [False, True])
+@pytest.mark.parametrize("skip", [0, 3, 7, 14])
+def test_skip_batches_drops_the_first_batches_unparsed(parts, skip,
+                                                       drop_remainder):
+    """A restart's reader: the stream after its first ``skip`` batches,
+    across epochs, shuffle and a partial tail, with no skipped record
+    parsed."""
+    parsed = []
+
+    def parse(payload):
+        parsed.append(payload)
+        return readers.default_parse(payload)
+
+    kwargs = dict(num_epochs=2, readers=1, shuffle_buffer=9,
+                  shuffle_files=True, seed=4, drop_remainder=drop_remainder,
+                  prefetch=2)
+    full = list(readers.tfrecord_batches(parts, 5, **kwargs))
+    got = list(readers.tfrecord_batches(parts, 5, parse_fn=parse,
+                                        skip_batches=skip, **kwargs))
+    assert len(full) == (12 if drop_remainder else 14)
+    if skip < len(full):
+        _assert_same_batches(got, full[skip:])
+    else:
+        assert got == []
+    # each record of a kept batch once (and a dropped tail's, which the
+    # full stream parses too); none of a skipped batch's
+    kept = sum(len(b["v"]) for b in full[skip:])
+    tails = 2 * (32 % 5) if drop_remainder else 0
+    assert kept <= len(parsed) <= kept + tails

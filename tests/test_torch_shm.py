@@ -104,10 +104,10 @@ def test_write_read_round_trip_zero_copy():
     cols = shm.columnarize(_rows())
     ref = shm.write_chunk(cols, tag="task-3")
     assert ref is not None and ref.nrows == 6
-    assert _segments()  # parked
+    assert _own_segments()  # parked
     out, tag = shm.read_chunk(ref)
     assert tag == "task-3"
-    assert _segments() == []  # consumed: unlinked at read time
+    assert _own_segments() == []  # consumed: unlinked at read time
     for got, want in zip(out, cols):
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
@@ -122,7 +122,7 @@ def test_read_chunk_copy_mode_equality():
     assert tag is None
     for got, want in zip(out, cols):
         np.testing.assert_array_equal(got, want)
-    assert _segments() == []
+    assert _own_segments() == []
 
 
 def test_round_trip_equals_pickled_path():
@@ -164,7 +164,7 @@ def test_read_vanished_segment_raises():
 def test_maybe_unlink_payload_only_touches_descriptors():
     ref = shm.write_chunk(shm.columnarize(_rows()))
     shm.maybe_unlink_payload(ref)
-    assert _segments() == []
+    assert _own_segments() == []
     shm.maybe_unlink_payload([1, 2, 3])  # non-descriptors: no-op
     shm.maybe_unlink_payload(marker.EndPartition())
 
