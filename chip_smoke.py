@@ -147,13 +147,38 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    model-load seconds, and the host µs of ``torch.ops.tfos.
    group_norm_act`` against ``group_norm_act``.
 
+14. The rest of the model zoo.  (a) Both GroupNorm kernels at every
+   distinct site of Inception-v3 (canonical and SAME), MobileNet-v1 and
+   the CIFAR CNN at full width, bf16, batch 64, GN+ReLU: against the plain
+   twins, on the path each plan takes (the Inception stem's 147²×64,
+   71²×192, 150²×64 and 75²×192 samples on the two-pass forward and the
+   four-launch backward), timed against ``bound_ms`` and the library
+   call; totals a training step per model.  (b) Inception-v3 canonical at
+   299²: one step's gradients (its loss with the aux head's 0.4·CE) on the
+   kernel path against the plain path and f32, 96 + 96 launches a step on
+   their planned paths; 8 AdamW steps kernel against plain; the train-step
+   rate at batch 128 with its profile; the forward at batch 256.  (c) and
+   (d) ``resnet_spark --arch inception_v3`` (299² records) and ``--arch
+   mobilenet_v1`` (224²) as phase 11 runs ResNet-50, against in-process
+   replays, 94 + 94 and 27 + 27 launches a step.  (e) ``TFModel`` serves
+   (c)'s export: its serialized forward (94 launches a batch, the eager
+   forward's bits) and the weights by name.  (f) ``mnist_spark``'s
+   ``map_fun`` on one executor in ``InputMode.SPARK`` against an in-process
+   replay, and its self-describing export served.  (g) ``cifar10_spark``
+   with its defaults (2 reader threads): every record trained each epoch,
+   a falling loss, 6 + 6 launches a step.  (c)-(g) run in phase 11's
+   application.  The sub-phases' failures are gathered and fail the run
+   at the end; phase 14 prints its seconds.
+
 The last lines are the card line, one JSON line listing each kernel (the
 one-pass and two-pass forwards of ``group_norm_act`` and its one-pass and
 four-launch backwards, times at the training slice's batch and under
 ``_b32``/``_b256`` at the others; the table path's id grouping, and its
 update in each mode, times of a training step's pair on Zipf ids, the
 other cases suffixed; ``launches_tf_mode`` counts phases 11-12's,
-``launches_phase13`` phase 13's), and
+``launches_phase13`` phase 13's, ``launches_phase14`` the executors' of
+phase 14(c)-(g), and ``phase14_*`` the zoo's sites on each GroupNorm
+path), and
 ``{"ok": true, "device": {...}}``.
 Without a card it exits 1 and prints no result.
 """
@@ -161,6 +186,7 @@ Without a card it exits 1 and prints no result.
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import math
 import os
@@ -201,11 +227,12 @@ GRADS_BF16_VS_F32 = 0.75
 GRADS_VS_F32_OVER_PLAIN = 1.25  # <= this x plain-vs-f32 + 0.02
 # the backward alone: one step's gradients with the kernel forward and the
 # kernel backward against the kernel forward and the plain backward.  The
-# ReLU masks and statistics are the same, so the gap is the bf16 rounding
-# of dx at 53 sites carried linearly down the net, and cuDNN's
-# nondeterministic weight gradients: predicted ~1e-2 before the first
-# card run.  Each planted fault (a centering term of dx dropped at every
-# site) must read above it.
+# ReLU masks, pool choices and statistics are the same, so the gap is the
+# bf16 rounding of dx at every site (ResNet-50's 53, Inception-v3's 96)
+# carried linearly down the net, and cuDNN's nondeterministic weight
+# gradients: predicted ~1e-2 before the first card run of each.  Each
+# planted fault (a centering term of dx dropped at every site) must read
+# above it.
 GRADS_SAME_FORWARD = 5e-2
 # 8 AdamW steps (lr 1e-4) on one batch: |kernel - plain| <= this x the
 # first loss at every step (CPU, 64², batch 4, the same test: 7.0e-4), and
@@ -581,7 +608,8 @@ def device_kernels(prof, calls: int):
         yield e.name, e.time_range.elapsed_us() / 1e3 / calls
 
 
-def profile_forward(model, batch, fwd_ms: float, forwards: int = 3) -> None:
+def profile_forward(model, batch, fwd_ms: float, forwards: int = 3,
+                    label: str = "resnet50") -> dict:
     """Device time per forward by kernel family (torch.profiler, CUPTI):
     the fused norm's kernels, convolutions, everything else, and the
     device's idle share against the event-timed forward."""
@@ -610,16 +638,17 @@ def profile_forward(model, batch, fwd_ms: float, forwards: int = 3) -> None:
     if busy == 0:
         print("profile: the profiler recorded no device time (not measured)",
               flush=True)
-        return
+        return {}
     parts = " ".join(f"{k}={v:.3f}ms({v / busy:.1%})"
                      for k, v in fams.most_common())
-    print(f"profile resnet50 forward batch {MODEL_BATCH}, device ms per "
+    idle = max(0.0, 1 - busy / fwd_ms)
+    print(f"profile {label} forward batch {len(batch)}, device ms per "
           f"forward: busy={busy:.3f} of {fwd_ms:.3f} "
-          f"(idle share {max(0.0, 1 - busy / fwd_ms):.1%}); {parts}",
-          flush=True)
+          f"(idle share {idle:.1%}); {parts}", flush=True)
     print("profile largest 'other' kernels: " + "; ".join(
         f"{name}={ms:.3f}ms" for name, ms in others.most_common(6)),
         flush=True)
+    return {"idle_share": idle}
 
 
 def _reset_launches(_):
@@ -627,6 +656,19 @@ def _reset_launches(_):
 
     group_norm.reset_launches()
     return [0]
+
+
+def _reset_table_launches(_):
+    from tensorflowonspark_torch.kernels import sparse_adagrad
+
+    sparse_adagrad.reset_launches()
+    return [0]
+
+
+def _table_launches(_):
+    from tensorflowonspark_torch.kernels import sparse_adagrad
+
+    return [dict(sparse_adagrad.launches_by_path)]
 
 
 def _executor_state(_):
@@ -778,7 +820,7 @@ def measure_backward_case(shape, groups: int, res: bool, relu: bool,
     identical = all(torch.equal(a, b) for a, b in zip(out, again)
                     if a is not None)
     four = None
-    if path == "one_pass":  # the four launches' twin at the same shape
+    if path == "one_pass":  # the four launches' twin
         four = group_norm._four_launch_plan(n, h, w, c)
         check(group_norm._launch_backward(dys[0], xs[0], ys[0], gamma,
                                           stats[0], groups, res, relu, four))
@@ -1092,7 +1134,8 @@ def train_model_phase() -> dict:
     return {"images_per_s": ips, "step_ms": step_ms}
 
 
-def profile_train_step(trainer, batch, step_ms: float, steps: int = 3):
+def profile_train_step(trainer, batch, step_ms: float, steps: int = 3,
+                       label: str = "resnet50") -> dict:
     """Device time per training step by family (torch.profiler, CUPTI):
     forward norm, backward norm, convolutions (forward and backward), the
     optimizer, everything else, and the device's idle share."""
@@ -1127,15 +1170,17 @@ def profile_train_step(trainer, batch, step_ms: float, steps: int = 3):
     if busy == 0:
         print("profile: the profiler recorded no device time (not measured)",
               flush=True)
-        return
+        return {}
     parts = " ".join(f"{k}={v:.3f}ms({v / busy:.1%})"
                      for k, v in fams.most_common())
-    print(f"profile resnet50 train step batch {MODEL_BATCH}, device ms per "
-          f"step: busy={busy:.3f} of {step_ms:.3f} (idle share "
-          f"{max(0.0, 1 - busy / step_ms):.1%}); {parts}", flush=True)
+    idle = max(0.0, 1 - busy / step_ms)
+    print(f"profile {label} train step batch {len(batch['image'])}, device "
+          f"ms per step: busy={busy:.3f} of {step_ms:.3f} (idle share "
+          f"{idle:.1%}); {parts}", flush=True)
     print("profile largest 'other' kernels of the step: " + "; ".join(
         f"{name}={ms:.3f}ms" for name, ms in others.most_common(6)),
         flush=True)
+    return {"idle_share": idle}
 
 
 def train_map_fun(args, ctx):
@@ -2064,44 +2109,58 @@ def tf_resnet_resume_args(args):
                                  "ckpt_every_steps": RESUME_STEPS})
 
 
-def tf_resnet_map_fun(args, ctx):
-    """``tensorflowonspark_torch/examples/resnet_spark.py::map_fun`` with
-    the node's GroupNorm launch counts set to 0 before it and published
-    after it, and ``TFOS_CKPT_EVERY_STEPS`` (the example's checkpoint
-    cadence) set to ``args.ckpt_every_steps`` in the executor's
-    environment while it runs."""
-    from tensorflowonspark_torch.examples import resnet_spark
-    from tensorflowonspark_torch.kernels import group_norm
+def run_counted(map_fun, args, ctx):
+    """``map_fun(args, ctx)`` with the node's GroupNorm launch counts set to
+    0 before it and published after it (``launches``), and the table
+    kernels' launches it made (``table_launches``; their counts are not
+    reset, so a phase can count an executor's launches across its jobs).
+    A job runs ``functools.partial(run_counted, map_fun)``."""
+    from tensorflowonspark_torch.kernels import group_norm, sparse_adagrad
 
     ctx.mgr.set("map_fun_start", time.time())
     group_norm.reset_launches()
+    tables = dict(sparse_adagrad.launches_by_path)
+    map_fun(args, ctx)
+    ctx.mgr.set("launches", dict(group_norm.launches_by_path))
+    ctx.mgr.set("table_launches", {
+        k: v - tables[k] for k, v in sparse_adagrad.launches_by_path.items()})
+    ctx.mgr.set("map_fun_end", time.time())
+
+
+def tf_resnet_map_fun(args, ctx):
+    """``tensorflowonspark_torch/examples/resnet_spark.py::map_fun``,
+    counted (:func:`run_counted`), with ``TFOS_CKPT_EVERY_STEPS`` (the
+    example's checkpoint cadence) set to ``args.ckpt_every_steps`` in the
+    executor's environment while it runs."""
+    from tensorflowonspark_torch.examples import resnet_spark
+
     cadence = os.environ.get("TFOS_CKPT_EVERY_STEPS")
     os.environ["TFOS_CKPT_EVERY_STEPS"] = str(args.ckpt_every_steps)
     try:
-        resnet_spark.map_fun(args, ctx)
+        run_counted(resnet_spark.map_fun, args, ctx)
     finally:
         if cadence is None:
             os.environ.pop("TFOS_CKPT_EVERY_STEPS")
         else:
             os.environ["TFOS_CKPT_EVERY_STEPS"] = cadence
-    ctx.mgr.set("launches", dict(group_norm.launches_by_path))
-    ctx.mgr.set("map_fun_end", time.time())
 
 
 def tf_resnet_replay(args, device: str, with_state: bool = False):
-    """Phase 11's in-process replay: the one node's shard read with the
-    same arguments through the port's ``tfrecord_batches`` (the example's
-    ``train_batches``) into a fresh seeded ``Trainer`` on ``device``.
+    """Phase 11's (and 14's) in-process replay: the one node's shard read
+    with the same arguments through the port's ``tfrecord_batches`` (the
+    example's ``train_batches``) into a fresh seeded ``Trainer`` of
+    ``args.arch`` on ``device``.
     Returns the losses; with ``with_state`` also the trainer's state at
     the end (:func:`flat_state`)."""
+    from tensorflowonspark_torch import models as model_zoo
     from tensorflowonspark_torch import readers
     from tensorflowonspark_torch.examples import resnet_spark
-    from tensorflowonspark_torch.models import resnet
     from tensorflowonspark_torch.trainer import Trainer
 
     shard = readers.shard_files(os.path.join(args.data_dir, "part-*"), 0, 1)
-    config = resnet.Config.tiny() if args.tiny else resnet.Config()
-    t = Trainer("resnet50", config=config, learning_rate=args.lr,
+    lib = model_zoo.get_model(args.arch)
+    config = lib.Config.tiny() if args.tiny else lib.Config()
+    t = Trainer(args.arch, config=config, learning_rate=args.lr,
                 device=device)
     from tensorflowonspark_torch.parallel import train as train_lib
 
@@ -2701,11 +2760,11 @@ def scores_in_process(model, images, sizes, batch: int):
 
 
 def serve_export(sc, df, export_dir: str, batch: int, in_map: dict,
-                 out_col: str) -> dict:
-    """``TFModel`` with no ``model_name`` and no ``predict_fn`` over
-    ``df`` on the card: the scores, the seconds, and the GroupNorm
-    launches of the executor and of the driver (its schema sample), each
-    counted from 0."""
+                 out_col: str, model_name: str | None = None) -> dict:
+    """``TFModel`` with no ``predict_fn`` over ``df`` on the card (with no
+    ``model_name``: the export's serialized forward): the scores, the
+    seconds, and the GroupNorm launches of the executor and of the driver
+    (its schema sample), each counted from 0."""
     import torch
 
     from tensorflowonspark_torch import pipeline
@@ -2715,6 +2774,8 @@ def serve_export(sc, df, export_dir: str, batch: int, in_map: dict,
                .setBatchSize(batch).setBucketSizes([batch])
                .setInputMapping(in_map)
                .setOutputMapping({"prediction": out_col}))
+    if model_name:
+        tfmodel = tfmodel.setModelName(model_name)
     sc.parallelize([0], 1).mapPartitions(_reset_launches).collect()
     group_norm.reset_launches()
     t0 = time.perf_counter()
@@ -3101,6 +3162,570 @@ def persistence_phase(sc, work: str, tf_resnet: dict) -> dict:
             "wrapper_host_us": host["wrapper_us"]}
 
 
+# ---------------------------------------------------------------------------
+# The rest of the model zoo (phase 14): Inception-v3, MobileNet-v1, the
+# CIFAR-10 CNN and the MNIST MLP
+# ---------------------------------------------------------------------------
+
+ZOO_BATCH = 64  # the kernel sites' batch: the TENSORFLOW-mode slices'
+INCEPTION_GRAD_BATCH = 4
+INCEPTION_STEP_BATCH = 128
+INCEPTION_FWD_BATCH = 256
+ZOO_SERVE_ROWS = 67  # Inception 299² rows served, 3 ragged partitions
+MNIST_ROWS = 2048
+MNIST_PARTITIONS = 4  # 512 rows each: 4 whole batches of 128
+MNIST_BATCH = 128
+MNIST_LOSS_VS_REPLAY = 1e-3  # rel, final loss: the same ops on one card
+PHASE14_BUDGET_S = 120
+
+
+def meta_sites(lib, config, size: int, **forward_kwargs) -> list:
+    """``(C, H, W, groups)`` of every norm call of one forward of ``lib``'s
+    model at ``size``², on the ``meta`` device (no FLOPs)."""
+    import torch
+
+    with torch.device("meta"):
+        model = lib.make_model(config)
+    sites = []
+
+    def recorder(x, gamma, beta, groups, eps, residual=None, relu=True):
+        sites.append((*x.shape[1:], groups))
+        return torch.zeros_like(x)
+
+    model.norm_act = recorder
+    model(torch.zeros(1, size, size, 3, device="meta"), **forward_kwargs)
+    return sites
+
+
+def zoo_site_tables() -> dict:
+    """Each zoo model's GroupNorm sites in a training step (a Counter of
+    ``(C, H, W, groups)``): Inception-v3 canonical (96, the aux head's
+    included) and its default SAME variant (94) at 299², MobileNet-v1 at
+    224² (27), the CIFAR CNN at 32² (6)."""
+    from tensorflowonspark_torch.models import cifar, inception, mobilenet
+
+    return {name: collections.Counter(meta_sites(lib, config, size, **kw))
+            for name, lib, config, size, kw in (
+                ("inception_v3 canonical", inception,
+                 inception.Config(canonical=True), 299, {"train": True}),
+                ("inception_v3", inception, inception.Config(), 299,
+                 {"train": True}),
+                ("mobilenet_v1", mobilenet, mobilenet.Config(), 224, {}),
+                ("cifar10_cnn", cifar, cifar.Config(), 32, {}))}
+
+
+def step_launches(sites, steps: int = 1, backward: bool = True) -> dict:
+    """The launches by path that ``steps`` training steps (forwards alone
+    without ``backward``) over the norm ``sites`` make: each site on the
+    path its plan takes."""
+    from tensorflowonspark_torch.kernels import group_norm
+
+    want = collections.Counter()
+    for (c, h, w, groups), n in collections.Counter(sites).items():
+        want[group_norm._plan(1, h, w, c, groups).path] += n * steps
+        if backward:
+            want["backward_" + group_norm._plan_backward(
+                1, h, w, c, groups).path] += n * steps
+    return launch_counts(**want)
+
+
+def zoo_kernel_phase(tables: dict) -> dict:
+    """Phase 14(a): both kernels at every distinct site of the zoo's
+    models at batch ``ZOO_BATCH``, on the path each plan takes, against
+    the plain twins (GN+ReLU, as every zoo norm calls it) and timed against
+    ``bound_ms`` and the library call; totals a training step per model."""
+    from tensorflowonspark_torch.kernels import group_norm
+
+    distinct = sorted(set().union(*tables.values()))
+    fwd, bwd = {}, {}
+    for i, (c, h, w, groups) in enumerate(distinct):
+        shape = (ZOO_BATCH, c, h, w)
+        fwd[(c, h, w, groups)] = measure_case(
+            shape, groups, False, True, 300 + i,
+            group_norm._plan(ZOO_BATCH, h, w, c, groups).path, 10, 0, 3)
+        bwd[(c, h, w, groups)] = measure_backward_case(
+            shape, groups, False, True, 300 + i,
+            group_norm._plan_backward(ZOO_BATCH, h, w, c, groups).path, 5,
+            0, 2)
+    for name, sites in tables.items():
+        tot = {}
+        for kind, cases in (("forward", fwd), ("backward", bwd)):
+            for key in ("ms", "bound_ms", "library_ms"):
+                tot[f"{kind}_{key}"] = sum(n * cases[s][key]
+                                           for s, n in sites.items())
+        print(f"zoo kernel sites {name}: {sum(sites.values())} norms a "
+              f"training step, {len(sites)} shapes, at batch {ZOO_BATCH}: "
+              + " ".join(f"{k}={v:.4f}" for k, v in tot.items())
+              + f" forward kernel/bound="
+              f"{tot['forward_ms'] / tot['forward_bound_ms']:.2f} backward "
+              f"kernel/bound={tot['backward_ms'] / tot['backward_bound_ms']:.2f}",
+              flush=True)
+    return {"forward": fwd, "backward": bwd}
+
+
+def inception_model_phase(sites) -> dict:
+    """Phase 14(b): Inception-v3 canonical at 299², full width, bf16, seeded
+    weights.  One step's gradients on the kernel path against the plain
+    path and an f32 plain model, and its launches; the backward alone
+    against the plain backward under the kernel forward, with two planted
+    faults that must read beyond its limit; 8 AdamW steps on one
+    batch, kernel against plain; the train-step rate at batch 128 with its
+    profile; the forward's rate at batch 256."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch.kernels import group_norm
+    from tensorflowonspark_torch.models import inception
+    from tensorflowonspark_torch.trainer import Trainer
+
+    config = inception.Config(canonical=True)
+    rng = np.random.RandomState(14)
+
+    def device_batch(n):
+        return {"image": torch.from_numpy(rng.rand(
+                    n, 299, 299, 3).astype(np.float32)).cuda(),
+                "label": torch.from_numpy(rng.randint(
+                    0, 1000, size=n)).cuda()}
+
+    failures = []
+    model = inception.make_model(config, seed=0).cuda()
+    f32_model = inception.load_state(
+        inception.make_model(dataclasses.replace(config, dtype="float32")),
+        inception.state_of(model)).cuda()
+    batch = device_batch(INCEPTION_GRAD_BATCH)
+    loss_fn = inception.make_loss_fn(model, config)
+    g_kernel, loss_kernel, launches = _grads(model, loss_fn, batch,
+                                             group_norm.group_norm_act)
+    g_plain, loss_plain, plain_launches = _grads(
+        model, loss_fn, batch, group_norm.group_norm_act_plain)
+    g_f32, loss_f32, _ = _grads(f32_model, loss_fn, batch,
+                                group_norm.group_norm_act_plain)
+    # the backward alone, as phase 6 holds ResNet's: the kernel forward
+    # under the plain backward, and under the kernel backward with a fault
+    # planted.  The loose gate below reads above 1 (an all-zero gradient's
+    # distance) at this depth; this one holds the backward
+    g_same, _, same_launches = _grads(
+        model, loss_fn, batch, group_norm.group_norm_act,
+        group_norm.group_norm_act_backward_plain)
+    g_faults = {drop: _grads(model, loss_fn, batch, group_norm.group_norm_act,
+                             _planted_fault(drop))[0]
+                for drop in ("projection", "centering")}
+    names = [k for k, _ in model.named_parameters()]
+    del model, f32_model
+    finite = all(bool(torch.isfinite(g).all()) for g in g_kernel.values())
+    nonzero = [k for k, g in g_kernel.items() if float(g.abs().max()) > 0]
+    vs_plain, vs_f32 = _rel_l2(g_kernel, g_plain), _rel_l2(g_kernel, g_f32)
+    plain_vs_f32 = _rel_l2(g_plain, g_f32)
+    tol = GRADS_VS_F32_OVER_PLAIN * plain_vs_f32 + 0.02
+    same_forward = _rel_l2(g_kernel, g_same)
+    faults = {drop: _rel_l2(g, g_same) for drop, g in g_faults.items()}
+    want = step_launches(sites)
+    print(f"zoo inception_v3 canonical 299x299 bf16 one step at batch "
+          f"{INCEPTION_GRAD_BATCH}: loss (CE + 0.4 aux CE) kernel="
+          f"{loss_kernel:.5f} plain={loss_plain:.5f} f32={loss_f32:.5f}; "
+          f"grads of {len(g_kernel)}/{len(names)} params, finite={finite}, "
+          f"nonzero={len(nonzero)}; rel_l2 kernel-vs-plain={vs_plain:.3e} "
+          f"kernel-vs-f32={vs_f32:.3e} plain-vs-f32={plain_vs_f32:.3e} (tol:"
+          f" both <= {tol:.3e}); launches a step={launches} (want {want}; "
+          f"plain path {plain_launches})", flush=True)
+    print(f"zoo inception_v3 canonical backward alone: rel_l2 "
+          f"kernel-bwd-vs-plain-bwd (kernel forward both)={same_forward:.3e} "
+          f"(tol {GRADS_SAME_FORWARD}); launches {same_launches}; planted "
+          f"faults " + "; ".join(
+              f"{drop} term dropped: vs plain-bwd={a:.3e} "
+              f"({'caught' if a > GRADS_SAME_FORWARD else 'MISSED'})"
+              for drop, a in faults.items()), flush=True)
+    del g_kernel, g_plain, g_f32, g_same, g_faults
+    if (sorted(nonzero) != sorted(names) or not finite
+            or max(vs_plain, vs_f32) > tol or launches != want
+            or sum(plain_launches.values())):
+        failures.append("(b) gradients")
+    if (same_forward > GRADS_SAME_FORWARD
+            or same_launches != step_launches(sites, backward=False)
+            or min(faults.values()) <= GRADS_SAME_FORWARD):
+        failures.append(f"(b) the backward alone: {same_forward:.3e}, "
+                        f"launches {same_launches}, planted faults {faults}")
+
+    batch = device_batch(INCEPTION_GRAD_BATCH)
+    traj = {}
+    for name, norm_act in (("kernel", group_norm.group_norm_act),
+                           ("plain", group_norm.group_norm_act_plain)):
+        t = Trainer("inception_v3", config=config, learning_rate=TRAIN_LR,
+                    seed=0, device="cuda")
+        t.model.norm_act = norm_act
+        traj[name] = [float(t.step(batch)) for _ in range(TRAIN_STEPS)]
+        del t
+    gap = max(abs(a - b) for a, b in zip(traj["kernel"], traj["plain"]))
+    fall = traj["kernel"][-1] / traj["kernel"][0]
+    print(f"zoo inception_v3 canonical {TRAIN_STEPS} AdamW steps (lr "
+          f"{TRAIN_LR}) on one batch: kernel losses "
+          f"{[round(v, 5) for v in traj['kernel']]}; plain "
+          f"{[round(v, 5) for v in traj['plain']]}; max gap {gap:.3e} (tol "
+          f"{TRAJECTORY_TOL} x {traj['plain'][0]:.4f}); last/first "
+          f"{fall:.3f} (must fall)", flush=True)
+    if gap > TRAJECTORY_TOL * traj["plain"][0] or not fall < 1:
+        failures.append("(b) trajectory")
+
+    torch.cuda.empty_cache()
+    t = Trainer("inception_v3", config=config, learning_rate=TRAIN_LR,
+                seed=0, device="cuda")
+    batch = device_batch(INCEPTION_STEP_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: t.step(batch), 10)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ips = INCEPTION_STEP_BATCH / step_ms * 1e3
+    print(f"zoo inception_v3 canonical train step batch "
+          f"{INCEPTION_STEP_BATCH}: {step_ms:.3f} ms, {step_ips:.1f} "
+          f"images/s, peak memory {peak_gb:.2f} GB", flush=True)
+    step_profile = profile_train_step(t, batch, step_ms,
+                                      label="inception_v3 canonical")
+    model = t.model.eval()
+    del t, batch
+    torch.cuda.empty_cache()
+    images = torch.rand(INCEPTION_FWD_BATCH, 299, 299, 3, device="cuda")
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(images), 10)
+    fwd_ips = INCEPTION_FWD_BATCH / fwd_ms * 1e3
+    print(f"zoo inception_v3 canonical forward batch {INCEPTION_FWD_BATCH}: "
+          f"{fwd_ms:.3f} ms, {fwd_ips:.1f} images/s", flush=True)
+    fwd_profile = profile_forward(model, images, fwd_ms,
+                                  label="inception_v3 canonical")
+    del model, images
+    torch.cuda.empty_cache()
+    return {"failures": failures, "step_images_per_s": step_ips,
+            "forward_images_per_s": fwd_ips,
+            "step_idle_share": step_profile.get("idle_share"),
+            "forward_idle_share": fwd_profile.get("idle_share")}
+
+
+def zoo_tf_slice(sc, work: str, arch: str, side: int, sites,
+                 model_dir: str | None = None) -> dict:
+    """Phase 14(c)/(d): ``examples/resnet_spark.py --arch <arch>`` (the
+    default ``Config()``) on one executor from ``TF_RECORDS`` synthetic
+    ``side``² TFRecords at batch 64, one reader: the executor on the card,
+    the launches of its steps, the final loss against an in-process
+    replay, images/s."""
+    from tensorflowonspark_torch import models as model_zoo
+    from tensorflowonspark_torch.examples import resnet_spark
+    from tensorflowonspark_torch.models import resnet
+
+    config = model_zoo.get_model(arch).Config()
+    data_dir = os.path.join(work, f"{arch}_records")
+    t0 = time.perf_counter()
+    files = resnet.write_synthetic_tfrecords(
+        data_dir, TF_RECORDS, TF_PARTS, side, seed=4,
+        num_classes=config.num_classes)
+    write_s = time.perf_counter() - t0
+    args = resnet_spark.parse_args(
+        ["--arch", arch, "--batch_size", str(SLICE_TRAIN_BATCH),
+         "--readers", "1", "--shuffle_buffer", str(TF_SHUFFLE), "--lr",
+         str(TRAIN_LR), "--epochs", "1", "--data_dir", data_dir]
+        + (["--model_dir", model_dir] if model_dir else []))
+    args.ckpt_every_steps = 0
+    node, agg, job_s, timeline = run_tf_job(sc, tf_resnet_map_fun, args)
+    replay = tf_resnet_replay(args, "cuda")
+    steps = TF_RECORDS // SLICE_TRAIN_BATCH
+    failures = slice_failures(node, replay, steps=steps,
+                              want_launches=step_launches(sites, steps),
+                              tol=SLICE_TRAIN_VS_IN_PROCESS, final_only=True)
+    rates = slice_rates(agg, 1)
+    mb = sum(os.path.getsize(f) for f in files) / 1e6
+    print(f"zoo tf-mode slice resnet_spark --arch {arch}: {TF_RECORDS} "
+          f"records {side}² ({mb:.1f} MB) written in {write_s:.2f} s; "
+          f"Trainer.step on {node['device']}: state {node['state']}, losses "
+          f"{[round(v, 5) for v in node['losses'] or []]}; in-process replay "
+          f"{[round(v, 5) for v in replay]}; final loss rel "
+          f"{loss_rel(node['losses'], replay, True):.3e} (tol "
+          f"{SLICE_TRAIN_VS_IN_PROCESS}); executor launches "
+          f"{node['launches']}; cluster.metrics() images/s={rates['rate']}; "
+          f"loop wall images/s={rates['wall_rate']}; job {job_s:.1f} s "
+          f"({timeline})", flush=True)
+    return {"failures": [f"({arch} slice) {f}" for f in failures],
+            "launches": node["launches"] or {}, "images_per_s": rates["rate"]}
+
+
+def zoo_serving(sc, export_dir: str, sites) -> dict:
+    """Phase 14(e): ``TFModel.transform`` of the Inception export of (c):
+    its serialized forward (``torch.ops.tfos.group_norm_act`` at every
+    norm), and the same weights exported weights-only, served by name."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch import ckpt, compat, sparkapi
+    from tensorflowonspark_torch.models import inception
+
+    state = ckpt.load_pytree(os.path.join(export_dir, "model"))
+    weights_only = export_dir + "_weights_only"
+    compat.export_saved_model(state, weights_only)
+    model = inception.load_state(inception.make_model(
+        inception.config_from_state(state)), state).cuda().eval()
+    images = np.random.RandomState(6).rand(
+        ZOO_SERVE_ROWS, 299, 299, 3).astype(np.float32)
+    df = sparkapi.LocalSparkSession(sc).createDataFrame(
+        [{"id": i, "image": images[i]} for i in range(ZOO_SERVE_ROWS)]
+    ).repartition(3)
+    sizes = [len(p) for p in df.rdd._partitions]
+    n_batches = sum(-(-n // SLICE_BATCH) for n in sizes)
+    ref = scores_in_process(model, images, sizes, SLICE_BATCH)
+    del model
+    want = step_launches(sites, n_batches, backward=False)
+    failures, launches, out = [], collections.Counter(), {}
+    for label, name, d in (("serialized", None, export_dir),
+                           ("by name", "inception_v3", weights_only)):
+        got = serve_export(sc, df, d, SLICE_BATCH, {"image": "image"},
+                           "logits", model_name=name)
+        err = (rel_err(got["scores"], ref)
+               if got["scores"].shape == ref.shape else float("inf"))
+        bits = bool(torch.equal(got["scores"], ref))
+        launches.update(got["executor"])
+        out[label] = got["rows"] / got["seconds"]
+        print(f"zoo serving inception_v3 ({label}) on cuda: {got['rows']} "
+              f"rows in {sizes}, {got['seconds']:.3f} s, "
+              f"{out[label]:.2f} rows/s (first, with the load); scores rel "
+              f"vs the eager forward in process {err:.3e} (tol "
+              f"{SLICE_VS_IN_PROCESS}), the same bits {bits}; executor "
+              f"launches {got['executor']} for {n_batches} batches (want "
+              f"{want})", flush=True)
+        if (got["rows"] != ZOO_SERVE_ROWS or err > SLICE_VS_IN_PROCESS
+                or got["executor"] != want
+                or (name is None and not bits)):
+            failures.append(f"(e) {label}: rows {got['rows']}, rel "
+                            f"{err:.3e}, bits {bits}, launches "
+                            f"{got['executor']}")
+    return {"failures": failures, "launches": dict(launches),
+            "rows_per_s": out}
+
+
+def zoo_mnist(sc, work: str) -> dict:
+    """Phase 14(f): ``examples/mnist_spark.py``'s ``map_fun`` on one
+    executor in ``InputMode.SPARK`` over ``MNIST_ROWS`` synthetic rows,
+    then ``TFModel.transform`` of its self-describing export: the same
+    bits as ``serve()`` here on the executor's batches."""
+    import torch
+
+    from tensorflowonspark_torch import TFCluster, ckpt, sparkapi
+    from tensorflowonspark_torch.examples import mnist_spark
+
+    export = os.path.join(work, "mnist_export")
+    x, y = mnist_spark.synth_mnist(MNIST_ROWS)
+    args = mnist_spark.parse_args(["--batch_size", str(MNIST_BATCH),
+                                   "--epochs", "1", "--model_dir", export])
+    t0 = time.perf_counter()
+    cluster = TFCluster.run(
+        sc, functools.partial(run_counted, mnist_spark.map_fun), args,
+        num_executors=1, input_mode=TFCluster.InputMode.SPARK,
+        master_node="chief")
+    cluster.train(sc.parallelize([(x[i], int(y[i])) for i in range(
+        MNIST_ROWS)], MNIST_PARTITIONS), num_epochs=1, feed_timeout=600)
+    cluster.shutdown(grace_secs=120)
+    job_s = time.perf_counter() - t0
+    [node] = node_published(cluster, ("state", "final_loss",
+                                      "examples_seen", "device", "launches",
+                                      "table_launches"))
+    # the same batches in partition order, in this process
+    params = {k: torch.tensor(v, device="cuda", requires_grad=True)
+              for k, v in mnist_spark.init_params(args.hidden, 0).items()}
+    mom = {k: torch.zeros_like(v) for k, v in params.items()}
+    for lo in range(0, MNIST_ROWS, MNIST_BATCH):
+        loss = mnist_spark.train_batch(params, mom, {
+            "image": torch.from_numpy(x[lo:lo + MNIST_BATCH]).cuda(),
+            "label": torch.from_numpy(y[lo:lo + MNIST_BATCH]).cuda()},
+            MNIST_BATCH, args.lr)
+    replay = float(loss)
+    final = node["final_loss"]
+    rel = abs(final - replay) / replay if final is not None else float("inf")
+    rows = 1000
+    df = sparkapi.LocalSparkSession(sc).createDataFrame(
+        [{"image": x[i]} for i in range(rows)]).repartition(3)
+    served = serve_export(sc, df, export, MNIST_BATCH, {"image": "image"},
+                          "logits")
+    state = {k: torch.from_numpy(v).cuda() for k, v in ckpt.load_pytree(
+        os.path.join(export, "model")).items()}
+    # chunked and padded as the executor batches: the program's GEMMs then
+    # have this process's shapes, and give its bits
+    want = scores_in_process(
+        lambda images: mnist_spark.serve(state, {"image": images}),
+        x[:rows], [len(p) for p in df.rdd._partitions], MNIST_BATCH)
+    err, max_abs = ((rel_err(served["scores"], want),
+                     float((served["scores"] - want).abs().max()))
+                    if served["scores"].shape == want.shape
+                    else (float("inf"), float("inf")))
+    bits = bool(torch.equal(served["scores"], want))
+    print(f"zoo mnist_spark (InputMode.SPARK, one executor) on "
+          f"{node['device']}: state {node['state']}, {node['examples_seen']} "
+          f"rows seen, final loss {final} (in-process replay {replay:.6f}, "
+          f"rel {rel:.3e}, tol {MNIST_LOSS_VS_REPLAY}); job {job_s:.1f} s; "
+          f"TFModel.transform of its self-describing export: "
+          f"{served['rows']} rows in {served['seconds']:.3f} s, scores rel "
+          f"vs serve() in process {err:.3e}, max |diff| {max_abs:.3e}, the "
+          f"same bits {bits}; GroupNorm launches: trainer "
+          f"{node['launches']}, serving executor {served['executor']}",
+          flush=True)
+    failures = []
+    if (node["state"] != "finished" or not str(node["device"]).startswith(
+            "cuda") or node["examples_seen"] != MNIST_ROWS
+            or not rel <= MNIST_LOSS_VS_REPLAY
+            or not replay < math.log(10) or served["rows"] != rows
+            or not bits):
+        failures.append(f"(f) mnist: node {node}, loss rel {rel}, served "
+                        f"{served['rows']} rows, scores rel {err}, the same "
+                        f"bits {bits}")
+    launches = collections.Counter(node["launches"] or {})
+    launches.update(served["executor"])
+    # SPARK mode trains in a process the executor spawns: its table
+    # launches are its own
+    return {"failures": failures, "launches": dict(launches),
+            "trainer_table_launches": node["table_launches"] or {}}
+
+
+def zoo_cifar(sc, work: str, sites) -> dict:
+    """Phase 14(g): ``examples/cifar10_spark.py`` with its defaults (full
+    CNN at 32², batch 64, 2 epochs of 2,048 records, 2 reader threads) on
+    one executor."""
+    from tensorflowonspark_torch import sparkapi
+    from tensorflowonspark_torch.examples import cifar10_spark
+
+    args = cifar10_spark.parse_args(
+        ["--cluster_size", "1", "--data_dir", os.path.join(work, "cifar")])
+    t0 = time.perf_counter()
+    cifar10_spark.prep_tfrecords(sparkapi.LocalSparkSession(sc),
+                                 args.data_dir, args.num_samples, 2, 32)
+    write_s = time.perf_counter() - t0
+    node, agg, job_s, timeline = run_tf_job(
+        sc, functools.partial(run_counted, cifar10_spark.map_fun), args)
+    losses = node["losses"] or []
+    steps = args.num_samples // args.batch_size * args.epochs
+    k = 8
+    falls = (len(losses) >= 2 * k
+             and sum(losses[-k:]) < sum(losses[:k]))
+    want = step_launches(sites, steps)
+    rates = slice_rates(agg, 1)
+    print(f"zoo cifar10_spark defaults ({args.readers} readers, batch "
+          f"{args.batch_size}, {args.epochs} epochs of {args.num_samples} "
+          f"records written in {write_s:.2f} s) on {node['device']}: state "
+          f"{node['state']}, {len(losses)} steps = "
+          f"{len(losses) * args.batch_size} rows trained (records x epochs "
+          f"{args.num_samples * args.epochs}); mean loss of the first {k} "
+          f"{sum(losses[:k]) / k if losses else float('nan'):.4f}, of the "
+          f"last {k} {sum(losses[-k:]) / k if losses else float('nan'):.4f}"
+          f"; executor launches {node['launches']} (want {want}); "
+          f"cluster.metrics() images/s={rates['rate']}; job {job_s:.1f} s "
+          f"({timeline})", flush=True)
+    failures = []
+    if (node["state"] != "finished" or len(losses) != steps
+            or not str(node["device"]).startswith("cuda")
+            or not all(math.isfinite(v) for v in losses) or not falls
+            or node["launches"] != want):
+        failures.append(f"(g) cifar: state {node['state']}, {len(losses)} "
+                        f"steps (want {steps}), falls {falls}, launches "
+                        f"{node['launches']}")
+    return {"failures": failures, "launches": node["launches"] or {},
+            "images_per_s": rates["rate"]}
+
+
+def zoo_phase(sc, work: str) -> dict:
+    """Phase 14 (see the module docstring), in phase 11's application
+    (its executor carries over) under ``work``: every sub-phase runs; the
+    failures are gathered and fail the run at the end."""
+    import torch
+
+    from tensorflowonspark_torch.kernels import sparse_adagrad
+
+    t0 = time.perf_counter()
+    # the table kernels' launches in every process of the phase, from 0
+    sparse_adagrad.reset_launches()
+    sc.parallelize([0], 1).mapPartitions(_reset_table_launches).collect()
+    tables = zoo_site_tables()
+    kern = zoo_kernel_phase(tables)
+    t_kern = time.perf_counter()
+    model = inception_model_phase(tables["inception_v3 canonical"])
+    t_model = time.perf_counter()
+    failures = list(model["failures"])
+    launches = collections.Counter()
+    work = os.path.join(work, "zoo")
+    os.makedirs(work)
+    seconds, parts = {}, []
+    t = time.perf_counter()
+    export = os.path.join(work, "inception_export")
+    parts.append(("c", zoo_tf_slice(sc, work, "inception_v3", 299,
+                                    tables["inception_v3"], export)))
+    parts.append(("d", zoo_tf_slice(sc, work, "mobilenet_v1", 224,
+                                    tables["mobilenet_v1"])))
+    parts.append(("e", zoo_serving(sc, export, tables["inception_v3"])))
+    seconds["c-e"] = time.perf_counter() - t
+    t = time.perf_counter()
+    parts.append(("f", zoo_mnist(sc, work)))
+    seconds["f"] = time.perf_counter() - t
+    t = time.perf_counter()
+    parts.append(("g", zoo_cifar(sc, work, tables["cifar10_cnn"])))
+    seconds["g"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    results = dict(parts)
+    for _, part in parts:
+        failures += part["failures"]
+        launches.update(part.get("launches", {}))
+    [executor] = sc.parallelize([0], 1).mapPartitions(
+        _table_launches).collect()
+    table_launches = {k: v + executor[k] + results["f"][
+        "trainer_table_launches"].get(k, 0)
+        for k, v in sparse_adagrad.launches_by_path.items()}
+    print(f"zoo table kernel launches (driver, executor and the SPARK-mode "
+          f"trainer; no zoo model reaches them): {table_launches}",
+          flush=True)
+    if any(table_launches.values()):
+        failures.append(f"table kernels launched {table_launches}")
+    total = time.perf_counter() - t0
+    print(f"zoo rates (images/s): inception_v3 canonical Trainer.step batch "
+          f"{INCEPTION_STEP_BATCH} {model['step_images_per_s']:.1f} (idle "
+          f"share {model['step_idle_share']}), forward batch "
+          f"{INCEPTION_FWD_BATCH} {model['forward_images_per_s']:.1f} (idle "
+          f"share {model['forward_idle_share']}); "
+          f"TENSORFLOW-mode slices at batch {SLICE_TRAIN_BATCH}: "
+          f"inception_v3 {results['c']['images_per_s']}, mobilenet_v1 "
+          f"{results['d']['images_per_s']}, cifar10_cnn "
+          f"{results['g']['images_per_s']}; served inception_v3 rows/s "
+          f"{results['e']['rows_per_s']}", flush=True)
+    print(f"zoo phase 14 seconds: kernel sites {t_kern - t0:.1f}, inception "
+          f"model {t_model - t_kern:.1f}, slices and serving "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"; phase 14 {total:.1f} (budget {PHASE14_BUDGET_S})", flush=True)
+    if failures:
+        raise SystemExit("zoo phase 14 failed: " + "; ".join(failures))
+    return {"kernels": kern, "launches": dict(launches),
+            "table_launches": table_launches}
+
+
+def phase14_entry(kern: dict, path: str) -> dict:
+    """A GroupNorm kernel's phase 14(a) numbers on ``path``: the largest
+    error over the zoo's sites that take it, the sum over those sites (one
+    call each, batch ``ZOO_BATCH``) of its ms, bound and library ms, and,
+    for the oversize paths, each site's."""
+    from tensorflowonspark_torch.kernels import group_norm
+
+    backward = path.startswith("backward_")
+    cases = kern["backward" if backward else "forward"]
+    mine = {}
+    for (c, h, w, groups), case in cases.items():
+        plan = (group_norm._plan_backward if backward else group_norm._plan)(
+            ZOO_BATCH, h, w, c, groups)
+        if ("backward_" if backward else "") + plan.path == path:
+            mine[f"{ZOO_BATCH}x{h}x{w}x{c}/G{groups}"] = case
+    if not mine:
+        return {}
+    out = {"phase14_sites": len(mine),
+           "phase14_max_abs_err": max(c["max_abs_err"] for c in mine.values())}
+    for key in ("ms", "bound_ms", "library_ms"):
+        out[f"phase14_{key}"] = sum(c[key] for c in mine.values())
+    if path in ("two_pass", "backward_four_launch"):
+        out["phase14_by_site"] = {
+            site: {k: c[k] for k in ("ms", "bound_ms", "library_ms",
+                                     "max_abs_err")}
+            for site, c in mine.items()}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3151,8 +3776,8 @@ def main() -> int:
         f"{mode}: Trainer.step {wd_train[mode]['steps_per_s']:.1f}, slice "
         f"{wd_slice[path]['steps_per_s']}" for mode, path in WD_MODES),
         flush=True)
-    # one application for both: its executor carries over from one job
-    # to the next, as a Spark application's executors do
+    # one application for phases 11-14: its executor carries over from one
+    # job to the next, as a Spark application's executors do
     from tensorflowonspark_torch import sparkapi
 
     t11 = time.perf_counter()
@@ -3164,6 +3789,8 @@ def main() -> int:
         tf_wd = tf_wd_slice_phase(sc)
         t13 = time.perf_counter()
         persistence = persistence_phase(sc, work, tf_resnet)
+        t14 = time.perf_counter()
+        zoo = zoo_phase(sc, work)
     finally:
         sc.stop()
         shutil.rmtree(work, ignore_errors=True)
@@ -3186,8 +3813,8 @@ def main() -> int:
           f"{tf_wd['feed_steps_per_s']:.1f}; Trainer.step "
           f"{wd_train['dense']['steps_per_s']:.1f}", flush=True)
     print(f"seconds: phase 11 {t12 - t11:.1f}, phase 12 {t13 - t12:.1f}, "
-          f"phase 13 {t_end - t13:.1f}; all phases {t_end - t_start:.1f}",
-          flush=True)
+          f"phase 13 {t14 - t13:.1f}, phase 14 {t_end - t14:.1f}; all "
+          f"phases {t_end - t_start:.1f}", flush=True)
 
     print(card)  # as nvidia-smi gives it: name, power limit
     names = {"one_pass": "group_norm_act (one_pass)",
@@ -3205,7 +3832,8 @@ def main() -> int:
         "launches_serving": serving["launches"].get(path, 0),
         "launches_tf_mode": tf_resnet["launches"][path],
         "launches_phase13": persistence["launches"].get(path, 0),
-        **kern[path]}
+        "launches_phase14": zoo["launches"].get(path, 0),
+        **kern[path], **phase14_entry(zoo["kernels"], path)}
         for path in names]
     grouping = tables["combine"]
     kernels.append({
@@ -3215,6 +3843,7 @@ def main() -> int:
         "launches": sum(wd_slice[p]["group_launches"] for _, p in WD_MODES),
         "launches_tf_mode": tf_wd["launches"]["group"],
         "launches_phase13": persistence["launches"].get("group", 0),
+        "launches_phase14": zoo["table_launches"]["group"],
         "max_abs_err": 0.0, "ms": grouping["group_ms"],
         "device_ms": grouping["group_device_ms"],
         "plain_ms": grouping["group_plain_ms"],
@@ -3230,6 +3859,7 @@ def main() -> int:
         "launches": wd_slice[path]["launches"],
         "launches_tf_mode": tf_wd["launches"].get(path, 0),
         "launches_phase13": persistence["launches"].get(path, 0),
+        "launches_phase14": zoo["table_launches"][path],
         **tables[path]}
         for _, path in WD_MODES]
     print(json.dumps({"kernels": kernels}))

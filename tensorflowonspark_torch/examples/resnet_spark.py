@@ -1,4 +1,5 @@
-"""ImageNet ResNet-50 data-parallel training in ``InputMode.TENSORFLOW``.
+"""ImageNet ResNet-50 / Inception-v3 / MobileNet-v1 data-parallel training
+in ``InputMode.TENSORFLOW``.
 
 A port of ``examples/imagenet/resnet_spark.py`` (``map_fun`` and
 ``main``).  Each executor runs ``map_fun`` inline: it joins the
@@ -20,10 +21,14 @@ again after a lost executor continues where the checkpoint left it
 (``Trainer.export``), which ``TFModel`` serves with no model code.
 
 Throughput is reported through the step-metrics hook
-(``metrics.MetricsReporter`` → ``TFCluster.metrics()``).  Only
-``resnet50`` is ported to the port's model zoo.
+(``metrics.MetricsReporter`` → ``TFCluster.metrics()``).  ``--arch``
+picks the zoo model, as the reference's does: ``resnet50``,
+``inception_v3`` (the default SAME variant, 299² records) or
+``mobilenet_v1``; the synthetic records take the model's image size and
+classes.
 
     python -m tensorflowonspark_torch.examples.resnet_spark --cluster_size 2 --tiny
+    python -m tensorflowonspark_torch.examples.resnet_spark --arch inception_v3 --tiny
 
 Without a card set ``TFOS_TORCH_DEVICE=cpu`` (and, for a gloo group
 between the executors, ``TFOS_TORCH_DISTRIBUTED=1``).
@@ -137,8 +142,10 @@ def prep_tfrecords(data_dir: str, n: int, parts: int, config,
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", default="resnet50", choices=["resnet50"],
-                   help="the port's zoo has resnet50 only so far")
+    p.add_argument("--arch", default="resnet50",
+                   choices=["resnet50", "inception_v3", "mobilenet_v1"],
+                   help="acceptance config #3 names resnet50/inception_v3; "
+                        "mobilenet_v1 covers the reference's slim family")
     p.add_argument("--cluster_size", type=int, default=2)
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--epochs", type=int, default=1)

@@ -117,19 +117,20 @@ def reset_launches() -> None:
 
 
 def _plain_forward(x, gamma, beta, groups, eps, residual, relu):
-    """:func:`group_norm_act_plain`'s result and its ``(N, G, 2)`` f32
-    ``(mean, rstd)``."""
+    """:func:`group_norm_act_plain`'s result and its ``(N, G, 2)``
+    ``(mean, rstd)``, in f32 (f64 for a float64 ``x``)."""
     n, c, h, w = x.shape
-    xf = x.permute(0, 2, 3, 1).float().reshape(n, h * w, groups, c // groups)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf = x.permute(0, 2, 3, 1).to(acc).reshape(n, h * w, groups, c // groups)
     mean = xf.mean(dim=(1, 3), keepdim=True)
     var = torch.clamp((xf * xf).mean(dim=(1, 3), keepdim=True) - mean * mean,
                       min=0.0)
     rstd = torch.rsqrt(var + eps)
-    scale = rstd * gamma.float().reshape(1, 1, groups, -1)
-    y = (xf - mean) * scale + beta.float().reshape(1, 1, groups, -1)
+    scale = rstd * gamma.to(acc).reshape(1, 1, groups, -1)
+    y = (xf - mean) * scale + beta.to(acc).reshape(1, 1, groups, -1)
     y = y.reshape(n, h, w, c)
     if residual is not None:
-        y = y + residual.permute(0, 2, 3, 1).float()
+        y = y + residual.permute(0, 2, 3, 1).to(acc)
     if relu:
         y = torch.relu(y)
     stats = torch.stack((mean.reshape(n, groups), rstd.reshape(n, groups)),
@@ -141,7 +142,8 @@ def group_norm_act_plain(x: torch.Tensor, gamma: torch.Tensor,
                          beta: torch.Tensor, groups: int, eps: float,
                          residual: torch.Tensor | None = None,
                          relu: bool = True) -> torch.Tensor:
-    """The kernel's arithmetic as plain tensor ops, in f32.
+    """The kernel's arithmetic as plain tensor ops, in f32 (f64 for a
+    float64 ``x``, which the kernel does not take).
 
     ``x`` is ``(N, C, H, W)`` in any memory format; the result has ``x``'s
     shape and dtype and is ``channels_last``."""
@@ -153,7 +155,8 @@ def group_norm_act_backward_plain(dy: torch.Tensor, x: torch.Tensor,
                                   gamma: torch.Tensor, stats: torch.Tensor,
                                   groups: int, residual: bool = False,
                                   relu: bool = True):
-    """The backward kernel's arithmetic as plain tensor ops, in f32.
+    """The backward kernel's arithmetic as plain tensor ops, in f32 (f64
+    for a float64 ``x``).
 
     ``y`` is the forward's output (only ``y > 0`` is read, and only with
     ``relu``), ``stats`` its ``(N, G, 2)`` ``(mean, rstd)``.  With
@@ -167,15 +170,16 @@ def group_norm_act_backward_plain(dy: torch.Tensor, x: torch.Tensor,
     ``dγ = Σ dz·x̂`` and ``dβ = Σ dz`` per channel in f32."""
     n, c, h, w = x.shape
     cpg = c // groups
-    dz = dy.permute(0, 2, 3, 1).float()
+    acc = torch.promote_types(x.dtype, torch.float32)
+    dz = dy.permute(0, 2, 3, 1).to(acc)
     if relu:
         dz = dz * (y.permute(0, 2, 3, 1) > 0)
     dz = dz.reshape(n, h * w, groups, cpg)
-    xf = x.permute(0, 2, 3, 1).float().reshape(n, h * w, groups, cpg)
+    xf = x.permute(0, 2, 3, 1).to(acc).reshape(n, h * w, groups, cpg)
     mean = stats[..., 0].reshape(n, 1, groups, 1)
     rstd = stats[..., 1].reshape(n, 1, groups, 1)
     xh = (xf - mean) * rstd
-    dxh = dz * gamma.float().reshape(1, 1, groups, cpg)
+    dxh = dz * gamma.to(acc).reshape(1, 1, groups, cpg)
     dx = rstd * (dxh - dxh.mean(dim=(1, 3), keepdim=True)
                  - xh * (dxh * xh).mean(dim=(1, 3), keepdim=True))
     dgamma = (dz * xh).sum(dim=(0, 1)).reshape(c)

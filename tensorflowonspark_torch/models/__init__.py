@@ -6,11 +6,16 @@ Every model module exposes the reference's surface, in PyTorch:
 - ``make_model(config, ...)`` → ``torch.nn.Module``
 - ``make_forward_fn(model, config)`` → ``forward(model, batch) -> outputs``
 - ``example_batch(config, batch_size, seed)`` → dict of numpy arrays
+- ``make_loss_fn(model, config)`` → ``loss(model, batch) -> scalar``
 - ``state_of(model)`` / ``load_state(model, state)`` /
   ``config_from_state(state)`` → the weights-only export and back
+- ``make_serving_model(config)`` / ``serving_forward`` → the forward an
+  export serializes
+- ``params_from_flax(params)`` / ``opt_state_from_optax(opt_state,
+  params)`` → the JAX package's weights and AdamW state, as numpy
 
-``resnet50`` and ``wide_deep`` are ported; the other reference names raise
-``KeyError`` saying so.
+``bert`` and ``tiny_lm`` are not ported yet: their names raise ``KeyError``
+saying so.
 """
 
 from __future__ import annotations
@@ -18,13 +23,16 @@ from __future__ import annotations
 import importlib
 
 _REGISTRY = {
+    "mnist_mlp": "tensorflowonspark_torch.models.mnist",
+    "cifar10_cnn": "tensorflowonspark_torch.models.cifar",
     "resnet50": "tensorflowonspark_torch.models.resnet",
+    "inception_v3": "tensorflowonspark_torch.models.inception",
+    "mobilenet_v1": "tensorflowonspark_torch.models.mobilenet",
     "wide_deep": "tensorflowonspark_torch.models.widedeep",
 }
 
 #: reference zoo entries the port does not have yet
-_NOT_PORTED = ("mnist_mlp", "cifar10_cnn", "inception_v3", "mobilenet_v1",
-               "bert", "tiny_lm")
+_NOT_PORTED = ("bert", "tiny_lm")
 
 
 def get_model(name: str):

@@ -13,6 +13,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 #: std of a standard normal truncated to ±2 (flax's variance_scaling
 #: divides by it so the truncated draw keeps the requested variance)
@@ -107,3 +108,212 @@ def image_example_batch(image_shape, num_classes: int, batch_size: int = 8,
             np.int32
         ),
     }
+
+
+# ---------------------------------------------------------------------------
+# Layers the image models share (reference: flax ``nn.Conv``, ``nn.GroupNorm``,
+# ``nn.avg_pool``/``nn.max_pool`` in NHWC; here NCHW shapes in channels_last)
+# ---------------------------------------------------------------------------
+
+GROUP_NORM_EPS = 1e-6  # flax nn.GroupNorm default
+
+
+def same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
+    """XLA's ``SAME`` padding ``(low, high)`` for one spatial dim."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pads(x: torch.Tensor, kernel: tuple[int, int], stride: int,
+          padding: str) -> tuple[int, int, int, int]:
+    """``(left, right, top, bottom)`` of an XLA ``SAME`` or ``VALID``
+    window over ``x``'s (H, W)."""
+    if padding == "VALID":
+        return 0, 0, 0, 0
+    if padding != "SAME":
+        raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
+    (t, b), (left, right) = (same_pads(x.shape[2], kernel[0], stride),
+                             same_pads(x.shape[3], kernel[1], stride))
+    return left, right, t, b
+
+
+def _pair(k) -> tuple[int, int]:
+    return (k, k) if isinstance(k, int) else tuple(k)
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` in NCHW (``channels_last``): a ``(kh, kw)`` kernel
+    with XLA ``SAME`` (per-dimension, asymmetric where the stride or an
+    even kernel asks for it) or ``VALID`` padding, an optional bias and
+    ``groups`` (``groups == cin``: a depthwise conv).  The f32 weight and
+    bias are cast to the input's dtype at use.  ``forward``'s ``padding``
+    overrides the constructed one (Inception's aux head picks it from its
+    input's size, as the reference's does)."""
+
+    def __init__(self, cin: int, cout: int, kernel, stride: int = 1,
+                 padding: str = "SAME", bias: bool = False, groups: int = 1):
+        super().__init__()
+        self.kernel = _pair(kernel)
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups,
+                                               *self.kernel))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+        self.stride, self.padding, self.groups = stride, padding, groups
+
+    def forward(self, x: torch.Tensor, padding: str | None = None):
+        w = self.weight.to(x.dtype).contiguous(
+            memory_format=torch.channels_last)
+        b = self.bias.to(x.dtype) if self.bias is not None else None
+        left, right, t, bottom = _pads(x, self.kernel, self.stride,
+                                       padding or self.padding)
+        if left == right and t == bottom:
+            return F.conv2d(x, w, b, self.stride, (t, left),
+                            groups=self.groups)
+        return F.conv2d(F.pad(x, (left, right, t, bottom)), w, b,
+                        self.stride, groups=self.groups)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm`` (epsilon 1e-6, f32 ``scale``/``bias``) through
+    the ``norm_act`` the model carries, with the ReLU that follows it
+    folded in."""
+
+    def __init__(self, ch: int, groups: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(ch))
+        self.bias = nn.Parameter(torch.zeros(ch))
+        self.groups = groups
+
+    def forward(self, x, norm_act, relu: bool = True):
+        return norm_act(x, self.scale, self.bias, self.groups,
+                        GROUP_NORM_EPS, None, relu)
+
+
+def max_pool(x: torch.Tensor, k: int, stride: int,
+             padding: str = "VALID") -> torch.Tensor:
+    """flax ``nn.max_pool``: ``SAME`` pads with ``-inf``."""
+    pads = _pads(x, (k, k), stride, padding)
+    if any(pads):
+        x = F.pad(x, pads, value=float("-inf"))
+    return F.max_pool2d(x, k, stride)
+
+
+def avg_pool(x: torch.Tensor, k: int, stride: int,
+             padding: str = "VALID") -> torch.Tensor:
+    """flax ``nn.avg_pool`` (``count_include_pad=True``): ``SAME`` pads
+    with zeros that count in every window's mean."""
+    left, right, t, b = _pads(x, (k, k), stride, padding)
+    if left == right and t == b:
+        return F.avg_pool2d(x, k, stride, (t, left), count_include_pad=True)
+    return F.avg_pool2d(F.pad(x, (left, right, t, b)), k, stride)
+
+
+def global_mean(x: torch.Tensor) -> torch.Tensor:
+    """The spatial mean of an NCHW activation taken in f32 (f64 for f64)
+    and rounded to its dtype (``jnp.mean`` over H, W of a bf16 array)."""
+    return x.mean(dim=(2, 3), dtype=torch.promote_types(
+        x.dtype, torch.float32)).to(x.dtype)
+
+
+def to_nchw(image: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """NHWC float images → ``dtype`` NCHW in ``channels_last``."""
+    return image.to(dtype).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+
+
+def init_weights_(model: nn.Module, seed: int) -> None:
+    """flax's init of a zoo model, drawn by torch from ``seed``: He-normal
+    conv kernels (4-D), LeCun-normal dense kernels (2-D), both truncated
+    at ±2σ; biases 0, norm scales 1 (as constructed)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".weight") and p.dim() in (2, 4):
+                variance_scaling_(p, 1.0 if p.dim() == 2 else 2.0, gen)
+            elif name.endswith(".bias"):
+                p.zero_()
+
+
+# ---------------------------------------------------------------------------
+# Export state, shape-matched configs and the flax converter
+# ---------------------------------------------------------------------------
+
+
+def state_of(model: nn.Module) -> dict:
+    """``{"params": {name: f32 array}}``: the reference's export layout,
+    with torch parameter names."""
+    return {"params": {k: t.detach().cpu().float().numpy()
+                       for k, t in model.state_dict().items()}}
+
+
+def load_state(model: nn.Module, state: dict) -> nn.Module:
+    """Load :func:`state_of`'s tree into ``model``: every parameter must be
+    present, and nothing else."""
+    model.load_state_dict(
+        {k: torch.from_numpy(np.array(v, dtype=np.float32))
+         for k, v in state["params"].items()}, strict=True)
+    return model
+
+
+def config_from_state(state: dict, build, configs) -> object:
+    """The first of ``configs`` whose model (``build(config)``, on the
+    ``meta`` device) has exactly ``state``'s parameter names and shapes;
+    ``ValueError`` when none has."""
+    got = {k: tuple(getattr(v, "shape", ())) for k, v in
+           state["params"].items()}
+    for config in configs:
+        with torch.device("meta"):
+            model = build(config)
+        if got == {k: tuple(v.shape) for k, v in model.state_dict().items()}:
+            return config
+    raise ValueError("the export's parameters match none of the configs "
+                     f"{[type(c).__name__ for c in configs]} tried")
+
+
+def params_from_flax(params, module_name) -> dict:
+    """A flax ``params`` tree as ``{"params": {torch name: f32 array}}``.
+
+    ``module_name(path)`` maps a flax module path (a tuple of names) to the
+    torch module's name and raises ``KeyError`` for a path it does not
+    know.  Conv kernels go HWIO → OIHW (a depthwise ``(kh, kw, 1, C)`` to
+    ``(C, 1, kh, kw)``), dense kernels ``(in, out)`` → ``(out, in)``;
+    biases and norm ``scale``/``bias`` keep their names.  A leaf of any
+    other name or rank raises ``KeyError``."""
+    out = {}
+    for path, leaf in flax_leaves(params):
+        name = module_name(path[:-1])
+        a = np.asarray(leaf, dtype=np.float32)
+        if path[-1] == "kernel" and a.ndim == 4:
+            out[f"{name}.weight"] = np.ascontiguousarray(
+                a.transpose(3, 2, 0, 1))
+        elif path[-1] == "kernel" and a.ndim == 2:
+            out[f"{name}.weight"] = np.ascontiguousarray(a.T)
+        elif path[-1] in ("scale", "bias") and a.ndim == 1:
+            out[f"{name}.{path[-1]}"] = a
+        else:
+            raise KeyError(f"unmapped flax leaf {'/'.join(path)} {a.shape}")
+    return {"params": out}
+
+
+def numbered(path: tuple, kind: str) -> int:
+    """``k`` of a one-element flax path ``(f"{kind}_{k}",)``; ``KeyError``
+    for anything else."""
+    if len(path) == 1 and path[0].startswith(kind + "_"):
+        tail = path[0][len(kind) + 1:]
+        if tail.isdigit():
+            return int(tail)
+    raise KeyError(f"unmapped flax module {'/'.join(path)}")
+
+
+def opt_state_from_optax(opt_state, params, params_from_flax) -> dict:
+    """A reference ``Trainer``'s ``optax.adamw`` state (live or restored
+    as numpy) as the port's AdamW state by parameter name, the moments
+    converted by the model's ``params_from_flax`` as its ``params`` are;
+    ``KeyError`` when the moments and ``params`` name different leaves."""
+    names = set(params_from_flax(params)["params"])
+    out = adam_state_from_optax(
+        opt_state, lambda tree: params_from_flax(tree)["params"])
+    if set(out) != names:
+        raise KeyError("the optax moments and the params name different "
+                       "leaves")
+    return out

@@ -37,7 +37,7 @@ from torch import nn
 from tensorflowonspark_torch.kernels import group_norm
 from tensorflowonspark_torch.models import _common
 
-GROUP_NORM_EPS = 1e-6  # flax nn.GroupNorm default
+GROUP_NORM_EPS = _common.GROUP_NORM_EPS
 BATCH_NORM_EPS = 1e-5  # flax nn.BatchNorm default
 
 
@@ -57,29 +57,10 @@ class Config:
                    groups=2, dtype="float32", norm=norm)
 
 
-def same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
-    """XLA's ``SAME`` padding ``(low, high)`` for one spatial dim."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + k - size, 0)
-    return total // 2, total - total // 2
-
-
-class _Conv(nn.Module):
-    """Bias-free conv with ``SAME`` padding; f32 weight cast at use."""
-
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
-        self.k, self.stride = k, stride
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight.to(x.dtype).contiguous(
-            memory_format=torch.channels_last)
-        (ht, hb), (wl, wr) = (same_pads(x.shape[2], self.k, self.stride),
-                              same_pads(x.shape[3], self.k, self.stride))
-        if ht == hb and wl == wr:
-            return F.conv2d(x, w, stride=self.stride, padding=(ht, wl))
-        return F.conv2d(F.pad(x, (wl, wr, ht, hb)), w, stride=self.stride)
+#: XLA's ``SAME`` padding of one spatial dim (shared with the other models)
+same_pads = _common.same_pads
+#: bias-free conv with ``SAME`` padding; f32 weight cast at use
+_Conv = _common.Conv
 
 
 class _Norm(nn.Module):
@@ -180,13 +161,7 @@ def make_model(config: Config, seed: int = 0) -> ResNet:
     The draw is torch's, not JAX's: parity tests load converted weights
     (:func:`params_from_flax`) instead."""
     model = ResNet(config)
-    gen = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if name.endswith("weight") and p.dim() in (2, 4):
-                _common.variance_scaling_(
-                    p, 1.0 if name == "head.weight" else 2.0, gen)
-        nn.init.zeros_(model.head.bias)
+    _common.init_weights_(model, seed)
     return model
 
 
@@ -364,20 +339,7 @@ def params_from_flax(params, batch_stats=None) -> dict:
     Conv kernels go HWIO → OIHW, the ``Dense`` kernel ``(in, out)`` →
     ``(out, in)``; norm ``scale``/``bias`` and ``mean``/``var`` keep their
     names.  A leaf that maps to nothing raises ``KeyError``."""
-    out = {}
-    for path, leaf in _common.flax_leaves(params):
-        name = _module_name(path[:-1])
-        a = np.asarray(leaf, dtype=np.float32)
-        if path[-1] == "kernel" and a.ndim == 4:
-            out[f"{name}.weight"] = np.ascontiguousarray(a.transpose(3, 2, 0, 1))
-        elif path[-1] == "kernel" and a.ndim == 2 and name == "head":
-            out["head.weight"] = np.ascontiguousarray(a.T)
-        elif path[-1] in ("scale", "bias") and a.ndim == 1:
-            out[f"{name}.{path[-1]}"] = a
-        else:
-            raise KeyError(f"unmapped flax leaf {'/'.join(path)} "
-                           f"{a.shape}")
-    state = {"params": out}
+    state = _common.params_from_flax(params, _module_name)
     if batch_stats is not None:
         stats = {}
         for path, leaf in _common.flax_leaves(batch_stats):
@@ -395,10 +357,4 @@ def opt_state_from_optax(opt_state, params) -> dict:
     by parameter name (``parallel.train.state_tree``'s ``opt_state``),
     the moments converted as :func:`params_from_flax` converts ``params``
     (HWIO → OIHW, the head transposed)."""
-    names = set(params_from_flax(params)["params"])
-    out = _common.adam_state_from_optax(
-        opt_state, lambda tree: params_from_flax(tree)["params"])
-    if set(out) != names:
-        raise KeyError("the optax moments and the params name different "
-                       "leaves")
-    return out
+    return _common.opt_state_from_optax(opt_state, params, params_from_flax)

@@ -196,17 +196,22 @@ def export_forward(
     batch_t = _tensor_tree(_sorted_tree(example_batch))
     fixed_batch = next(int(v.shape[0]) for v in batch_t.values() if v.dim())
     module = _Serve(forward_fn)
-    attempts = ([("polymorphic", torch.export.Dim("b"))] if poly_batch
-                else []) + [(fixed_batch, None)]
+    # torch.export specializes a dimension of size 1, so a one-row example
+    # would never trace a symbolic batch: that attempt takes two rows
+    poly_t = {k: (v.expand(2, *v.shape[1:]).contiguous()
+                  if v.dim() and v.shape[0] == 1 else v)
+              for k, v in batch_t.items()}
+    attempts = ([("polymorphic", torch.export.Dim("b"), poly_t)]
+                if poly_batch else []) + [(fixed_batch, None, batch_t)]
 
     t0 = time.perf_counter()
     program, batch_mode, last_err = None, None, None
     with obs.span("saved_model.trace", export_dir=export_dir):
-        for mode, dim in attempts:
+        for mode, dim, inputs in attempts:
             try:
                 program = torch.export.export(
-                    module, (state_t, batch_t),
-                    dynamic_shapes=(_dynamic_shapes(state_t, batch_t, dim)
+                    module, (state_t, inputs),
+                    dynamic_shapes=(_dynamic_shapes(state_t, inputs, dim)
                                     if dim is not None else None))
                 batch_mode = mode
                 break

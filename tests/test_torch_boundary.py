@@ -56,7 +56,10 @@ def test_importing_every_port_module_loads_nothing_of_jax():
                  "obs.registry", "obs.flight", "obs.journal", "obs.ledger",
                  "obs.fleet", "obs.httpd", "obs.anomaly", "obs.chrome",
                  "tfrecord", "dfutil", "native.tfrecord_native",
-                 "examples.resnet_spark", "examples.criteo_pipeline"):
+                 "examples.resnet_spark", "examples.criteo_pipeline",
+                 "models.mnist", "models.cifar", "models.mobilenet",
+                 "models.inception", "examples.mnist_spark",
+                 "examples.cifar10_spark"):
         assert f"tensorflowonspark_torch.{name}" in doc["modules"]
 
 

@@ -339,6 +339,35 @@ def test_the_cadence_reaches_the_example_through_the_environment(
     assert seen == [str(steps), str(chip_smoke.RESUME_STEPS)]
 
 
+def test_counted_jobs_publish_their_launches(monkeypatch):
+    """A counted job publishes the GroupNorm launches its ``map_fun`` made
+    (counted from 0) and the table kernels' (their counters left running,
+    so phase 14 can read an executor's across its jobs)."""
+    import functools
+
+    from tensorflowonspark_torch.kernels import group_norm, sparse_adagrad
+
+    published = {}
+    ctx = types.SimpleNamespace(mgr=types.SimpleNamespace(
+        set=published.__setitem__))
+    monkeypatch.setitem(group_norm.launches_by_path, "one_pass", 7)
+    monkeypatch.setitem(sparse_adagrad.launches_by_path, "group", 5)
+
+    def map_fun(args, ctx):
+        group_norm.launches_by_path["two_pass"] += 2
+        sparse_adagrad.launches_by_path["group"] += 1
+        sparse_adagrad.launches_by_path["combine"] += 3
+
+    monkeypatch.setitem(group_norm.launches_by_path, "two_pass", 0)
+    monkeypatch.setitem(sparse_adagrad.launches_by_path, "combine", 0)
+    functools.partial(chip_smoke.run_counted, map_fun)(None, ctx)
+    assert published["launches"] == chip_smoke.launch_counts(two_pass=2)
+    assert published["table_launches"] == {"group": 1, "sparse": 0,
+                                           "combine": 3}
+    assert sparse_adagrad.launches_by_path["group"] == 6
+    assert published["map_fun_start"] <= published["map_fun_end"]
+
+
 def test_snapshot_check_passes_and_catches_the_planted_fault(
         tmp_path, one_thread, monkeypatch):
     """Phase 13(b) on the tiny ResNet on the CPU: the committed checkpoint
@@ -466,3 +495,84 @@ def test_phase_10_serves_wide_deep_by_name_and_serialized():
     assert '.setExportDir(weights_only).setModelName("wide_deep")' in src
     assert "not serialized_err <= WD_SCORES_VS_FORWARD" in src
     assert "not by_name_err <= WD_SCORES_VS_FORWARD" in src
+
+
+def test_zoo_site_tables_count_each_models_norms():
+    """Phase 14's sites come from the real models on the ``meta`` device:
+    Inception canonical 96 in training (its aux head's 2), the SAME
+    variant 94, MobileNet 27, the CIFAR CNN 6."""
+    tables = chip_smoke.zoo_site_tables()
+    assert {k: sum(v.values()) for k, v in tables.items()} == {
+        "inception_v3 canonical": 96, "inception_v3": 94,
+        "mobilenet_v1": 27, "cifar10_cnn": 6}
+    assert (768, 1, 1, 32) in tables["inception_v3 canonical"]
+    assert (768, 1, 1, 32) not in tables["inception_v3"]
+    assert len(set().union(*tables.values())) == 50
+
+
+def test_step_launches_put_the_stem_on_the_oversize_paths():
+    """A training step of Inception canonical launches its two stem
+    samples beyond a cluster of 8 (147²×64, 71²×192) on the two-pass
+    forward and the four-launch backward; a served batch makes forwards
+    only; MobileNet takes one pass everywhere."""
+    tables = chip_smoke.zoo_site_tables()
+    assert chip_smoke.step_launches(tables["inception_v3 canonical"], 8) \
+        == {"one_pass": 8 * 94, "two_pass": 16, "backward_one_pass": 8 * 94,
+            "backward_four_launch": 16}
+    assert chip_smoke.step_launches(tables["inception_v3"], 3,
+                                    backward=False) == {
+        "one_pass": 3 * 92, "two_pass": 6, "backward_one_pass": 0,
+        "backward_four_launch": 0}
+    assert chip_smoke.step_launches(tables["mobilenet_v1"]) == {
+        "one_pass": 27, "two_pass": 0, "backward_one_pass": 27,
+        "backward_four_launch": 0}
+
+
+def test_phase14_entry_sums_the_sites_of_each_path():
+    """The kernels line's ``phase14_*`` numbers: per path, the sites that
+    take it (by its plan at the sites' batch), their summed times, the
+    largest error, and each oversize site apart."""
+    case = {"ms": 1.0, "bound_ms": 0.5, "library_ms": 2.0,
+            "max_abs_err": 0.01}
+    big = dict(case, max_abs_err=0.02)
+    kern = {"forward": {(64, 147, 147, 32): big, (32, 17, 17, 32): case},
+            "backward": {(64, 147, 147, 32): big, (32, 17, 17, 32): case}}
+    one = chip_smoke.phase14_entry(kern, "one_pass")
+    assert one == {"phase14_sites": 1, "phase14_max_abs_err": 0.01,
+                   "phase14_ms": 1.0, "phase14_bound_ms": 0.5,
+                   "phase14_library_ms": 2.0}
+    four = chip_smoke.phase14_entry(kern, "backward_four_launch")
+    assert four["phase14_max_abs_err"] == 0.02
+    assert list(four["phase14_by_site"]) == [
+        f"{chip_smoke.ZOO_BATCH}x147x147x64/G32"]
+    assert chip_smoke.phase14_entry({"forward": {}, "backward": {}},
+                                    "two_pass") == {}
+
+
+def test_phase_14_gates_and_the_kernels_line():
+    """Every sub-phase of phase 14 gates, the failures raise one
+    ``SystemExit`` after all ran, and its launches reach the kernels
+    line."""
+    import inspect
+
+    for fn, gates in (
+            (chip_smoke.inception_model_phase,
+             ('"(b) gradients"', '"(b) trajectory"',
+              'f"(b) the backward alone', "_planted_fault(drop)",
+              "min(faults.values()) <= GRADS_SAME_FORWARD")),
+            (chip_smoke.zoo_tf_slice, ("slice_failures(",)),
+            (chip_smoke.zoo_serving, ('f"(e) {label}',
+                                      "(name is None and not bits)")),
+            (chip_smoke.zoo_mnist, ('f"(f) mnist', "MNIST_LOSS_VS_REPLAY",
+                                     "or not bits")),
+            (chip_smoke.zoo_cifar, ('f"(g) cifar', "not falls"))):
+        src = inspect.getsource(fn)
+        for gate in gates:
+            assert gate in src, (fn.__name__, gate)
+    src = inspect.getsource(chip_smoke.zoo_phase)
+    assert 'raise SystemExit("zoo phase 14 failed: "' in src
+    assert 'f"table kernels launched {table_launches}"' in src
+    main = inspect.getsource(chip_smoke.main)
+    assert main.count('"launches_phase14"') == 3
+    assert main.count('"launches_phase14": zoo[') == 3  # read, not written
+    assert main.index("zoo_phase(sc, work)") < main.index("sc.stop()")

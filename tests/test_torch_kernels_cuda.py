@@ -195,6 +195,59 @@ def test_backward_kernel_gives_the_same_bits_twice():
         assert torch.equal(a, b)
 
 
+#: Inception-v3's channels per group (its ``gn_groups``: the largest
+#: divisor of C up to 32), each at its width C = 32 x cpg: where 8 % cpg
+#: and cpg % 8 are both nonzero, one 16-byte vector of 8 channels holds
+#: two or three groups
+INCEPTION_CPG = [1, 3, 5, 6, 10, 12, 14, 24]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cpg", INCEPTION_CPG)
+def test_inception_group_widths_forward_and_backward_on_card(cpg):
+    """Forward (every mode) and backward (every mode) at 17²×(32·cpg),
+    32 groups: the kernels against their plain twins."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    shape = (2, 32 * cpg, 17, 17)
+    _check_modes(shape, 32, "one_pass")
+    _check_backward(shape, 32, seed=cpg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 147, 147), (2, 192, 71, 71),
+                                   (2, 64, 150, 150), (2, 192, 75, 75)],
+                         ids=["canonical_147x64", "canonical_71x192",
+                              "same_150x64", "same_75x192"])
+def test_inception_stem_sites_take_the_oversize_paths_on_card(shape):
+    """The Inception stem's samples that no cluster of 8 holds: the
+    two-pass forward and the four-launch backward on their planned paths,
+    against the plain twins (GN+ReLU, as the model calls them, and GN
+    alone)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _check_modes(shape, 32, "two_pass")
+    _check_backward(shape, 32, seed=11, path="four_launch",
+                    modes=[(False, True), (False, False)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups", [
+    ((4, 768, 1, 1), 32), ((4, 128, 5, 5), 32), ((3, 32, 149, 149), 32),
+    ((3, 32, 147, 147), 32), ((3, 80, 73, 73), 20), ((3, 48, 35, 35), 24),
+    ((3, 160, 17, 17), 32), ((3, 448, 8, 8), 32)],
+    ids=["aux_1x1", "aux_5x5", "149", "147", "73", "35", "17", "8"])
+def test_one_pass_cluster_split_at_inception_sizes_on_card(shape, groups):
+    """The aux head's one-pixel and 25-pixel samples (a cluster wider than
+    the sample's rows) and odd spatial sizes at N > 1 (a last block with
+    fewer rows): one pass, forward and backward, against the plain
+    twins."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _check_modes(shape, groups, "one_pass")
+    _check_backward(shape, groups, seed=3)
+
+
 @pytest.mark.cuda
 def test_forward_with_grad_reaches_upstream_conv_weight():
     """A CUDA call whose inputs require a gradient has a ``grad_fn``, and

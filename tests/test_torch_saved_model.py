@@ -94,6 +94,27 @@ def test_export_forward_polymorphic_roundtrip(tmp_path):
                                    atol=1e-6)
 
 
+def test_one_row_example_still_exports_a_symbolic_batch(tmp_path):
+    """torch.export specializes a dimension of size 1: a one-row example
+    batch (the MNIST example's) still gives a polymorphic program, not one
+    the loader calls a row at a time."""
+    fwd, state = _toy_forward(), _toy_state()
+    d = str(tmp_path / "exp")
+    compat.export_saved_model(state, d, forward_fn=fwd,
+                              example_batch={"x": np.zeros((1, 5),
+                                                           np.float32)})
+    fn, sig = saved_model.load_forward(d)
+    assert sig["batch"] == "polymorphic"
+    assert sig["inputs"] == [{"name": "x", "shape": [None, 5],
+                              "dtype": "float32"}]
+    for n in (1, 7):
+        x = np.random.RandomState(n).randn(n, 5).astype(np.float32)
+        out = fn(state, {"x": x})
+        expect = _expect(fwd, state, x)
+        np.testing.assert_allclose(out["score"].numpy(), expect["score"],
+                                   atol=1e-6)
+
+
 def test_signature_records_io(tmp_path):
     d = str(tmp_path / "exp")
     saved_model.export_forward(
