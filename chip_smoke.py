@@ -150,10 +150,12 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
 14. The rest of the model zoo.  (a) Both GroupNorm kernels at every
    distinct site of Inception-v3 (canonical and SAME), MobileNet-v1 and
    the CIFAR CNN at full width, bf16, batch 64, GN+ReLU: against the plain
-   twins, on the path each plan takes (the Inception stem's 147²×64,
-   71²×192, 150²×64 and 75²×192 samples on the two-pass forward and the
-   four-launch backward), timed against ``bound_ms`` and the library
-   call; totals a training step per model.  (b) Inception-v3 canonical at
+   twins, on the path each plan takes (the card's cluster capacity tables
+   printed first; the Inception stem's 147²×64, 71²×192, 150²×64 and
+   75²×192 samples on the one pass over a non-portable cluster of 9–16
+   blocks, each beside its forced two-pass forward and four-launch
+   backward twin), timed against ``bound_ms`` and the library call;
+   totals a training step per model.  (b) Inception-v3 canonical at
    299²: one step's gradients (its loss with the aux head's 0.4·CE) on the
    kernel path against the plain path and f32, 96 + 96 launches a step on
    their planned paths; 8 AdamW steps kernel against plain; the train-step
@@ -398,13 +400,18 @@ def measure_case(shape, groups: int, res: bool, relu: bool, seed: int,
     """One (shape, mode) of ``group_norm_act``: checks it took ``path``,
     agrees with its plain twin within ``KERNEL_TOL_ULPS`` and gives the same
     bits twice, then times kernel, plain twin (if ``plain_calls``) and
-    library call with CUDA events beside the bound."""
+    library call with CUDA events beside the bound.  Where the plan is a
+    one pass over more than 8 blocks, the two passes, forced at the same
+    shape, pass the same check against the plain twin and are timed in
+    turns with it (one pass, two, two, one pass)."""
     import torch
     import torch.nn.functional as F
 
     from tensorflowonspark_torch.kernels import group_norm
 
     n, c, h, w = shape
+    plan = group_norm._plan(n, h, w, c, groups, group_norm._capacity(
+        "forward", torch.cuda.current_device()))
     act_bytes = n * c * h * w * 2
     call_bytes = act_bytes * (3 if res else 2) + 2 * c * 4
     # rotate over copies so the working set is 4x L2: each launch
@@ -423,8 +430,16 @@ def measure_case(shape, groups: int, res: bool, relu: bool, seed: int,
     err = float((out.float() - ref.float()).abs().max())
     tol = KERNEL_TOL_ULPS * 2.0 ** -7 * max(1.0, float(ref.abs().max()))
     identical = bool(torch.equal(out, again))
+    two = two_err = None
+    if plan.cluster > group_norm._CLUSTER_MAX:  # the two passes' twin
+        two = group_norm._two_pass_plan(n, h, w, c)
+        twin = group_norm._launch(xs[0], gamma, beta, groups, 1e-6, rs[0],
+                                  relu, plan=two)
+        two_err = float((twin.float() - ref.float()).abs().max())
+        del twin
     ok = (err <= tol and identical and took[path] == 2
-          and sum(took.values()) == 2
+          and sum(took.values()) == 2 and plan.path == path
+          and (two_err is None or two_err <= tol)
           and out.is_contiguous(memory_format=torch.channels_last))
     del ref, again
 
@@ -436,8 +451,17 @@ def measure_case(shape, groups: int, res: bool, relu: bool, seed: int,
             return fn(xs[k], rs[k])
         return call
 
+    def timed(plan_):
+        return time_ms(cycle(lambda x, r: group_norm._launch(
+            x, gamma, beta, groups, 1e-6, r, relu, plan=plan_)),
+            kernel_calls)
+
     kernel_ms = time_ms(cycle(lambda x, r: group_norm.group_norm_act(
         x, gamma, beta, groups, 1e-6, r, relu)), kernel_calls)
+    two_ms = None
+    if two is not None:
+        two_ms = (timed(two) + timed(two)) / 2
+        kernel_ms = (kernel_ms + timed(None)) / 2
     plain_ms = time_ms(cycle(lambda x, r: group_norm.group_norm_act_plain(
         x, gamma, beta, groups, 1e-6, r, relu)), plain_calls) if plain_calls \
         else None
@@ -456,19 +480,26 @@ def measure_case(shape, groups: int, res: bool, relu: bool, seed: int,
     mode = "GN" + ("+add" if res else "") + ("+ReLU" if relu else "")
     case = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "path": plan.path, "cluster": plan.cluster}
+    if two_ms is not None:
+        case["two_pass_ms"] = two_ms
     plain = "-" if plain_ms is None else f"{plain_ms:.4f}"
+    two_s = ("" if two_ms is None else f"two_pass_ms={two_ms:.4f} "
+             f"(max_abs_err {two_err:.3e}) ")
     print(f"kernel group_norm_act {n}x{h}x{w}x{c} G={groups} {mode:11s} "
-          f"{path} took={took} max_abs_err={err:.3e} (tol {tol:.3e}) "
+          f"{path} cluster={plan.cluster} took={took} max_abs_err={err:.3e} "
+          f"(tol {tol:.3e}) "
           f"same_bits_twice={identical} kernel_ms={kernel_ms:.4f} "
-          f"plain_ms={plain} library_ms={library_ms:.4f} "
+          f"plain_ms={plain} library_ms={library_ms:.4f} {two_s}"
           f"bound_ms={case['bound_ms']:.4f} "
           f"kernel/bound={kernel_ms / case['bound_ms']:.2f} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise SystemExit(f"group_norm_act at {shape} {mode}: path {took} "
                          f"(want 2 on {path}), error {err} (tol {tol}), "
-                         f"same bits twice {identical}")
+                         f"two-pass twin's {two_err}, same bits twice "
+                         f"{identical}")
     return case
 
 
@@ -795,7 +826,8 @@ def measure_backward_case(shape, groups: int, res: bool, relu: bool,
     del y_ref, stats_ref
     ref = group_norm.group_norm_act_backward_plain(
         dys[0], xs[0], ys[0], gamma, stats[0], groups, res, relu)
-    plan = group_norm._plan_backward(n, h, w, c, groups)
+    plan = group_norm._plan_backward(n, h, w, c, groups, group_norm._capacity(
+        "backward", torch.cuda.current_device()))
     before = dict(group_norm.launches_by_path)
     out = group_norm._launch_backward(dys[0], xs[0], ys[0], gamma, stats[0],
                                       groups, res, relu)
@@ -880,7 +912,8 @@ def measure_backward_case(shape, groups: int, res: bool, relu: bool,
     mode = "GN" + ("+add" if res else "") + ("+ReLU" if relu else "")
     case = {"max_abs_err": kernel_err, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "path": "backward_" + plan.path, "cluster": plan.cluster}
     if four_ms is not None:
         case["four_launch_ms"] = four_ms
     plain = "-" if plain_ms is None else f"{plain_ms:.4f}"
@@ -3231,22 +3264,36 @@ def step_launches(sites, steps: int = 1, backward: bool = True) -> dict:
 
 def zoo_kernel_phase(tables: dict) -> dict:
     """Phase 14(a): both kernels at every distinct site of the zoo's
-    models at batch ``ZOO_BATCH``, on the path each plan takes, against
-    the plain twins (GN+ReLU, as every zoo norm calls it) and timed against
-    ``bound_ms`` and the library call; totals a training step per model."""
+    models at batch ``ZOO_BATCH``, on the path each plan takes (the plan
+    from the card's cluster capacity tables, printed first), against the
+    plain twins (GN+ReLU, as every zoo norm calls it) and timed against
+    ``bound_ms`` and the library call, a one pass over more than 8 blocks
+    also against its forced two-pass or four-launch twin; totals a
+    training step per model."""
+    import torch
+
     from tensorflowonspark_torch.kernels import group_norm
 
+    device = torch.cuda.current_device()
+    capacity = {kind: group_norm._capacity(kind, device)
+                for kind in ("forward", "backward")}
+    print("zoo kernel sites: the card's cluster capacity (clusters of k "
+          "blocks at once, one block an SM; k x clusters SMs busy): "
+          + "; ".join(f"{kind} " + ", ".join(
+              f"k={k}: {n} ({k * n})" for k, n in table)
+              for kind, table in capacity.items()), flush=True)
     distinct = sorted(set().union(*tables.values()))
     fwd, bwd = {}, {}
     for i, (c, h, w, groups) in enumerate(distinct):
         shape = (ZOO_BATCH, c, h, w)
         fwd[(c, h, w, groups)] = measure_case(
             shape, groups, False, True, 300 + i,
-            group_norm._plan(ZOO_BATCH, h, w, c, groups).path, 10, 0, 3)
+            group_norm._plan(ZOO_BATCH, h, w, c, groups,
+                             capacity["forward"]).path, 10, 0, 3)
         bwd[(c, h, w, groups)] = measure_backward_case(
             shape, groups, False, True, 300 + i,
-            group_norm._plan_backward(ZOO_BATCH, h, w, c, groups).path, 5,
-            0, 2)
+            group_norm._plan_backward(ZOO_BATCH, h, w, c, groups,
+                                      capacity["backward"]).path, 5, 0, 2)
     for name, sites in tables.items():
         tot = {}
         for kind, cases in (("forward", fwd), ("backward", bwd)):
@@ -3699,30 +3746,30 @@ def zoo_phase(sc, work: str) -> dict:
 
 def phase14_entry(kern: dict, path: str) -> dict:
     """A GroupNorm kernel's phase 14(a) numbers on ``path``: the largest
-    error over the zoo's sites that take it, the sum over those sites (one
-    call each, batch ``ZOO_BATCH``) of its ms, bound and library ms, and,
-    for the oversize paths, each site's."""
+    error over the zoo's sites that took it, the sum over those sites (one
+    call each, batch ``ZOO_BATCH``) of its ms, bound and library ms, and
+    each site's that ran over more than 8 blocks (with its cluster and its
+    forced twin's ms) or off the one pass."""
     from tensorflowonspark_torch.kernels import group_norm
 
-    backward = path.startswith("backward_")
-    cases = kern["backward" if backward else "forward"]
-    mine = {}
-    for (c, h, w, groups), case in cases.items():
-        plan = (group_norm._plan_backward if backward else group_norm._plan)(
-            ZOO_BATCH, h, w, c, groups)
-        if ("backward_" if backward else "") + plan.path == path:
-            mine[f"{ZOO_BATCH}x{h}x{w}x{c}/G{groups}"] = case
+    cases = kern["backward" if path.startswith("backward_") else "forward"]
+    mine = {f"{ZOO_BATCH}x{h}x{w}x{c}/G{groups}": case
+            for (c, h, w, groups), case in cases.items()
+            if case["path"] == path}
     if not mine:
         return {}
     out = {"phase14_sites": len(mine),
            "phase14_max_abs_err": max(c["max_abs_err"] for c in mine.values())}
     for key in ("ms", "bound_ms", "library_ms"):
         out[f"phase14_{key}"] = sum(c[key] for c in mine.values())
-    if path in ("two_pass", "backward_four_launch"):
-        out["phase14_by_site"] = {
-            site: {k: c[k] for k in ("ms", "bound_ms", "library_ms",
-                                     "max_abs_err")}
-            for site, c in mine.items()}
+    by_site = {
+        site: {k: c[k] for k in ("ms", "bound_ms", "library_ms",
+                                 "max_abs_err", "cluster", "two_pass_ms",
+                                 "four_launch_ms") if k in c}
+        for site, c in mine.items()
+        if c["cluster"] > group_norm._CLUSTER_MAX or not c["cluster"]}
+    if by_site:
+        out["phase14_by_site"] = by_site
     return out
 
 

@@ -12,10 +12,15 @@
 // once and y written once.
 //
 // Two paths; the wrapper (kernels/group_norm.py `_plan`) picks one by shape
-// alone, and a failure on either raises: neither stands in for the other.
+// (and the cluster size by the card's cluster capacity) alone, and a
+// failure on either raises: neither stands in for the other.
 //
-// One pass, gn_one_pass (every ResNet-50 norm at 224^2).  A thread-block
-// cluster of k <= 8 blocks holds one sample: block r of the cluster owns
+// One pass, gn_one_pass (every ResNet-50 norm at 224^2, every norm of the
+// model zoo).  A thread-block cluster of k <= 16 blocks holds one sample
+// (beyond the portable 8 only as a non-portable cluster, which the prepare
+// call below allows; the wrapper takes 9-16 only for a sample that 8 blocks
+// cannot hold, such as Inception-v3's 147^2x64 and 71^2x192 stem samples,
+// sizing k by the card's cluster capacity): block r of the cluster owns
 // pixels [r*ceil(HW/k), ...) with all their channels, a contiguous byte
 // range of NHWC x, which thread 0 stages into shared memory with four 1-D
 // bulk copies (cp.async.bulk, completing on one mbarrier each), so summing
@@ -33,9 +38,13 @@
 // every peer's reads.  With a non-null stats pointer (a training forward),
 // rank 0 also writes the sample's (mean, rstd) per group, which the
 // backward (csrc/group_norm_bwd.cu) reads instead of recomputing them.
+// Over 16 blocks (Inception's stem at batch 64) a call takes 1.4-1.7x its
+// byte bound, the two passes 2.2-3.0x: an H100 runs 7 such clusters at
+// once, so 64 samples are 10 waves, and barriers and statistics take ~3 us
+// of a cluster's ~12-15 us life (kernels/phases.py).
 //
-// Two passes, for a sample larger than a cluster's shared memory: three
-// launches on the caller's stream.
+// Two passes, for a sample larger than 16 blocks' shared memory (224^2x64):
+// three launches on the caller's stream.
 //  1. gn_stats, grid (chunks, N).  A block sums x and x*x in f32 over a
 //     contiguous range of pixels of one sample.  A thread reads 16-byte
 //     vectors of 8 contiguous channels; a pixel's C channels are C/8
@@ -210,6 +219,7 @@ __global__ void gn_apply(const uint4* __restrict__ x,
 constexpr int kChunks = 4;        // bulk copies per block, one mbarrier each
 constexpr int kUnroll = 16;       // residual loads a thread keeps in flight
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use
+constexpr int kMaxCluster = 16;   // an H100's largest (non-portable) cluster
 
 // Shared memory of one gn_one_pass block, in this order: x's rows
 // (16-byte vectors), the chunks' mbarriers, per-thread sums
@@ -323,6 +333,28 @@ __device__ __forceinline__ uint4 apply8(const uint4& xv, const uint4& rv,
   return pack8(f);
 }
 
+// Phase stamps, compiled in only with -DTFOS_GN_PHASE_STAMPS (the build
+// that kernels/phases.py times): at each phase boundary, after a block
+// barrier, thread 0 of each of the first kStampBlocks blocks reads
+// %globaltimer (ns) into gn_stamps[block][i].
+#ifdef TFOS_GN_PHASE_STAMPS
+constexpr int kStamps = 8;
+constexpr int kStampBlocks = 4096;
+__device__ unsigned long long gn_stamps[kStampBlocks * kStamps];
+__device__ __forceinline__ void phase_stamp(int i) {
+  __syncthreads();
+  const int block = blockIdx.y * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0 && block < kStampBlocks) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    gn_stamps[block * kStamps + i] = t;
+  }
+}
+#define PHASE_STAMP(i) phase_stamp(i)
+#else
+#define PHASE_STAMP(i)
+#endif
+
 // grid (k, N), cluster (k, 1, 1): cluster n normalises sample n; rank r
 // owns rows (pixels) [r * rows_per_block, (r + 1) * rows_per_block) of it.
 template <bool kResidual, bool kRelu>
@@ -355,6 +387,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   float* gpart = chan + 2 * C;
   float* gstat = gpart + 2 * groups;
 
+  PHASE_STAMP(0);
   // stage this block's rows: kChunks bulk copies, one barrier each
   const int chunk_rows = (rows + kChunks - 1) / kChunks;
   if (tid == 0) {
@@ -395,6 +428,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       }
     }
   }
+  PHASE_STAMP(1);
   // threads -> channels (sums, then squares) -> groups, in a fixed order
 #pragma unroll
   for (int j = 0; j < kVec; ++j) part[tid * kVec + j] = s[j];
@@ -416,15 +450,27 @@ __global__ void __launch_bounds__(kMaxThreads)
     gpart[2 * g + 1] = b;
   }
 
-  // every rank's partials, read in rank order: the same stats everywhere
+  // every rank's partials, added in rank order: the same stats everywhere;
+  // the remote loads of all ranks in flight together
+  PHASE_STAMP(2);
   cluster.sync();
+  PHASE_STAMP(3);
   const float count = static_cast<float>(hw) * static_cast<float>(cpg);
   for (int g = tid; g < groups; g += nthreads) {
+    float2 v[kMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      const float2* p = reinterpret_cast<const float2*>(
+          cluster.map_shared_rank(gpart, min(r, ranks - 1)));
+      v[r] = r < ranks ? p[g] : make_float2(0.f, 0.f);
+    }
     float a = 0.f, b = 0.f;
-    for (int r = 0; r < ranks; ++r) {
-      const float* p = cluster.map_shared_rank(gpart, r);
-      a += p[2 * g];
-      b += p[2 * g + 1];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      if (r < ranks) {
+        a += v[r].x;
+        b += v[r].y;
+      }
     }
     const float mean = a / count;
     const float var = fmaxf(b / count - mean * mean, 0.f);
@@ -438,6 +484,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
   cluster_arrive();  // done reading the peers' shared memory
   __syncthreads();
+  PHASE_STAMP(4);
 
   // apply: this thread's 8 channels' constants in registers
   float m[kVec], a[kVec], b[kVec];
@@ -472,7 +519,9 @@ __global__ void __launch_bounds__(kMaxThreads)
     ys[v] = apply8<kResidual, kRelu>(
         xs[v], kResidual ? rs[v] : make_uint4(0u, 0u, 0u, 0u), m, a, b);
   }
+  PHASE_STAMP(5);
   cluster_wait();  // no peer still reads this block's partials
+  PHASE_STAMP(6);
 }
 
 template <bool kResidual, bool kRelu>
@@ -568,7 +617,8 @@ extern "C" int tfos_group_norm_act_bf16(
 }
 
 // On the current device: lets the one-pass kernels use up to kMaxSmem
-// bytes of dynamic shared memory, and writes to *max_clusters how many
+// bytes of dynamic shared memory (and, for `cluster` > 8, a non-portable
+// cluster), and writes to *max_clusters how many
 // clusters of `cluster` blocks (`threads` threads, `smem` bytes each) fit
 // on the card at once, the least over the four variants; 0 means the
 // launch cannot run.  Returns the first CUDA error, 0 when none.
@@ -600,7 +650,8 @@ extern "C" int tfos_group_norm_one_pass_bf16(
   const int cvecs = c / kVec;
   const int threads = (kMaxThreads / cvecs) * cvecs;
   const long long rows_per_block = (hw + cluster - 1) / cluster;
-  if (hw > (1LL << 30) || smem > kMaxSmem ||
+  if (hw > (1LL << 30) || cluster < 1 || cluster > kMaxCluster ||
+      smem > kMaxSmem ||
       smem != one_pass_smem(rows_per_block, cvecs, groups, threads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -630,3 +681,11 @@ extern "C" int tfos_group_norm_one_pass_bf16(
   if (err == cudaSuccess) err = cudaGetLastError();
   return static_cast<int>(err);
 }
+
+#ifdef TFOS_GN_PHASE_STAMPS
+// Copies gn_stamps (kStampBlocks x kStamps ns) to host memory `out`.
+extern "C" int tfos_gn_forward_phase_stamps(unsigned long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, gn_stamps, sizeof(gn_stamps)));
+}
+#endif

@@ -21,13 +21,15 @@
 // and dy read once and dx (and d_residual) written once.
 //
 // Two paths; the wrapper (kernels/group_norm.py `_plan_backward`) picks one
-// by shape alone, and a failure on either raises: neither stands in for
-// the other.
+// by shape (and the cluster size by the card's cluster capacity) alone, and
+// a failure on either raises: neither stands in for the other.
 //
-// One pass, gn_bwd_one_pass (every ResNet-50 norm backward at 224^2): ONE
-// launch a call.  A thread-block cluster of k <= 8 blocks holds one
-// sample; block r owns pixels [r*ceil(HW/k), ...), a contiguous byte range
-// of each NHWC tensor.
+// One pass, gn_bwd_one_pass (every ResNet-50 norm backward at 224^2, every
+// norm backward of the model zoo): ONE launch a call.  A thread-block
+// cluster of k <= 16 blocks holds one sample (9-16 as a non-portable
+// cluster, only where 8 blocks cannot hold dz: Inception-v3's stem
+// samples); block r owns pixels [r*ceil(HW/k), ...), a contiguous byte
+// range of each NHWC tensor.
 //  1. Load.  Thread 0 stages the block's dy (and, where x and dz fit
 //     together, x) into shared memory with four 1-D bulk copies each
 //     (cp.async.bulk, one mbarrier each).  As the quarters land the
@@ -46,9 +48,10 @@
 //     writes its slice of the channels, [r*ceil(C/k), ...), of those sums
 //     to an (N, C, 2) f32 scratch, for dgamma and dbeta.
 //  4. Apply.  Each block writes dx for its pixels from shared memory,
-//     rounding once to bf16.  A block arrives on a second cluster barrier
-//     once it has read its peers' sums and waits on it only before it
-//     exits, so its shared memory outlives every peer's reads.
+//     rounding once to bf16, last-loaded rows first.  A block arrives on a
+//     second cluster barrier once it has read its peers' sums and waits on
+//     it only before it exits, so its shared memory outlives every peer's
+//     reads.
 //  5. dgamma/dbeta across samples, with no float atomics and no second
 //     launch.  After its scratch writes and a __threadfence() (step 3),
 //     rank r of every cluster takes an int ticket for slice r with
@@ -60,17 +63,32 @@
 //     The tickets live in the wrapper's cached scratch, zeroed once when
 //     it is allocated.
 // Where x and dz of a sample do not fit 8 blocks together (kXResident
-// false: 112^2x64, 56^2x256), x stays in device memory and is read in
-// steps 2 and 4: one extra read of x, and dy and y are still read once.
+// false: 112^2x64, 56^2x256, and every 9-16-block sample), x stays in
+// device memory and is read in steps 2 and 4, both within the cluster's
+// lifetime.  Step 2 reads it under an L2 evict_last policy (createpolicy,
+// ld.global.L2::cache_hint) and y under evict_first; step 4 reads x again
+// under evict_first, releasing it, and walks the block's rows in reverse,
+// so the rows loaded last, the likeliest still in L2, come first.  The
+// clusters in flight hold at most ~2.9 MB of x each (150^2x64 over 16
+// SMs), ~20 MB at the 7 clusters of 16 an H100 runs at once, inside the
+// 50 MB L2: the second read is meant to hit there, leaving device-memory
+// traffic at the bound's x, y, dy read once and dx written once.
 // What bounds it on the card (chip_smoke.py, PERF.md): a block needs up to
 // ~200 KB of shared memory, so one block holds an SM and its load, reduce,
 // barrier and apply phases do not overlap another block's.  At batch 256
 // a call takes 1.6-2.2x its byte bound, 1.8x over a ResNet-50 step, and is
 // 1.2x faster than the four launches; at 7^2 (13 rows a block, 2.6-3.8x)
-// that fixed cost a wave weighs most and it is no faster than them.
+// that fixed cost a wave weighs most and it is no faster than them.  Over
+// 16 blocks (Inception's stem at batch 64) a call takes 1.7-2.0x its byte
+// bound against the four launches' 2.1-2.2x: an H100 runs 7 such clusters
+// at once, so 64 samples are 10 waves, the last of one cluster, and in a
+// cluster's life (kernels/phases.py) the step-2 sweep, three streams of
+// 16-byte loads and bulk copies at ~2.6 TB/s over the card, takes over
+// half.  Staging y and x through a ring of bulk copies in the ~50 KB left
+// beside dz keeps less in flight than the loads and was slower.
 //
-// Four launches, for a sample whose dz alone exceeds 8 blocks' shared
-// memory (none of ResNet-50's at 224^2), on the caller's stream:
+// Four launches, for a sample whose dz alone exceeds 16 blocks' shared
+// memory (224^2x64; none of the model zoo's), on the caller's stream:
 //  1. gn_bwd_reduce, grid (chunks, N): a block sums dz and dz*xh in f32 per
 //     channel over a contiguous range of one sample's pixels, thread t
 //     always on the 16-byte vector t % (C/8) as in the forward's gn_stats,
@@ -303,7 +321,8 @@ void launch_apply(unsigned blocks, cudaStream_t s, const void* dy,
 constexpr int kChunks = 4;        // bulk copies per tensor, one mbarrier each
 constexpr int kUnroll = 16;       // 16-byte loads a thread keeps in flight
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use
-constexpr int kMaxCluster = 8;    // the portable limit; tickets per call
+constexpr int kMaxCluster = 16;   // an H100's largest (non-portable)
+                                  // cluster; tickets per call
 
 // Shared memory of one gn_bwd_one_pass block, in this order: dz's rows
 // (16-byte vectors), x's rows (only when x is resident), the 2*kChunks
@@ -375,6 +394,34 @@ __device__ __forceinline__ uint4 ld_in_flight(const uint4* p) {
   return v;
 }
 
+// L2 cache policies for ld_hinted: keep the lines (evict_last), or let
+// them go first (evict_first).
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+               : "=l"(policy));
+  return policy;
+}
+
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(policy));
+  return policy;
+}
+
+// ld_in_flight under an L2 cache policy.
+__device__ __forceinline__ uint4 ld_hinted(const uint4* p, uint64_t policy) {
+  uint4 v;
+  asm volatile(
+      "ld.global.L1::no_allocate.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, "
+      "[%4], %5;"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p), "l"(policy)
+      : "memory");
+  return v;
+}
+
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
 }
@@ -410,7 +457,7 @@ struct BwdArgs {
   uint4* dres;      // null without a residual
   float* dparams;   // (2, C): dgamma, then dbeta
   float* chan_out;  // (N, C, 2) scratch
-  int* tickets;     // [kMaxCluster], 0 between calls
+  int* tickets;     // [kMaxCluster], a rank each, 0 between calls
   int n, hw, cvecs, groups, cpg, rows_per_block;
 };
 
@@ -461,6 +508,28 @@ __device__ __forceinline__ uint4 dx_vector(const uint4& dzv, const uint4& xv,
   return pack8(f);
 }
 
+// Phase stamps, compiled in only with -DTFOS_GN_PHASE_STAMPS (the build
+// that kernels/phases.py times): at each phase boundary, after a block
+// barrier, thread 0 of each of the first kStampBlocks blocks reads
+// %globaltimer (ns) into gn_stamps[block][i].
+#ifdef TFOS_GN_PHASE_STAMPS
+constexpr int kStamps = 8;
+constexpr int kStampBlocks = 4096;
+__device__ unsigned long long gn_stamps[kStampBlocks * kStamps];
+__device__ __forceinline__ void phase_stamp(int i) {
+  __syncthreads();
+  const int block = blockIdx.y * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0 && block < kStampBlocks) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    gn_stamps[block * kStamps + i] = t;
+  }
+}
+#define PHASE_STAMP(i) phase_stamp(i)
+#else
+#define PHASE_STAMP(i)
+#endif
+
 // grid (k, N), cluster (k, 1, 1): cluster n differentiates sample n; rank
 // r owns rows (pixels) [r * rows_per_block, (r + 1) * rows_per_block).
 template <bool kRelu, bool kResidual, bool kXResident>
@@ -493,6 +562,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   float* coef = tot + 2 * C;
   int* last = reinterpret_cast<int*>(coef + 2 * groups);
 
+  PHASE_STAMP(0);
   // 1. stage dy (and x): kChunks bulk copies each, one barrier each
   const int chunk_rows = (rows + kChunks - 1) / kChunks;
   if (tid == 0) {
@@ -533,17 +603,23 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const uint4* xg = a.x + base;
   uint4* dres = kResidual ? a.dres + base : nullptr;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  // a streamed x is kept in L2 for step 4, which releases it; y goes first
+  const uint64_t keep = kXResident ? 0 : l2_evict_last();
+  const uint64_t release = kXResident ? 0 : l2_evict_first();
   // kUnroll of this thread's rows at a time: their y (and streamed x)
   // loads issued together, then a wait for the chunks that hold the rows
+  const int span = kUnroll * rows_per_iter;
   int landed = 0;  // chunks this thread has waited for
-  for (int r = tid / cvecs; r < rows; r += kUnroll * rows_per_iter) {
+  for (int r = tid / cvecs; r < rows; r += span) {
     uint4 yv[kUnroll], xv[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int v = (r + u * rows_per_iter) * cvecs + cv;
       const bool in = r + u * rows_per_iter < rows;
-      yv[u] = kRelu && in ? ld_in_flight(yg + v) : zero;
-      xv[u] = !kXResident && in ? ld_in_flight(xg + v) : zero;
+      yv[u] = !kRelu || !in ? zero
+              : kXResident  ? ld_in_flight(yg + v)
+                            : ld_hinted(yg + v, release);
+      xv[u] = !kXResident && in ? ld_hinted(xg + v, keep) : zero;
     }
     const int need =
         min(rows - 1, r + (kUnroll - 1) * rows_per_iter) / chunk_rows;
@@ -566,6 +642,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       if (kXResident) mbar_wait(&bars[kChunks + i], 0);
     }
   }
+  PHASE_STAMP(1);
   // threads -> channels (sum dz, then sum dz*xh), in a fixed order
 #pragma unroll
   for (int j = 0; j < kVec; ++j) part[tid * kVec + j] = s[j];
@@ -579,32 +656,52 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
   // 3. every rank's sums, read in rank order: the same sums everywhere;
   // this rank's slice of them goes to the scratch for dgamma and dbeta
+  PHASE_STAMP(2);
   cluster.sync();
+  PHASE_STAMP(3);
   const int slice = (C + ranks - 1) / ranks;
   const int c_lo = rank * slice;
   const int c_hi = min(C, c_lo + slice);
   // a thread owns channels tid + k * nthreads, k < kVec (C <= kVec *
-  // nthreads); ranks outermost, so its remote loads of one rank are in
-  // flight together, and each channel adds the ranks in order
+  // nthreads), and each channel adds the ranks in order.  With a channel a
+  // thread, every rank's load is in flight together; else ranks outermost,
+  // so the thread's remote loads of one rank are in flight together
   float ta[kVec], tb[kVec];
 #pragma unroll
   for (int k = 0; k < kVec; ++k) {
     ta[k] = 0.f;
     tb[k] = 0.f;
   }
-  for (int r = 0; r < ranks; ++r) {
-    const float2* p =
-        reinterpret_cast<const float2*>(cluster.map_shared_rank(chan, r));
-    float2 v[kVec];
+  if (C <= nthreads) {
+    float2 v[kMaxCluster];
 #pragma unroll
-    for (int k = 0; k < kVec; ++k) {
-      const int c = tid + k * nthreads;
-      v[k] = c < C ? p[c] : make_float2(0.f, 0.f);
+    for (int r = 0; r < kMaxCluster; ++r) {
+      const float2* p = reinterpret_cast<const float2*>(
+          cluster.map_shared_rank(chan, min(r, ranks - 1)));
+      v[r] = tid < C && r < ranks ? p[tid] : make_float2(0.f, 0.f);
     }
 #pragma unroll
-    for (int k = 0; k < kVec; ++k) {
-      ta[k] += v[k].x;
-      tb[k] += v[k].y;
+    for (int r = 0; r < kMaxCluster; ++r) {
+      if (r < ranks) {
+        ta[0] += v[r].x;
+        tb[0] += v[r].y;
+      }
+    }
+  } else {
+    for (int r = 0; r < ranks; ++r) {
+      const float2* p =
+          reinterpret_cast<const float2*>(cluster.map_shared_rank(chan, r));
+      float2 v[kVec];
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        const int c = tid + k * nthreads;
+        v[k] = c < C ? p[c] : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        ta[k] += v[k].x;
+        tb[k] += v[k].y;
+      }
     }
   }
   cluster_arrive();  // done reading the peers' shared memory
@@ -620,10 +717,13 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     tot[2 * c + 1] = tb[k] * a.gamma[c];
   }
   // this rank's ticket for its slice, once the slice's scratch writes are
-  // visible (the fence waits on this thread's writes so far, not on dx)
+  // visible (the fence waits on this thread's writes so far, not on dx);
+  // its value is read only after step 4, so the atomic's round trip
+  // overlaps the apply
   __threadfence();
   __syncthreads();
-  if (tid == 0) *last = atomicAdd(&a.tickets[rank], 1) == a.n - 1;
+  int ticket = 0;
+  if (tid == 0) ticket = atomicAdd(&a.tickets[rank], 1);
   const float count = static_cast<float>(a.hw) * static_cast<float>(cpg);
   for (int g = tid; g < groups; g += nthreads) {
     float sa = 0.f, sb = 0.f;
@@ -636,6 +736,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   }
   __syncthreads();
 
+  PHASE_STAMP(4);
   // 4. dx from shared memory: this thread's 8 channels' constants in
   // registers
   float gm[kVec], ca[kVec], cb[kVec];
@@ -648,13 +749,17 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     cb[j] = coef[2 * g + 1];
   }
   uint4* dxg = a.dx + base;
-  for (int r = tid / cvecs; r < rows; r += kUnroll * rows_per_iter) {
+  // step 2's spans in reverse: a streamed x's last-loaded rows first
+  for (int r0 = rows > 0 ? (rows - 1) / span * span : -1; r0 >= 0;
+       r0 -= span) {
+    const int r = r0 + tid / cvecs;
     uint4 xv[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const bool in = r + u * rows_per_iter < rows;
       xv[u] = !kXResident && in
-                  ? ld_in_flight(xg + (r + u * rows_per_iter) * cvecs + cv)
+                  ? ld_hinted(xg + (r + u * rows_per_iter) * cvecs + cv,
+                              release)
                   : zero;
     }
 #pragma unroll
@@ -668,7 +773,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   }
 
   // 5. the block that drew slice `rank`'s last ticket adds its samples in
-  // order (*last was written before the barrier after the coefficients)
+  // order
+  if (tid == 0) *last = ticket == a.n - 1;
+  __syncthreads();
+  PHASE_STAMP(5);
   if (*last) {
     // channel c of the slice, samples split into `split` contiguous
     // ranges, one thread each; the ranges' sums added in range order
@@ -711,7 +819,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     }
     if (tid == 0) a.tickets[rank] = 0;
   }
+  PHASE_STAMP(6);
   cluster_wait();  // no peer still reads this block's sums
+  PHASE_STAMP(7);
 }
 
 template <bool kRelu, bool kResidual, bool kXResident>
@@ -750,6 +860,10 @@ cudaError_t prepare_bwd(const cudaLaunchConfig_t& cfg, int* max_clusters) {
   auto kernel = gn_bwd_one_pass<kRelu, kResidual, kXResident>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess && cfg.gridDim.x > 8) {  // beyond the portable 8
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
   if (err != cudaSuccess) return err;
   int fit = 0;
   err = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
@@ -834,7 +948,8 @@ extern "C" int tfos_group_norm_bwd_bf16(
 }
 
 // On the current device: lets the one-pass backward kernels use up to
-// kMaxSmem bytes of dynamic shared memory, and writes to *max_clusters how
+// kMaxSmem bytes of dynamic shared memory (and, for `cluster` > 8, a
+// non-portable cluster), and writes to *max_clusters how
 // many clusters of `cluster` blocks (`threads` threads, `smem` bytes each)
 // fit on the card at once, the least over the eight variants; 0 means the
 // launch cannot run.  Returns the first CUDA error, 0 when none.
@@ -916,3 +1031,11 @@ extern "C" int tfos_group_norm_bwd_one_pass_bf16(
   if (err == cudaSuccess) err = cudaGetLastError();
   return static_cast<int>(err);
 }
+
+#ifdef TFOS_GN_PHASE_STAMPS
+// Copies gn_stamps (kStampBlocks x kStamps ns) to host memory `out`.
+extern "C" int tfos_gn_backward_phase_stamps(unsigned long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, gn_stamps, sizeof(gn_stamps)));
+}
+#endif

@@ -30,7 +30,7 @@ DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
@@ -39,17 +39,22 @@ def sources() -> list[str]:
     return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
 
 
-def source_hash(name: str) -> str:
-    """Hash of one source and the flags it is built with."""
+def source_hash(name: str, defines: tuple = ()) -> str:
+    """Hash of one source and the flags (and ``-D`` macros) it is built
+    with."""
     h = hashlib.sha256()
     with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
         h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return h.hexdigest()[:16]
 
 
-def library_path(name: str) -> str:
-    return os.path.join(BUILD_DIR, f"{name}-{source_hash(name)}.so")
+def _flags(defines: tuple) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines: tuple = ()) -> str:
+    return os.path.join(BUILD_DIR, f"{name}-{source_hash(name, defines)}.so")
 
 
 def find_nvcc() -> str:
@@ -68,13 +73,15 @@ def find_nvcc() -> str:
         "installed")
 
 
-def _start(name: str, nvcc: str) -> tuple[subprocess.Popen, str, str] | None:
-    out = library_path(name)
+def _start(name: str, nvcc: str,
+           defines: tuple = ()) -> tuple[subprocess.Popen, str, str] | None:
+    out = library_path(name, defines)
     if os.path.exists(out):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+    cmd = [nvcc, *_flags(defines), "-o", tmp,
+           os.path.join(CSRC_DIR, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -91,12 +98,13 @@ def _finish(name: str, job: tuple[subprocess.Popen, str, str]) -> None:
     os.replace(tmp, out)
 
 
-def build_all() -> list[str]:
-    """Compile every source that has no up-to-date library, all ``nvcc``
-    processes started together.  Returns the library paths."""
-    names = sources()
+def build_all(names=None, defines: tuple = ()) -> list[str]:
+    """Compile every source (or ``names``) that has no up-to-date library,
+    with ``defines`` as ``-D`` macros, all ``nvcc`` processes started
+    together.  Returns the library paths."""
+    names = sources() if names is None else list(names)
     nvcc = find_nvcc()
-    jobs = {n: _start(n, nvcc) for n in names}
+    jobs = {n: _start(n, nvcc, defines) for n in names}
     failures = []
     for n, job in jobs.items():
         if job is None:
@@ -107,18 +115,20 @@ def build_all() -> list[str]:
             failures.append(str(e))
     if failures:
         raise RuntimeError("\n".join(failures))
-    return [library_path(n) for n in names]
+    return [library_path(n, defines) for n in names]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (built with ``defines`` as
+    ``-D`` macros), built first if needed."""
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get((name, defines))
         if lib is None:
-            path = library_path(name)
-            job = None if os.path.exists(path) else _start(name, find_nvcc())
+            path = library_path(name, defines)
+            job = (None if os.path.exists(path)
+                   else _start(name, find_nvcc(), defines))
             if job is not None:
                 _finish(name, job)
             lib = ctypes.CDLL(path)
-            _LIBS[name] = lib
+            _LIBS[(name, defines)] = lib
         return lib

@@ -15,12 +15,15 @@ behind it.
   ``csrc/group_norm.cu`` (bf16, ``channels_last``) and counts the launch in
   :data:`launches` and :data:`launches_by_path`, or raises.  It never falls
   back.
-- :func:`_plan` picks the kernel's path by shape alone: ``one_pass`` (one
-  launch; a thread-block cluster of up to 8 blocks holds each sample in
-  shared memory, so x is read once) wherever a sample fits, which is every
-  norm of the ResNet-50 forward at 224²; ``two_pass`` (stats, finalize,
-  apply: x read twice) for larger samples.  A failure on either path
-  raises; neither stands in for the other.
+- :func:`_plan` picks the kernel's path by shape and the card's cluster
+  capacity alone: ``one_pass`` (one launch; a thread-block cluster of up to
+  8 blocks holds each sample in shared memory, so x is read once) wherever
+  a sample fits, which is every norm of the ResNet-50 forward at 224²; the
+  same kernel over a non-portable cluster of 9–16 blocks where 8 cannot
+  hold a sample (Inception-v3's stem: 147²×64, 71²×192), the size chosen
+  by :func:`_wide_cluster` from :func:`_capacity`'s table; ``two_pass``
+  (stats, finalize, apply: x read twice) for samples beyond 16 blocks.  A
+  failure on any path raises; none stands in for another.
 - On a CPU tensor it computes :func:`group_norm_act_plain`, the same
   arithmetic as explicit tensor ops.  The CPU tests reach the function
   through that path; ``chip_smoke.py`` compares the two on the card.
@@ -33,12 +36,13 @@ hand-written kernel of ``csrc/group_norm_bwd.cu`` on the card, or computes
 :func:`group_norm_act_backward_plain` on the CPU.  With no gradient wanted
 the forward is the inference launch, unchanged and saving nothing.
 
-:func:`_plan_backward` picks the backward's path by shape alone:
+:func:`_plan_backward` picks the backward's path the same way:
 ``one_pass`` (one launch; a cluster of up to 8 blocks per sample holds dz,
 and x where both fit, so x, y and dy are read once, x twice where it does
-not fit) wherever dz of a sample fits, which is every norm backward of
-ResNet-50 at 224²; ``four_launch`` (reduce, finalize, apply, params: x, y
-and dy read twice) for larger samples.  Launches count under
+not fit, the second time from L2) wherever dz of a sample fits 8 blocks,
+which is every norm backward of ResNet-50 at 224², or 9–16 blocks (dz
+alone); ``four_launch`` (reduce, finalize, apply, params: x, y and dy read
+twice) for samples beyond 16 blocks.  Launches count under
 ``launches_by_path["backward_one_pass"]`` and
 ``["backward_four_launch"]``.
 """
@@ -68,13 +72,16 @@ _MAX_THREADS = 256  # a block's threads; C/8 must not exceed it
 _TARGET_BLOCKS = 1024  # stats-pass blocks to aim for: ~8 per SM on 132 SMs
 _SMEM_MAX = 232448  # dynamic shared memory an H100 block may use
 _CLUSTER_MAX = 8  # the portable thread-block cluster size
+_CLUSTER_WIDE = 16  # an H100's largest (non-portable) cluster
 _CHUNKS = 4  # bulk copies (one mbarrier each) per one-pass block
-_TICKETS = _CLUSTER_MAX  # the one-pass backward's int tickets: a rank each
+_TICKETS = _CLUSTER_WIDE  # the one-pass backward's int tickets: a rank each
 _SCRATCH_KEYS = 64  # backward scratch tensors kept at once
 _LIB = None
 _BWD_LIB = None
 # (kernel, device index, cluster, smem) the card accepted
 _PREPARED: set = set()
+# (kernel, device index): the card's capacity table, see _capacity
+_CAPACITY: dict = {}
 # (device index, stream, n, c, groups, path): the backward's scratch
 _BWD_SCRATCH: dict = {}
 
@@ -332,11 +339,25 @@ def _chunking(n: int, hw: int, cvecs: int, threads: int) -> tuple[int, int]:
     return math.ceil(hw / rows_per_chunk), rows_per_chunk
 
 
+def _wide_cluster(fits, capacity: tuple) -> int:
+    """Among the cluster sizes ``fits`` (9–16 blocks) whose blocks hold a
+    sample, the one that keeps the most SMs busy: the largest k × (the
+    clusters of k the card runs at once, by ``capacity``), the smaller k on
+    a tie.  A size that ``capacity`` does not list counts 0 clusters, so
+    with no table (a caller that wants the path alone) or a card that runs
+    none (whose prepare then raises) it is the least size that fits."""
+    clusters = dict(capacity)
+    return max(fits, key=lambda k: (k * clusters.get(k, 0), -k))
+
+
 @functools.lru_cache(maxsize=1024)
-def _plan(n: int, h: int, w: int, c: int, groups: int) -> Plan:
-    """The path for an (N, C, H, W) bf16 input, by shape alone: one pass
-    with the least power-of-two cluster (≤ 8 blocks) whose blocks each hold
-    their share of a sample in shared memory, else two passes."""
+def _plan(n: int, h: int, w: int, c: int, groups: int,
+          capacity: tuple = ()) -> Plan:
+    """The path for an (N, C, H, W) bf16 input, by shape and ``capacity``
+    (:func:`_capacity`'s table) alone: one pass with the least power-of-two
+    cluster (≤ 8 blocks) whose blocks each hold their share of a sample in
+    shared memory, else with the 9–16-block cluster that
+    :func:`_wide_cluster` picks among those that do, else two passes."""
     cvecs = c // _VEC
     threads = (_MAX_THREADS // cvecs) * cvecs
     hw = h * w
@@ -346,7 +367,22 @@ def _plan(n: int, h: int, w: int, c: int, groups: int) -> Plan:
         if smem <= _SMEM_MAX:
             return Plan("one_pass", threads, cluster=cluster, smem=smem)
         cluster *= 2
-    chunks, rows_per_chunk = _chunking(n, hw, cvecs, threads)
+    fits = [k for k in range(_CLUSTER_MAX + 1, _CLUSTER_WIDE + 1)
+            if _one_pass_smem(hw, c, groups, k, threads) <= _SMEM_MAX]
+    if fits:
+        k = _wide_cluster(fits, capacity)
+        return Plan("one_pass", threads, cluster=k,
+                    smem=_one_pass_smem(hw, c, groups, k, threads))
+    return _two_pass_plan(n, h, w, c)
+
+
+def _two_pass_plan(n: int, h: int, w: int, c: int) -> Plan:
+    """The two-pass forward of an (N, C, H, W) input: its plan beyond 16
+    blocks and, passed to :func:`_launch`, the twin that the card tests
+    and ``chip_smoke.py`` hold a 9–16-block one pass against."""
+    cvecs = c // _VEC
+    threads = (_MAX_THREADS // cvecs) * cvecs
+    chunks, rows_per_chunk = _chunking(n, h * w, cvecs, threads)
     return Plan("two_pass", threads, chunks=chunks,
                 rows_per_chunk=rows_per_chunk)
 
@@ -364,11 +400,14 @@ def _one_pass_bwd_smem(hw: int, c: int, groups: int, cluster: int,
 
 
 @functools.lru_cache(maxsize=1024)
-def _plan_backward(n: int, h: int, w: int, c: int, groups: int) -> BwdPlan:
-    """The backward's path for an (N, C, H, W) bf16 input, by shape alone:
-    one pass with the least power-of-two cluster (≤ 8 blocks) whose blocks
-    hold their share of x and dz, else of dz alone (x then read twice from
-    device memory), else four launches."""
+def _plan_backward(n: int, h: int, w: int, c: int, groups: int,
+                   capacity: tuple = ()) -> BwdPlan:
+    """The backward's path for an (N, C, H, W) bf16 input, by shape and
+    ``capacity`` (:func:`_capacity`'s table) alone: one pass with the least
+    power-of-two cluster (≤ 8 blocks) whose blocks hold their share of x
+    and dz, else of dz alone (x then read twice), else with the 9–16-block
+    cluster that :func:`_wide_cluster` picks among those whose blocks hold
+    dz, else four launches."""
     cvecs = c // _VEC
     threads = (_MAX_THREADS // cvecs) * cvecs
     hw = h * w
@@ -381,14 +420,22 @@ def _plan_backward(n: int, h: int, w: int, c: int, groups: int) -> BwdPlan:
                 return BwdPlan("one_pass", threads, 1, cluster=cluster,
                                smem=smem, x_resident=x_resident)
             cluster *= 2
+    fits = [k for k in range(_CLUSTER_MAX + 1, _CLUSTER_WIDE + 1)
+            if _one_pass_bwd_smem(hw, c, groups, k, threads, False)
+            <= _SMEM_MAX]
+    if fits:
+        k = _wide_cluster(fits, capacity)
+        return BwdPlan("one_pass", threads, 1, cluster=k,
+                       smem=_one_pass_bwd_smem(hw, c, groups, k, threads,
+                                               False))
     return _four_launch_plan(n, h, w, c)
 
 
 def _four_launch_plan(n: int, h: int, w: int, c: int) -> BwdPlan:
-    """The four-launch backward of an (N, C, H, W) input: its plan where
-    one pass does not fit and, passed to :func:`_launch_backward`, the
-    twin that the card tests and ``chip_smoke.py`` hold the one pass
-    against at the same shape."""
+    """The four-launch backward of an (N, C, H, W) input: its plan beyond
+    16 blocks and, passed to :func:`_launch_backward`, the twin that the
+    card tests and ``chip_smoke.py`` hold the one pass against at the same
+    shape."""
     cvecs = c // _VEC
     threads = (_MAX_THREADS // cvecs) * cvecs
     chunks, rows_per_chunk = _chunking(n, h * w, cvecs, threads)
@@ -440,6 +487,30 @@ def _prepare(plan, device: int, prepare) -> None:
     _PREPARED.add(key)
 
 
+def _capacity(kernel: str, device: int) -> tuple:
+    """``((k, clusters), ...)`` for k = 9–16: how many clusters of k blocks
+    of ``_MAX_THREADS`` threads and ``_SMEM_MAX`` bytes of shared memory
+    ``kernel``'s one pass (``"forward"`` or ``"backward"``) runs at once on
+    ``device`` (``cudaOccupancyMaxActiveClusters``), 0 where the card
+    refuses the size; read once per kernel and device, at first use.  Any
+    plan beyond 8 blocks gives each block over half an SM's shared memory,
+    so one block an SM, as these are: the table is every such plan's."""
+    key = (kernel, device)
+    table = _CAPACITY.get(key)
+    if table is None:
+        prepare = (_lib() if kernel == "forward" else _bwd_lib())[2]
+        rows = []
+        with (contextlib.nullcontext()
+              if device == torch.cuda.current_device()
+              else torch.cuda.device(device)):
+            for k in range(_CLUSTER_MAX + 1, _CLUSTER_WIDE + 1):
+                fit = ctypes.c_int(0)
+                err = prepare(k, _MAX_THREADS, _SMEM_MAX, ctypes.byref(fit))
+                rows.append((k, fit.value if err == 0 else 0))
+        table = _CAPACITY[key] = tuple(rows)
+    return table
+
+
 def _bwd_lib():
     global _BWD_LIB
     if _BWD_LIB is None:
@@ -481,9 +552,13 @@ def _bwd_scratch(device: torch.device, stream: int, n: int, c: int,
     return buf
 
 
-def _launch(x, gamma, beta, groups, eps, residual, relu, keep_stats=False):
+def _launch(x, gamma, beta, groups, eps, residual, relu, keep_stats=False,
+            plan: Plan | None = None):
     """The forward on the card: ``y``, or ``(y, stats)`` with
-    ``keep_stats``, ``stats`` the ``(N, G, 2)`` f32 ``(mean, rstd)``."""
+    ``keep_stats``, ``stats`` the ``(N, G, 2)`` f32 ``(mean, rstd)``, on
+    the path of ``plan``: by default :func:`_plan`'s; the card tests and
+    ``chip_smoke.py`` pass :func:`_two_pass_plan` to hold the two passes
+    against the one pass at the same shape."""
     global launches
     _check(x, gamma, beta, groups, residual)
     n, c, h, w = x.shape
@@ -492,9 +567,12 @@ def _launch(x, gamma, beta, groups, eps, residual, relu, keep_stats=False):
                          device=x.device) if keep_stats else None)
     if x.numel() == 0:
         return (y, stats) if keep_stats else y
-    plan = _plan(n, h, w, c, groups)
     one, two, prepare = _lib()
     device = x.device.index
+    if plan is None:
+        plan = _plan(n, h, w, c, groups)
+        if plan.cluster > _CLUSTER_MAX:  # sized by the card's capacity
+            plan = _plan(n, h, w, c, groups, _capacity("forward", device))
     r = residual.data_ptr() if residual is not None else None
     with (contextlib.nullcontext() if device == torch.cuda.current_device()
           else torch.cuda.device(device)):
@@ -548,9 +626,13 @@ def _launch_backward(dy, x, y, gamma, stats, groups, residual, relu,
     if x.numel() == 0:
         dparams.zero_()
         return dx, dres, dgamma, dbeta
-    plan = plan or _plan_backward(n, h, w, c, groups)
     one, four, prepare = _bwd_lib()
     device = x.device.index
+    if plan is None:
+        plan = _plan_backward(n, h, w, c, groups)
+        if plan.cluster > _CLUSTER_MAX:  # sized by the card's capacity
+            plan = _plan_backward(n, h, w, c, groups,
+                                  _capacity("backward", device))
     ptrs = (dy.data_ptr(), x.data_ptr(), y.data_ptr() if relu else None,
             gamma.data_ptr(), stats.data_ptr(), dx.data_ptr(),
             dres.data_ptr() if residual else None)

@@ -510,18 +510,19 @@ def test_zoo_site_tables_count_each_models_norms():
     assert len(set().union(*tables.values())) == 50
 
 
-def test_step_launches_put_the_stem_on_the_oversize_paths():
+def test_step_launches_put_the_stem_on_the_one_pass():
     """A training step of Inception canonical launches its two stem
-    samples beyond a cluster of 8 (147²×64, 71²×192) on the two-pass
-    forward and the four-launch backward; a served batch makes forwards
-    only; MobileNet takes one pass everywhere."""
+    samples beyond a cluster of 8 (147²×64, 71²×192) on the one pass too,
+    over 9–16 blocks: no two-pass forward and no four-launch backward; a
+    served batch (the SAME variant, 150²×64 and 75²×192) makes one-pass
+    forwards only; MobileNet takes one pass everywhere."""
     tables = chip_smoke.zoo_site_tables()
     assert chip_smoke.step_launches(tables["inception_v3 canonical"], 8) \
-        == {"one_pass": 8 * 94, "two_pass": 16, "backward_one_pass": 8 * 94,
-            "backward_four_launch": 16}
+        == {"one_pass": 8 * 96, "two_pass": 0, "backward_one_pass": 8 * 96,
+            "backward_four_launch": 0}
     assert chip_smoke.step_launches(tables["inception_v3"], 3,
                                     backward=False) == {
-        "one_pass": 3 * 92, "two_pass": 6, "backward_one_pass": 0,
+        "one_pass": 3 * 94, "two_pass": 0, "backward_one_pass": 0,
         "backward_four_launch": 0}
     assert chip_smoke.step_launches(tables["mobilenet_v1"]) == {
         "one_pass": 27, "two_pass": 0, "backward_one_pass": 27,
@@ -530,21 +531,39 @@ def test_step_launches_put_the_stem_on_the_oversize_paths():
 
 def test_phase14_entry_sums_the_sites_of_each_path():
     """The kernels line's ``phase14_*`` numbers: per path, the sites that
-    take it (by its plan at the sites' batch), their summed times, the
-    largest error, and each oversize site apart."""
+    took it (as each case records), their summed times, the largest
+    error, and apart each site over more than 8 blocks, with its cluster
+    and its forced twin's ms, and each site off the one pass."""
     case = {"ms": 1.0, "bound_ms": 0.5, "library_ms": 2.0,
-            "max_abs_err": 0.01}
-    big = dict(case, max_abs_err=0.02)
-    kern = {"forward": {(64, 147, 147, 32): big, (32, 17, 17, 32): case},
-            "backward": {(64, 147, 147, 32): big, (32, 17, 17, 32): case}}
+            "max_abs_err": 0.01, "path": "one_pass", "cluster": 2}
+    wide = dict(case, ms=0.2, max_abs_err=0.02, cluster=16, two_pass_ms=0.3)
+    bwd = dict(case, path="backward_one_pass", four_launch_ms=1.5)
+    wide_bwd = dict(wide, path="backward_one_pass", cluster=13,
+                    four_launch_ms=0.4)
+    del wide_bwd["two_pass_ms"]
+    kern = {"forward": {(64, 147, 147, 32): wide, (32, 17, 17, 32): case},
+            "backward": {(64, 147, 147, 32): wide_bwd,
+                         (32, 17, 17, 32): bwd}}
+    site = f"{chip_smoke.ZOO_BATCH}x147x147x64/G32"
     one = chip_smoke.phase14_entry(kern, "one_pass")
-    assert one == {"phase14_sites": 1, "phase14_max_abs_err": 0.01,
-                   "phase14_ms": 1.0, "phase14_bound_ms": 0.5,
-                   "phase14_library_ms": 2.0}
-    four = chip_smoke.phase14_entry(kern, "backward_four_launch")
-    assert four["phase14_max_abs_err"] == 0.02
-    assert list(four["phase14_by_site"]) == [
-        f"{chip_smoke.ZOO_BATCH}x147x147x64/G32"]
+    assert one == {"phase14_sites": 2, "phase14_max_abs_err": 0.02,
+                   "phase14_ms": 1.2, "phase14_bound_ms": 1.0,
+                   "phase14_library_ms": 4.0, "phase14_by_site": {site: {
+                       "ms": 0.2, "bound_ms": 0.5, "library_ms": 2.0,
+                       "max_abs_err": 0.02, "cluster": 16,
+                       "two_pass_ms": 0.3}}}
+    back = chip_smoke.phase14_entry(kern, "backward_one_pass")
+    assert back["phase14_by_site"] == {site: {
+        "ms": 0.2, "bound_ms": 0.5, "library_ms": 2.0, "max_abs_err": 0.02,
+        "cluster": 13, "four_launch_ms": 0.4}}
+    assert chip_smoke.phase14_entry(kern, "two_pass") == {}
+    assert chip_smoke.phase14_entry(kern, "backward_four_launch") == {}
+    off = dict(case, path="two_pass", cluster=0)
+    assert chip_smoke.phase14_entry({"forward": {(64, 224, 224, 32): off}},
+                                    "two_pass")["phase14_by_site"] == {
+        f"{chip_smoke.ZOO_BATCH}x224x224x64/G32": {
+            "ms": 1.0, "bound_ms": 0.5, "library_ms": 2.0,
+            "max_abs_err": 0.01, "cluster": 0}}
     assert chip_smoke.phase14_entry({"forward": {}, "backward": {}},
                                     "two_pass") == {}
 

@@ -32,24 +32,52 @@ def _inputs(shape, seed=0):
     return x, res, gamma, beta
 
 
-def _check_modes(shape, groups, path):
+def _check_modes(shape, groups, path, plan=None):
     """All three modes against the plain twin within 2 bf16 ulps, each
-    launched on ``path``."""
+    launched on ``path``, the planned one, or on ``plan``'s path where a
+    plan is forced."""
     x, res, gamma, beta = _inputs(shape)
     n, c, h, w = shape
     assert group_norm._plan(n, h, w, c, groups).path == path
+    launched = plan.path if plan else path
     before = group_norm.launches
     by_path = dict(group_norm.launches_by_path)
     for residual, relu in MODES:
         r = res if residual else None
-        got = group_norm.group_norm_act(x, gamma, beta, groups, EPS, r, relu)
+        if plan is None:
+            got = group_norm.group_norm_act(x, gamma, beta, groups, EPS, r,
+                                            relu)
+        else:
+            got = group_norm._launch(x, gamma, beta, groups, EPS, r, relu,
+                                     plan=plan)
         ref = group_norm.group_norm_act_plain(x, gamma, beta, groups, EPS, r,
                                               relu)
         torch.cuda.synchronize()
         tol = 2 * 2.0 ** -7 * torch.clamp(ref.float().abs(), min=1.0)
         assert torch.all((got.float() - ref.float()).abs() <= tol)
     assert group_norm.launches == before + len(MODES)
-    assert group_norm.launches_by_path[path] == by_path[path] + len(MODES)
+    assert (group_norm.launches_by_path[launched]
+            == by_path[launched] + len(MODES))
+
+
+#: Inception-v3's stem samples that no cluster of 8 holds, at batch 16:
+#: one pass over a non-portable cluster of 9–16 blocks
+STEM = [(16, 64, 147, 147), (16, 192, 71, 71), (16, 64, 150, 150),
+        (16, 192, 75, 75)]
+STEM_IDS = ["canonical_147x64", "canonical_71x192", "same_150x64",
+            "same_75x192"]
+
+
+def _card_cluster(shape, groups, backward=False):
+    """The cluster of the plan the wrapper takes on this card."""
+    n, c, h, w = shape
+    device = torch.cuda.current_device()
+    if backward:
+        return group_norm._plan_backward(n, h, w, c, groups,
+                                         group_norm._capacity(
+                                             "backward", device)).cluster
+    return group_norm._plan(n, h, w, c, groups, group_norm._capacity(
+        "forward", device)).cluster
 
 
 @pytest.mark.cuda
@@ -70,13 +98,28 @@ def test_kernel_matches_plain_twin_on_card(shape):
     ((2, 256, 56, 56), 32, "one_pass"),  # cluster of 8, stage 1 output
     ((2, 24, 181, 181), 8, "one_pass"),  # ragged ranks, 3 per group
     ((2, 64, 224, 224), 32, "two_pass"),  # 6.4 MB a sample
-    ((2, 24, 250, 250), 8, "two_pass"),  # 3 per group
-], ids=["stem_cluster8", "stage1_cluster8", "ragged_cluster8", "oversize",
-        "oversize_odd"])
+    ((2, 24, 360, 360), 8, "two_pass"),  # 3 per group, beyond 16 blocks
+] + [(shape, 32, "one_pass") for shape in STEM],
+    ids=["stem_cluster8", "stage1_cluster8", "ragged_cluster8", "oversize",
+         "oversize_odd"] + STEM_IDS)
 def test_both_paths_match_plain_twin_on_card(shape, groups, path):
+    """Each path on its planned shapes; Inception's stem samples over 9–16
+    blocks, the same bits twice, and their forced two-pass twin held to
+    the plain twin the same way."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     _check_modes(shape, groups, path)
+    if shape in STEM:
+        n, c, h, w = shape
+        assert 9 <= _card_cluster(shape, groups) <= 16
+        _check_modes(shape, groups, path,
+                     plan=group_norm._two_pass_plan(n, h, w, c))
+        x, res, gamma, beta = _inputs(shape, seed=1)
+        first = group_norm.group_norm_act(x, gamma, beta, 32, EPS, res, True)
+        second = group_norm.group_norm_act(x, gamma, beta, 32, EPS, res,
+                                           True)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
@@ -151,18 +194,23 @@ def test_backward_kernel_matches_plain_twin_on_card(shape, groups):
      False),
     ((8, 256, 56, 56), [(True, True), (False, False)], "one_pass", False,
      True),
-], ids=["x_resident", "x_streamed", "four_launch", "four_launch_forced"])
+] + [(shape, BWD_MODES, "one_pass", False, forced)
+     for forced in (False, True) for shape in STEM],
+    ids=["x_resident", "x_streamed", "four_launch", "four_launch_forced"]
+    + STEM_IDS + [i + "_four_launch_forced" for i in STEM_IDS])
 def test_both_backward_paths_match_plain_twin_on_card(shape, modes, path,
                                                       x_resident, forced):
     """The one-pass kernel with x in shared memory and with x streamed
-    (8×256×56×56 GN+add+ReLU, a cluster of 8), the four-launch kernels at
-    the oversize shape on their planned path, and forced where the plan
-    takes one pass (the twin ``chip_smoke.py`` times the one pass
-    against); the same bits twice."""
+    (8×256×56×56 GN+add+ReLU, a cluster of 8; Inception's stem samples
+    over 9–16 blocks), the four-launch kernels at the oversize shape on
+    their planned path, and forced where the plan takes one pass (the twin
+    ``chip_smoke.py`` times the one pass against); the same bits twice."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     n, c, h, w = shape
     assert group_norm._plan_backward(n, h, w, c, 32).x_resident == x_resident
+    if shape in STEM:
+        assert 9 <= _card_cluster(shape, 32, backward=True) <= 16
     plan = group_norm._four_launch_plan(n, h, w, c) if forced else None
     _check_backward(shape, 32, seed=5, path=path, modes=modes, plan=plan)
     x, res, gamma, beta = _inputs(shape, seed=6)
@@ -219,16 +267,37 @@ def test_inception_group_widths_forward_and_backward_on_card(cpg):
                                    (2, 64, 150, 150), (2, 192, 75, 75)],
                          ids=["canonical_147x64", "canonical_71x192",
                               "same_150x64", "same_75x192"])
-def test_inception_stem_sites_take_the_oversize_paths_on_card(shape):
-    """The Inception stem's samples that no cluster of 8 holds: the
-    two-pass forward and the four-launch backward on their planned paths,
-    against the plain twins (GN+ReLU, as the model calls them, and GN
-    alone)."""
+def test_inception_stem_sites_take_a_wide_cluster_on_card(shape):
+    """The Inception stem's samples that no cluster of 8 holds, at 2
+    samples: one pass over 9–16 blocks, forward and backward, on their
+    planned paths against the plain twins (GN+ReLU, as the model calls
+    them, and GN alone), and within 2 bf16 ulps of the two-pass and
+    four-launch twins, forced."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    _check_modes(shape, 32, "two_pass")
-    _check_backward(shape, 32, seed=11, path="four_launch",
+    n, c, h, w = shape
+    assert 9 <= _card_cluster(shape, 32) <= 16
+    _check_modes(shape, 32, "one_pass")
+    _check_backward(shape, 32, seed=11, path="one_pass",
                     modes=[(False, True), (False, False)])
+    x, _, gamma, beta = _inputs(shape, seed=12)
+    dy = _inputs(shape, seed=13)[0]
+    y, stats = group_norm._launch(x, gamma, beta, 32, EPS, None, True,
+                                  keep_stats=True)
+    twin, twin_stats = group_norm._launch(
+        x, gamma, beta, 32, EPS, None, True, keep_stats=True,
+        plan=group_norm._two_pass_plan(n, h, w, c))
+    got = group_norm._launch_backward(dy, x, y, gamma, stats, 32, False, True)
+    want = group_norm._launch_backward(
+        dy, x, y, gamma, stats, 32, False, True,
+        group_norm._four_launch_plan(n, h, w, c))
+    torch.cuda.synchronize()
+    for a, b in ((y, twin), (got[0], want[0])):
+        tol = 2 * 2.0 ** -7 * max(1.0, float(b.float().abs().max()))
+        assert float((a.float() - b.float()).abs().max()) <= tol
+    assert torch.allclose(stats, twin_stats, rtol=1e-4, atol=1e-5)
+    for a, b in zip(got[2:], want[2:]):
+        assert float(torch.linalg.norm(a - b) / torch.linalg.norm(b)) <= 1e-3
 
 
 @pytest.mark.cuda
