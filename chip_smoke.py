@@ -171,6 +171,30 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    a falling loss, 6 + 6 launches a step.  (c)-(g) run in phase 11's
    application.  The sub-phases' failures are gathered and fail the run
    at the end; phase 14 prints its seconds.
+15. BERT-base SQuAD (``bert.Config()``: 12 layers, hidden 768, 12 heads,
+   MLP 3072, vocabulary 30,522; seeded weights, no depth cut) at the BERT
+   paper's SQuAD v1.1 recipe, sequence 384, batch 32, lr 5e-5, on
+   ``synth_squad`` rows (padding tails).  BERT reaches none of the port's
+   kernels: its attention is SDPA with an additive mask.  (a) One
+   step's gradients at batch 4: the card's path against f32 (plain
+   attention, TF32 off) and against the plain path run on the card, each
+   by its distance from f32, over all leaves and leaf by leaf; a planted
+   fault (the mask dropped) must read above the gate.  (b) 8 AdamW steps
+   (weight decay 0.01) on one batch of 8, bf16 against f32, with a
+   falling loss.  (c) The device-resident train step at 32 with and
+   without remat: sequences/s and tokens/s, peak memory, the profile by
+   family (GEMMs, attention and its SDPA backend, LayerNorm with the
+   residual adds and casts, GELU, the embeddings, AdamW, other), the idle
+   share and the share of the bf16 dense peak from the counted FLOPs.
+   (d) The forward at 64.  (e) ``tensorflowonspark_torch/examples/
+   bert_squad.py``'s ``map_fun`` (``Config(remat=True)``) on one executor
+   in ``InputMode.SPARK`` over a DataFrame of 256 rows in 4 partitions,
+   every loss against an in-process replay, sequences/s by
+   ``cluster.metrics()``, the export written.  (f) ``TFModel.transform``
+   serves 67 rows (one all padding) from that export: both columns the
+   eager forward's bits.  The GroupNorm and table kernels' launches are
+   counted in every process of the phase and must be 0.  Phase 15 runs in
+   phase 11's application and prints its seconds.
 
 The last lines are the card line, one JSON line listing each kernel (the
 one-pass and two-pass forwards of ``group_norm_act`` and its one-pass and
@@ -179,8 +203,8 @@ four-launch backwards, times at the training slice's batch and under
 update in each mode, times of a training step's pair on Zipf ids, the
 other cases suffixed; ``launches_tf_mode`` counts phases 11-12's,
 ``launches_phase13`` phase 13's, ``launches_phase14`` the executors' of
-phase 14(c)-(g), and ``phase14_*`` the zoo's sites on each GroupNorm
-path), and
+phase 14(c)-(g), ``phase14_*`` the zoo's sites on each GroupNorm
+path, and ``launches_phase15`` phase 15's), and
 ``{"ok": true, "device": {...}}``.
 Without a card it exits 1 and prints no result.
 """
@@ -3773,6 +3797,572 @@ def phase14_entry(kern: dict, path: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# BERT-base SQuAD fine-tuning (phase 15)
+# ---------------------------------------------------------------------------
+
+# the BERT paper's SQuAD v1.1 recipe: max_seq_length 384, batch 32, lr 5e-5
+BERT_SEQ = 384
+BERT_STEP_BATCH = 32
+BERT_LR = 5e-5
+BERT_GRAD_BATCH = 4
+BERT_TRAJ_BATCH = 8
+BERT_FWD_BATCH = 64
+BERT_STEPS = 8
+BERT_SLICE_ROWS = 256
+BERT_SLICE_PARTITIONS = 4
+BERT_SERVE_ROWS = 67  # an odd tail; one row all padding
+BF16_DENSE_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+# one step's gradients, rel L2: the card's path (SDPA) against f32 and
+# against the plain path run on the card, each no further than this x the
+# plain path's distance from f32 + BERT_GRADS_SLACK, over all leaves and
+# leaf by leaf.  Measured on the CPU (BERT-base widths cut to 6 layers,
+# batch 4 x 128; the CPU's SDPA): plain-vs-f32 9.3e-3, SDPA-vs-f32 9.3e-3,
+# a dropped mask 0.12; the largest leaf 5.8e-2.  Leaves whose true
+# gradient is 0 (BERT_ZERO_GRAD_LEAVES) are left out of the per-leaf gate
+BERT_GRADS_OVER_PLAIN = 1.25
+BERT_GRADS_SLACK = 5e-3
+BERT_GRADS_BF16_VS_F32 = 0.1  # rel L2 over all leaves, the card's path
+# 8 AdamW steps on one batch: |bf16 - f32| <= this x the first f32 loss at
+# every step (CPU, 6 layers, batch 8 x 128: 3.6e-3 of 4.60), and the last
+# loss below half the first
+BERT_TRAJ_TOL = 5e-3
+# the slice's losses against the in-process replay: the first (the same
+# weights and batch, before any update) bit for bit, every one within this
+# rel.  cuDNN's SDPA backward accumulates dQ with atomics, and AdamW's
+# first steps move every weight by about lr whatever its gradient's size,
+# so the loss spreads: rel 3.4e-4 and 4.8e-4 at the worst step in the
+# first two runs on the card (its batches' losses differ by 1e-3 to 2e-2)
+BERT_SLICE_VS_REPLAY = 3e-3
+PHASE15_BUDGET_S = 120
+
+
+def bert_zero_grad_leaves(config) -> tuple:
+    """Parameters whose true gradient is 0 in the SQuAD loss: the span
+    head's bias and the last LayerNorm's (the start and end softmax
+    gradients sum to 0 over the positions)."""
+    return ("span.bias", f"layers.{config.layers - 1}.ln_mlp.bias")
+
+
+def bert_flops(config, batch: int, seq: int, train: bool) -> float:
+    """Model FLOPs of one forward (``train=False``) or training step (3×
+    the forward; remat's recompute not counted): 2 × the dense weights
+    (qkv, out, MLP, the span head) a token, and 4 × S × H a token and
+    layer for the scores and PV."""
+    h, m, layers = config.hidden, config.mlp_dim, config.layers
+    dense = layers * (4 * h * h + 2 * h * m) + 2 * h
+    tokens = batch * seq
+    forward = 2 * dense * tokens + 4 * layers * seq * h * tokens
+    return 3 * forward if train else forward
+
+
+def bert_batch(rows) -> dict:
+    """``synth_squad`` rows as the example's int32 batch."""
+    import numpy as np
+
+    from tensorflowonspark_torch.examples import bert_squad
+
+    cols = list(zip(*rows))
+    return {c: np.asarray(cols[i], np.int32)
+            for i, c in enumerate(bert_squad.COLUMNS)}
+
+
+def bert_device_batch(config, n: int, seed: int, device="cuda") -> dict:
+    """``n`` ``synth_squad`` rows at ``config``'s vocabulary and
+    ``BERT_SEQ`` (lengths 192-384: padding tails), as tensors on
+    ``device``."""
+    import torch
+
+    from tensorflowonspark_torch.examples import bert_squad
+
+    rows = bert_squad.synth_squad(n, config.vocab_size, BERT_SEQ, seed=seed)
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in bert_batch(rows).items()}
+
+
+def bert_family(kernel: str) -> str:
+    """The training step's family of a kernel, by its name."""
+    name = kernel.lower()
+    if any(k in name for k in ("fmha", "flash", "sdpa", "attention",
+                               "cudnn")) or (
+            "softmax" in name and "logsoftmax" not in name):
+        return "attention"
+    if any(k in name for k in ("layer_norm", "layernorm", "gammabeta",
+                               "cudafunctor_add", "copy_kernel")):
+        return "layernorm+add+cast"
+    if "gelu" in name:
+        return "gelu"
+    if any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass",
+                               "splitk")):
+        return "gemm"
+    if any(k in name for k in ("indexselect", "index_select", "embedding",
+                               "radixsort", "krn_partial",
+                               "compute_grad_weight", "sum_and_scatter")):
+        return "embedding"
+    if any(k in name for k in ("adam", "multi_tensor", "foreach")):
+        return "adamw"
+    return "other"
+
+
+def norm_part(kernel: str) -> str:
+    """Which part of the ``layernorm+add+cast`` family a kernel is."""
+    name = kernel.lower()
+    if "copy_kernel" in name:
+        return "cast"
+    return "add" if "cudafunctor_add" in name else "layernorm"
+
+
+def sdpa_backend(kernels) -> str:
+    """Which SDPA backend the kernel names show."""
+    names = " ".join(k.lower() for k in kernels)
+    for key, backend in (("fmha_cutlass", "memory-efficient"),
+                         ("cudnn", "cudnn"), ("flash", "flash")):
+        if key in names:
+            return backend
+    return "math" if "softmax" in names else "none"
+
+
+def bert_profile(fn, calls: int, wall_ms: float, label: str) -> dict:
+    """Device time per call of ``fn`` by :func:`bert_family`
+    (torch.profiler, CUPTI), the idle share against ``wall_ms`` and the
+    SDPA backend."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    fams, others, parts = (collections.Counter(), collections.Counter(),
+                           collections.Counter())
+    seen = set()
+    for kernel, ms in device_kernels(prof, calls):
+        fam = bert_family(kernel)
+        fams[fam] += ms
+        seen.add(kernel)
+        if fam == "other":
+            others[kernel[:60]] += ms
+        elif fam == "layernorm+add+cast":
+            parts[norm_part(kernel)] += ms
+    busy = sum(fams.values())
+    if busy == 0:
+        print(f"profile {label}: the profiler recorded no device time (not "
+              "measured)", flush=True)
+        return {"idle_share": None, "sdpa_backend": "not measured"}
+    idle = max(0.0, 1 - busy / wall_ms)
+    backend = sdpa_backend(k for k in seen if bert_family(k) == "attention")
+    print(f"profile {label}, device ms per call: busy={busy:.3f} of "
+          f"{wall_ms:.3f} (idle share {idle:.1%}); " + " ".join(
+              f"{k}={v:.3f}ms({v / busy:.1%})"
+              for k, v in fams.most_common())
+          + " (layernorm+add+cast: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in parts.most_common())
+          + f"); SDPA backend {backend}", flush=True)
+    print(f"profile {label} largest 'other' kernels: " + "; ".join(
+        f"{name}={ms:.3f}ms" for name, ms in others.most_common(6)),
+        flush=True)
+    return {"idle_share": idle, "sdpa_backend": backend,
+            "families": dict(fams), "norm_parts": dict(parts)}
+
+
+def bert_grads(model, batch, attention) -> tuple:
+    """One backward's gradients (f32 copies) and the loss, with
+    ``attention`` in every block."""
+    from tensorflowonspark_torch.models import bert
+
+    model.attention = attention
+    model.zero_grad(set_to_none=True)
+    loss = bert.make_loss_fn(model, None)(model, batch)
+    loss.backward()
+    grads = {k: p.grad.detach().float().clone()
+             for k, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    model.attention = bert.attention
+    return grads, float(loss.detach())
+
+
+def dropped_mask(attention):
+    """A planted fault: ``attention`` with the key-padding mask dropped."""
+    import torch
+
+    def faulty(q, k, v, bias):
+        return attention(q, k, v, torch.zeros_like(bias))
+
+    return faulty
+
+
+def bert_grad_gates(card: dict, plain: dict, f32: dict, fault: dict,
+                    skip=()) -> tuple[dict, list]:
+    """Phase 15(a)'s gates on four gradient sets of one batch: the card's
+    path (``card``), the plain path (both bf16), f32 and the card's path
+    with a planted fault.  Returns the distances and the failures (empty
+    when every gate holds and the fault is caught)."""
+    import torch
+
+    names = sorted(f32)
+    if sorted(card) != names or not all(
+            bool(torch.isfinite(g).all()) for g in card.values()):
+        return {}, ["a gradient is missing or not finite"]
+    d = {"card_f32": _rel_l2(card, f32), "plain_f32": _rel_l2(plain, f32),
+         "card_plain": _rel_l2(card, plain),
+         "fault_f32": _rel_l2(fault, f32)}
+    gate = BERT_GRADS_OVER_PLAIN * d["plain_f32"] + BERT_GRADS_SLACK
+    leaves = [k for k in names if k not in skip]
+    worst = max(leaves, key=lambda k: _rel_l2({k: card[k]}, {k: f32[k]})
+                - BERT_GRADS_OVER_PLAIN * _rel_l2({k: plain[k]},
+                                                  {k: f32[k]}))
+    d["worst_leaf"] = worst
+    for key, got in (("card", card), ("fault", fault)):
+        d[f"{key}_leaf_f32"] = _rel_l2({worst: got[worst]},
+                                       {worst: f32[worst]})
+    d["plain_leaf_f32"] = _rel_l2({worst: plain[worst]},
+                                  {worst: f32[worst]})
+    failures = []
+    if d["card_f32"] > BERT_GRADS_BF16_VS_F32:
+        failures.append(f"card vs f32 {d['card_f32']:.3e} > "
+                        f"{BERT_GRADS_BF16_VS_F32}")
+    if max(d["card_f32"], d["card_plain"]) > gate:
+        failures.append(f"card vs f32 / plain {d['card_f32']:.3e} / "
+                        f"{d['card_plain']:.3e} > {gate:.3e}")
+    if d["card_leaf_f32"] > (BERT_GRADS_OVER_PLAIN * d["plain_leaf_f32"]
+                             + BERT_GRADS_SLACK):
+        failures.append(f"leaf {worst}: card vs f32 "
+                        f"{d['card_leaf_f32']:.3e}, plain "
+                        f"{d['plain_leaf_f32']:.3e}")
+    if not d["fault_f32"] > gate:
+        failures.append(f"planted fault missed: {d['fault_f32']:.3e} <= "
+                        f"{gate:.3e}")
+    d["gate"] = gate
+    return d, failures
+
+
+def bert_trajectory(config, batch, steps: int, device: str,
+                    attention=None) -> list:
+    """``steps`` AdamW steps (the example's optimizer, ``BERT_LR``) of a
+    fresh ``Trainer`` on one batch: the losses.  ``attention``, if given,
+    replaces the model's."""
+    from tensorflowonspark_torch.examples import bert_squad
+    from tensorflowonspark_torch.trainer import Trainer
+
+    t = Trainer("bert", config=config, seed=0, device=device,
+                optimizer=bert_squad.make_optimizer(BERT_LR))
+    if attention is not None:
+        t.model.attention = attention
+    return [float(t.step(batch)) for _ in range(steps)]
+
+
+def bert_replay(args, partitions, device: str) -> list:
+    """The example's trainer (``bert_squad.make_trainer``) stepping the
+    batches its ``DataFeed`` gives in ``InputMode.SPARK``: each
+    partition's rows in order, ``args.batch_size`` at a time, the short
+    tail of each partition dropped.  The losses."""
+    from tensorflowonspark_torch.examples import bert_squad
+
+    t = bert_squad.make_trainer(args, device)
+    losses, n = [], args.batch_size
+    for rows in partitions:
+        for lo in range(0, len(rows) - n + 1, n):
+            losses.append(t.step(bert_batch(rows[lo:lo + n])))
+    return [float(v) for v in losses]
+
+
+def bert_model_phase() -> dict:
+    """Phase 15(a)-(d): gradients, the trajectory, the step and the
+    forward of ``bert.Config()`` on the card."""
+    import dataclasses
+
+    import torch
+
+    from tensorflowonspark_torch.examples import bert_squad
+    from tensorflowonspark_torch.models import bert
+    from tensorflowonspark_torch.trainer import Trainer
+
+    config = bert.Config()
+    failures, out = [], {}
+
+    # (a) one step's gradients: the card's path, the plain path, f32
+    model = bert.make_model(config, seed=0).cuda()
+    f32_model = bert.load_state(bert.make_model(dataclasses.replace(
+        config, dtype="float32")), bert.state_of(model)).cuda()
+    batch = bert_device_batch(config, BERT_GRAD_BATCH, seed=1)
+    lengths = batch["attention_mask"].sum(1).tolist()
+    g_card, loss_card = bert_grads(model, batch, bert.attention)
+    g_plain, loss_plain = bert_grads(model, batch, bert.attention_plain)
+    g_f32, loss_f32 = bert_grads(f32_model, batch, bert.attention_plain)
+    g_fault, _ = bert_grads(model, batch, dropped_mask(bert.attention))
+    del model, f32_model
+    d, grad_failures = bert_grad_gates(g_card, g_plain, g_f32, g_fault,
+                                       bert_zero_grad_leaves(config))
+    del g_card, g_plain, g_f32, g_fault
+    if d:  # empty when a gradient is missing
+        caught = "caught" if d["fault_f32"] > d["gate"] else "MISSED"
+        print(f"bert-base (a) one step's gradients at batch "
+              f"{BERT_GRAD_BATCH} x {BERT_SEQ} (lengths {lengths}): loss "
+              f"card={loss_card:.5f} plain={loss_plain:.5f} "
+              f"f32={loss_f32:.5f}; rel_l2 card-vs-f32={d['card_f32']:.3e} "
+              f"plain-vs-f32={d['plain_f32']:.3e} card-vs-plain="
+              f"{d['card_plain']:.3e} (tol: card-vs-f32 and card-vs-plain "
+              f"<= {d['gate']:.3e}, card-vs-f32 <= "
+              f"{BERT_GRADS_BF16_VS_F32}); the leaf furthest past the "
+              f"plain path, {d['worst_leaf']}: card "
+              f"{d['card_leaf_f32']:.3e}, plain {d['plain_leaf_f32']:.3e}; "
+              f"planted fault (mask dropped): vs f32 {d['fault_f32']:.3e} "
+              f"({caught}), its leaf {d['fault_leaf_f32']:.3e}", flush=True)
+    failures += [f"(a) {f}" for f in grad_failures]
+
+    # (b) 8 AdamW steps on one batch, bf16 (the card's path) against f32
+    batch = bert_device_batch(config, BERT_TRAJ_BATCH, seed=2)
+    traj = {"bf16": bert_trajectory(config, batch, BERT_STEPS, "cuda"),
+            "f32": bert_trajectory(dataclasses.replace(
+                config, dtype="float32"), batch, BERT_STEPS, "cuda",
+                bert.attention_plain)}
+    gap = max(abs(a - b) for a, b in zip(traj["bf16"], traj["f32"]))
+    falls = traj["bf16"][-1] < 0.5 * traj["bf16"][0]
+    print(f"bert-base (b) {BERT_STEPS} AdamW steps (lr {BERT_LR}, weight "
+          f"decay {bert_squad.WEIGHT_DECAY}) at batch {BERT_TRAJ_BATCH} x "
+          f"{BERT_SEQ}: bf16 {[round(v, 5) for v in traj['bf16']]}; f32 "
+          f"{[round(v, 5) for v in traj['f32']]}; max gap {gap:.3e} (tol "
+          f"{BERT_TRAJ_TOL} x {traj['f32'][0]:.4f}); falls={falls}",
+          flush=True)
+    if gap > BERT_TRAJ_TOL * traj["f32"][0] or not falls:
+        failures.append(f"(b) trajectory gap {gap:.3e}, falls {falls}")
+    torch.cuda.empty_cache()
+
+    # (c) the device-resident train step at the recipe's batch
+    batch = bert_device_batch(config, BERT_STEP_BATCH, seed=3)
+    flops = bert_flops(config, BERT_STEP_BATCH, BERT_SEQ, train=True)
+    for remat in (False, True):
+        held = torch.cuda.memory_allocated()  # earlier phases' tensors
+        t = Trainer("bert", config=dataclasses.replace(config, remat=remat),
+                    seed=0, device="cuda",
+                    optimizer=bert_squad.make_optimizer(BERT_LR))
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = time_ms(lambda: t.step(batch), 10)
+        peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        label = f"bert-base train step remat={remat}"
+        prof = bert_profile(lambda: t.step(batch), 3, step_ms,
+                            f"{label} batch {BERT_STEP_BATCH}")
+        rate = BERT_STEP_BATCH / step_ms * 1e3
+        share = flops / (step_ms / 1e3) / BF16_DENSE_OPS_PER_S
+        print(f"bert-base (c) {label} at batch {BERT_STEP_BATCH} x "
+              f"{BERT_SEQ}: {step_ms:.3f} ms, {rate:.1f} sequences/s, "
+              f"{rate * BERT_SEQ:.0f} tokens/s, peak memory {peak_gb:.2f} "
+              f"GB (above the {held / 1e9:.2f} GB held before the trainer); "
+              f"{flops / 1e12:.3f} TFLOP counted a step = "
+              f"{flops / step_ms / 1e9:.1f} TFLOP/s, {share:.1%} of the "
+              f"bf16 dense peak", flush=True)
+        out[f"step_remat_{remat}"] = {
+            "ms": step_ms, "sequences_per_s": rate, "peak_gb": peak_gb,
+            "peak_share": share, **prof}
+        del t
+        torch.cuda.empty_cache()
+
+    # (d) the forward
+    model = bert.make_model(config, seed=0).cuda().eval()
+    batch = bert_device_batch(config, BERT_FWD_BATCH, seed=4)
+
+    def forward():
+        with torch.inference_mode():
+            return bert.outputs(model, batch)
+
+    fwd_ms = time_ms(forward, 10)
+    prof = bert_profile(forward, 3, fwd_ms,
+                        f"bert-base forward batch {BERT_FWD_BATCH}")
+    rate = BERT_FWD_BATCH / fwd_ms * 1e3
+    share = (bert_flops(config, BERT_FWD_BATCH, BERT_SEQ, train=False)
+             / (fwd_ms / 1e3) / BF16_DENSE_OPS_PER_S)
+    print(f"bert-base (d) forward at batch {BERT_FWD_BATCH} x {BERT_SEQ}: "
+          f"{fwd_ms:.3f} ms, {rate:.1f} sequences/s, {share:.1%} of the "
+          f"bf16 dense peak", flush=True)
+    out["forward"] = {"ms": fwd_ms, "sequences_per_s": rate, **prof}
+    del model
+    torch.cuda.empty_cache()
+    out["failures"] = failures
+    return out
+
+
+def bert_slice(sc, work: str, device: str = "cuda",
+               tiny: bool = False) -> dict:
+    """Phase 15(e): ``tensorflowonspark_torch/examples/bert_squad.py``'s
+    ``map_fun`` (``Config(remat=True)``; ``--tiny`` with ``tiny``) on one
+    executor in ``InputMode.SPARK`` over a DataFrame of ``synth_squad``
+    rows, against an in-process replay on ``device``; its chief writes
+    the export (f) serves."""
+    from tensorflowonspark_torch import TFCluster, sparkapi
+    from tensorflowonspark_torch.examples import bert_squad
+    from tensorflowonspark_torch.models import bert
+
+    config = bert.Config.tiny() if tiny else bert.Config()
+    seq = min(config.max_len, BERT_SEQ)  # the export's traced length
+    export = os.path.join(work, "bert_export")
+    args = bert_squad.parse_args([
+        "--cluster_size", "1", "--epochs", "1", "--batch_size",
+        str(BERT_STEP_BATCH), "--seq_len", str(seq), "--model_dir",
+        export] + (["--tiny"] if tiny else []))
+    rows = bert_squad.synth_squad(BERT_SLICE_ROWS, config.vocab_size, seq)
+    df = sparkapi.LocalSparkSession(sc).createDataFrame(
+        rows, bert_squad.COLUMNS).repartition(BERT_SLICE_PARTITIONS)
+    partitions = [[list(r) for r in p] for p in df.rdd._partitions]
+    t0 = time.perf_counter()
+    cluster = TFCluster.run(
+        sc, functools.partial(run_counted, bert_squad.map_fun), args,
+        num_executors=1, input_mode=TFCluster.InputMode.SPARK,
+        master_node="chief")
+    cluster.train(df.rdd.map(list), num_epochs=1, feed_timeout=600)
+    cluster.shutdown(grace_secs=300)
+    job_s = time.perf_counter() - t0
+    [node] = node_published(cluster, (
+        "state", "losses", "steps", "final_loss", "device", "launches",
+        "table_launches", "sequences_per_sec"))
+    rates = slice_rates(cluster.metrics(), 1)
+    replay = bert_replay(args, partitions, device)
+    steps = sum(len(p) // BERT_STEP_BATCH for p in partitions)
+    failures = slice_failures(node, replay, steps=steps,
+                              want_launches=launch_counts(),
+                              tol=BERT_SLICE_VS_REPLAY, final_only=False,
+                              device=device)
+    losses = node["losses"] or []
+    if losses[:1] != replay[:1]:
+        failures.append(f"first loss {losses[:1]} (replay {replay[:1]})")
+    if node["steps"] != steps or node["final_loss"] != (losses or [None])[-1]:
+        failures.append(f"published steps {node['steps']}, final loss "
+                        f"{node['final_loss']}")
+    print(f"bert (e) bert_squad map_fun (InputMode.SPARK, one executor, "
+          f"{'tiny' if tiny else 'Config(remat=True)'}, batch "
+          f"{BERT_STEP_BATCH} x {seq}, "
+          f"{BERT_SLICE_ROWS} rows in {[len(p) for p in partitions]}) on "
+          f"{node['device']}: state {node['state']}, {len(losses)} steps, "
+          f"losses {[round(v, 5) for v in losses]}; in-process replay "
+          f"{[round(v, 5) for v in replay]}; rel "
+          f"{loss_rel(losses, replay, False):.3e} (tol "
+          f"{BERT_SLICE_VS_REPLAY}, the first loss bit for bit), the same "
+          f"bits {losses == replay}; "
+          f"cluster.metrics() sequences/s={rates['rate']} (the loop's "
+          f"{node['sequences_per_sec']}); job {job_s:.1f} s", flush=True)
+    return {"failures": [f"(e) {f}" for f in failures], "export": export,
+            "sequences_per_s": rates["rate"],
+            "launches": {**(node["launches"] or {}),
+                         **(node["table_launches"] or {})}}
+
+
+def bert_serving(sc, export_dir: str, device: str = "cuda") -> dict:
+    """Phase 15(f): ``TFModel.transform`` of (e)'s export on ``device``
+    over ``BERT_SERVE_ROWS`` rows in 3 partitions, one of them all
+    padding: both output columns against the eager forward, chunked and
+    padded as the executor batches, bit for bit."""
+    import torch
+
+    from tensorflowonspark_torch import ckpt, pipeline, sparkapi
+    from tensorflowonspark_torch.examples import bert_squad
+    from tensorflowonspark_torch.models import bert
+
+    state = ckpt.load_pytree(os.path.join(export_dir, "model"))
+    config = bert.config_from_state(state)
+    seq = min(config.max_len, BERT_SEQ)  # the export's traced length
+    rows = bert_squad.synth_squad(BERT_SERVE_ROWS, config.vocab_size, seq,
+                                  seed=7)
+    rows[BERT_SERVE_ROWS // 2] = ([0] * seq,) * 3 + (0, 0)
+    cols = bert_squad.COLUMNS[:3]
+    df = sparkapi.LocalSparkSession(sc).createDataFrame(
+        [dict(zip(cols, r[:3])) for r in rows]).repartition(3)
+    sizes = [len(p) for p in df.rdd._partitions]
+    tfmodel = (pipeline.TFModel(device=device).setExportDir(export_dir)
+               .setBatchSize(BERT_STEP_BATCH)
+               .setBucketSizes([BERT_STEP_BATCH])
+               .setInputMapping({c: c for c in cols}))
+    t0 = time.perf_counter()
+    out = tfmodel.transform(df).collect()
+    seconds = time.perf_counter() - t0
+    got = [torch.tensor([getattr(r, f"output_{i}") for r in out])
+           for i in (0, 1)]
+    model = bert.load_state(bert.make_model(config), state).to(
+        device).eval()
+    batch = bert_batch(rows)
+    want, start = [[], []], 0
+    with torch.inference_mode():
+        for size in sizes:
+            for lo in range(start, start + size, BERT_STEP_BATCH):
+                n = min(BERT_STEP_BATCH, start + size - lo)
+                chunk = {c: torch.zeros(BERT_STEP_BATCH, seq,
+                                        dtype=torch.int32) for c in cols}
+                for c in cols:
+                    chunk[c][:n] = torch.from_numpy(batch[c][lo:lo + n])
+                for i, o in enumerate(bert.outputs(model, {
+                        c: v.to(device) for c, v in chunk.items()})):
+                    want[i].append(o[:n].cpu())
+            start += size
+    want = [torch.cat(w) for w in want]
+    del model
+    bits = [g.shape == w.shape and bool(torch.equal(g, w))
+            for g, w in zip(got, want)]
+    err = [float((g - w).abs().max()) if g.shape == w.shape else float("inf")
+           for g, w in zip(got, want)]
+    pad = BERT_SERVE_ROWS // 2
+    pad_ok = bool((got[0][pad] == bert.MASKED).all()) if bits[0] else False
+    print(f"bert (f) TFModel.transform of the export (its serialized "
+          f"forward, torch.ops.tfos.bert_attention) on {device}: "
+          f"{len(out)} rows "
+          f"in {sizes}, {seconds:.3f} s ({len(out) / seconds:.2f} rows/s, "
+          f"with the load); columns {sorted(out[0].asDict())}; against the "
+          f"eager bf16 forward: the same bits {bits}, max |diff| {err}; "
+          f"the all-padding row all -1e30 {pad_ok}", flush=True)
+    failures = []
+    if len(out) != BERT_SERVE_ROWS or not all(bits) or not pad_ok:
+        failures.append(f"(f) rows {len(out)}, the same bits {bits}, "
+                        f"padding row {pad_ok}")
+    return {"failures": failures, "rows_per_s": len(out) / seconds}
+
+
+def bert_phase(sc, work: str) -> dict:
+    """Phase 15 (see the module docstring), in phase 11's application:
+    every sub-phase runs; the failures are gathered and fail the run at
+    the end.  The GroupNorm and table kernels' launches are counted from
+    0 in every process of the phase: BERT reaches none of them."""
+    from tensorflowonspark_torch.kernels import group_norm, sparse_adagrad
+
+    t0 = time.perf_counter()
+    group_norm.reset_launches()
+    sparse_adagrad.reset_launches()
+    for reset in (_reset_launches, _reset_table_launches):
+        sc.parallelize([0], 1).mapPartitions(reset).collect()
+    model = bert_model_phase()
+    t_model = time.perf_counter()
+    sliced = bert_slice(sc, work)
+    t_slice = time.perf_counter()
+    served = bert_serving(sc, sliced["export"])
+    [(executor, _)] = sc.parallelize([0], 1).mapPartitions(
+        _executor_state).collect()
+    [tables] = sc.parallelize([0], 1).mapPartitions(_table_launches).collect()
+    executor.update(tables)
+    launches = {k: v + executor[k] + sliced["launches"].get(k, 0)
+                for k, v in {**group_norm.launches_by_path,
+                             **sparse_adagrad.launches_by_path}.items()}
+    failures = model["failures"] + sliced["failures"] + served["failures"]
+    if any(launches.values()):
+        failures.append(f"GroupNorm or table kernels launched {launches}")
+    total = time.perf_counter() - t0
+    print(f"bert-base phase 15: GroupNorm and table kernel launches "
+          f"(driver, executor, the SPARK-mode trainer) {launches}; "
+          f"sequences/s train step at {BERT_STEP_BATCH} "
+          f"{model['step_remat_False']['sequences_per_s']:.1f} (remat "
+          f"{model['step_remat_True']['sequences_per_s']:.1f}), forward at "
+          f"{BERT_FWD_BATCH} {model['forward']['sequences_per_s']:.1f}, "
+          f"slice {sliced['sequences_per_s']}; served rows/s "
+          f"{served['rows_per_s']:.2f}", flush=True)
+    print(f"bert-base phase 15 seconds: model {t_model - t0:.1f}, slice "
+          f"{t_slice - t_model:.1f}, serving {total - (t_slice - t0):.1f}; "
+          f"phase 15 {total:.1f} (budget {PHASE15_BUDGET_S})", flush=True)
+    print(json.dumps({"bert_base": {
+        k: {kk: vv for kk, vv in v.items() if kk != "failures"}
+        for k, v in model.items() if k != "failures"} | {
+        "slice_sequences_per_s": sliced["sequences_per_s"],
+        "served_rows_per_s": served["rows_per_s"]}}), flush=True)
+    if failures:
+        raise SystemExit("bert phase 15 failed: " + "; ".join(failures))
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -3838,6 +4428,8 @@ def main() -> int:
         persistence = persistence_phase(sc, work, tf_resnet)
         t14 = time.perf_counter()
         zoo = zoo_phase(sc, work)
+        t15 = time.perf_counter()
+        bert_base = bert_phase(sc, work)
     finally:
         sc.stop()
         shutil.rmtree(work, ignore_errors=True)
@@ -3860,8 +4452,8 @@ def main() -> int:
           f"{tf_wd['feed_steps_per_s']:.1f}; Trainer.step "
           f"{wd_train['dense']['steps_per_s']:.1f}", flush=True)
     print(f"seconds: phase 11 {t12 - t11:.1f}, phase 12 {t13 - t12:.1f}, "
-          f"phase 13 {t14 - t13:.1f}, phase 14 {t_end - t14:.1f}; all "
-          f"phases {t_end - t_start:.1f}", flush=True)
+          f"phase 13 {t14 - t13:.1f}, phase 14 {t15 - t14:.1f}, phase 15 "
+          f"{t_end - t15:.1f}; all phases {t_end - t_start:.1f}", flush=True)
 
     print(card)  # as nvidia-smi gives it: name, power limit
     names = {"one_pass": "group_norm_act (one_pass)",
@@ -3880,6 +4472,7 @@ def main() -> int:
         "launches_tf_mode": tf_resnet["launches"][path],
         "launches_phase13": persistence["launches"].get(path, 0),
         "launches_phase14": zoo["launches"].get(path, 0),
+        "launches_phase15": bert_base["launches"][path],
         **kern[path], **phase14_entry(zoo["kernels"], path)}
         for path in names]
     grouping = tables["combine"]
@@ -3891,6 +4484,7 @@ def main() -> int:
         "launches_tf_mode": tf_wd["launches"]["group"],
         "launches_phase13": persistence["launches"].get("group", 0),
         "launches_phase14": zoo["table_launches"]["group"],
+        "launches_phase15": bert_base["launches"]["group"],
         "max_abs_err": 0.0, "ms": grouping["group_ms"],
         "device_ms": grouping["group_device_ms"],
         "plain_ms": grouping["group_plain_ms"],
@@ -3907,6 +4501,7 @@ def main() -> int:
         "launches_tf_mode": tf_wd["launches"].get(path, 0),
         "launches_phase13": persistence["launches"].get(path, 0),
         "launches_phase14": zoo["table_launches"][path],
+        "launches_phase15": bert_base["launches"][path],
         **tables[path]}
         for _, path in WD_MODES]
     print(json.dumps({"kernels": kernels}))

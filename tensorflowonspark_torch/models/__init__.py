@@ -14,8 +14,7 @@ Every model module exposes the reference's surface, in PyTorch:
 - ``params_from_flax(params)`` / ``opt_state_from_optax(opt_state,
   params)`` → the JAX package's weights and AdamW state, as numpy
 
-``bert`` and ``tiny_lm`` are not ported yet: their names raise ``KeyError``
-saying so.
+``tiny_lm`` is not ported yet: its name raises ``KeyError`` saying so.
 """
 
 from __future__ import annotations
@@ -29,10 +28,11 @@ _REGISTRY = {
     "inception_v3": "tensorflowonspark_torch.models.inception",
     "mobilenet_v1": "tensorflowonspark_torch.models.mobilenet",
     "wide_deep": "tensorflowonspark_torch.models.widedeep",
+    "bert": "tensorflowonspark_torch.models.bert",
 }
 
 #: reference zoo entries the port does not have yet
-_NOT_PORTED = ("bert", "tiny_lm")
+_NOT_PORTED = ("tiny_lm",)
 
 
 def get_model(name: str):

@@ -32,7 +32,9 @@ move_to_device_pass``), so an export written in a CPU process serves on
 the card and the other way round (``platforms: ["cpu", "cuda"]``).  The
 GroupNorm of the ResNet runs as ``torch.ops.tfos.group_norm_act``
 (``kernels.group_norm.group_norm_act_op``), which dispatches at run time:
-the plain version on the CPU, the kernel on the card.
+the plain version on the CPU, the kernel on the card; BERT's attention
+runs as ``torch.ops.tfos.bert_attention`` (``models.bert.attention_op``):
+the plain version on the CPU, SDPA on the card.
 """
 
 from __future__ import annotations
@@ -385,6 +387,7 @@ def load_forward(export_dir: str, device: str | torch.device | None = None):
     from tensorflowonspark_torch import util
     # registers torch.ops.tfos.*, which the program calls
     from tensorflowonspark_torch.kernels import group_norm  # noqa: F401
+    from tensorflowonspark_torch.models import bert  # noqa: F401
 
     signature = read_signature(export_dir)
     blob_path = fs.join(export_dir, _SUBDIR, _FORWARD_FILE)

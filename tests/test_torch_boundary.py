@@ -59,7 +59,8 @@ def test_importing_every_port_module_loads_nothing_of_jax():
                  "examples.resnet_spark", "examples.criteo_pipeline",
                  "models.mnist", "models.cifar", "models.mobilenet",
                  "models.inception", "examples.mnist_spark",
-                 "examples.cifar10_spark"):
+                 "examples.cifar10_spark", "models.bert",
+                 "examples.bert_squad"):
         assert f"tensorflowonspark_torch.{name}" in doc["modules"]
 
 

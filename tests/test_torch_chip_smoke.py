@@ -595,3 +595,221 @@ def test_phase_14_gates_and_the_kernels_line():
     assert main.count('"launches_phase14"') == 3
     assert main.count('"launches_phase14": zoo[') == 3  # read, not written
     assert main.index("zoo_phase(sc, work)") < main.index("sc.stop()")
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: BERT-base SQuAD
+# ---------------------------------------------------------------------------
+
+
+def test_bert_flops_count_the_recipes_step():
+    """6 × the 84.9 M dense weights (qkv, out, MLP, the span head) a token
+    plus 12 · S · H a token and layer for the scores and PV: 6.784 TFLOP
+    at 32 × 384; a forward is a third of it."""
+    from tensorflowonspark_torch.models import bert
+
+    config = bert.Config()
+    step = chip_smoke.bert_flops(config, 32, 384, train=True)
+    dense = 12 * (4 * 768 ** 2 + 2 * 768 * 3072) + 2 * 768
+    assert dense == 84_936_192
+    assert step == 6 * dense * 12_288 + 12 * 12 * 384 * 768 * 12_288
+    assert round(step / 1e12, 3) == 6.784
+    assert chip_smoke.bert_flops(config, 32, 384, train=False) * 3 == step
+
+
+#: the BERT step's kernels as the profiler names them on an H100
+BERT_KERNELS = {
+    "cudnn_generated_fort_native_sdpa_sm90_flash_fprop_wgmma_f16_knob_3_"
+    "64x64x128_4x1x1_kernel0_0": "attention",
+    "void cudnn::fusion::compute_dot_do_o_specialized<true, 64>(void "
+    "const*, void const*)": "attention",
+    "fmha_cutlassB_bf16_aligned_64x64_k64_sm80": "attention",
+    "void at::native::(anonymous namespace)::cunn_SoftMaxForward<4, float,"
+    " float, float, at::native::(anonymous namespace)::SoftMaxForwardEpilogue>"
+    : "attention",
+    "nvjet_tst_128x256_64x4_2x1_v_bz_coopA_NTN": "gemm",
+    "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64": "gemm",
+    "void at::native::(anonymous namespace)::vectorized_layer_norm_kernel<"
+    "float, float>(int, float, float const*, float const*, float const*, "
+    "float*, float*, float*)": "layernorm+add+cast",
+    "void at::native::(anonymous namespace)::GammaBetaBackwardCUDAKernel_"
+    "32x32<float, float>": "layernorm+add+cast",
+    "void at::native::vectorized_elementwise_kernel<4, at::native::"
+    "CUDAFunctor_add<c10::BFloat16>, std::array<char*, 3ul> >":
+        "layernorm+add+cast",
+    "void at::native::vectorized_elementwise_kernel<4, at::native::"
+    "direct_copy_kernel_cuda(at::TensorIteratorBase&)>": "layernorm+add+cast",
+    "void at::native::vectorized_elementwise_kernel<4, at::native::"
+    "GeluCUDAKernelImpl(at::TensorIteratorBase&, at::native::"
+    "GeluType)>": "gelu",
+    "void at::native::indexSelectLargeIndex<float, long, unsigned int, 2, "
+    "2, -2, true>": "embedding",
+    "void at::native::(anonymous namespace)::compute_grad_weight<float, "
+    "long>": "embedding",
+    "void at::native::(anonymous namespace)::multi_tensor_apply_kernel<"
+    "at::native::(anonymous namespace)::TensorListMetadata<4>>": "adamw",
+    "void at::native::(anonymous namespace)::cunn_SoftMaxForward<4, float,"
+    " float, float, at::native::(anonymous namespace)::"
+    "LogSoftMaxForwardEpilogue>": "other",
+    "void at::native::reduce_kernel<128, 4, at::native::ReduceOp<"
+    "c10::BFloat16>>": "other",
+}
+
+
+def test_bert_families_name_each_kernel_and_the_sdpa_backend():
+    for kernel, family in BERT_KERNELS.items():
+        assert chip_smoke.bert_family(kernel) == family, kernel
+    norm = [k for k, f in BERT_KERNELS.items() if f == "layernorm+add+cast"]
+    assert [chip_smoke.norm_part(k) for k in norm] == [
+        "layernorm", "layernorm", "add", "cast"]
+    names = list(BERT_KERNELS)
+    assert chip_smoke.sdpa_backend(names[:2]) == "cudnn"
+    assert chip_smoke.sdpa_backend(names[2:3]) == "memory-efficient"
+    assert chip_smoke.sdpa_backend(["flash_fwd_kernel<...>"]) == "flash"
+    assert chip_smoke.sdpa_backend(names[3:4]) == "math"
+    assert chip_smoke.sdpa_backend([]) == "none"
+
+
+def _bert_grads(config, lengths, attention, dtype="bfloat16"):
+    import dataclasses
+
+    from tensorflowonspark_torch.examples import bert_squad
+    from tensorflowonspark_torch.models import bert
+
+    model = bert.make_model(dataclasses.replace(config, dtype=dtype), seed=0)
+    rows = bert_squad.synth_squad(len(lengths), config.vocab_size, 64, 1)
+    batch = {k: torch.from_numpy(v) for k, v in
+             chip_smoke.bert_batch(rows).items()}
+    for i, n in enumerate(lengths):  # padding tails, labels inside
+        batch["attention_mask"][i, n:] = 0
+        batch["input_ids"][i, n:] = 0
+        batch["start_positions"][i] = batch["end_positions"][i] = n // 2
+    return chip_smoke.bert_grads(model, batch, attention)[0]
+
+
+def test_bert_grad_gates_pass_the_paths_and_catch_a_dropped_mask(
+        one_thread):
+    """Phase 15(a) on the CPU at BERT-base's widths cut to 2 layers and a
+    512-token vocabulary, batch 4 × 64, the CPU's SDPA as the
+    card's path: the gates hold, the planted fault (the mask dropped)
+    reads above the gate, and a card path as far from f32 as the fault
+    fails them.  The two leaves whose true gradient is 0 are ~0."""
+    import dataclasses
+
+    from tensorflowonspark_torch.models import bert
+
+    config = dataclasses.replace(bert.Config(), vocab_size=512, layers=2,
+                                 max_len=64)
+    lengths = (64, 20, 12, 40)
+    card = _bert_grads(config, lengths, bert.attention_sdpa)
+    plain = _bert_grads(config, lengths, bert.attention_plain)
+    f32 = _bert_grads(config, lengths, bert.attention_plain, "float32")
+    fault = _bert_grads(config, lengths,
+                        chip_smoke.dropped_mask(bert.attention_sdpa))
+    skip = chip_smoke.bert_zero_grad_leaves(config)
+    assert skip == ("span.bias", "layers.1.ln_mlp.bias")
+    scale = max(float(g.abs().max()) for g in f32.values())
+    assert all(float(f32[k].abs().max()) < 1e-5 * scale for k in skip)
+    d, failures = chip_smoke.bert_grad_gates(card, plain, f32, fault, skip)
+    assert failures == [], d
+    assert d["fault_f32"] > d["gate"] > d["card_f32"]
+    assert d["worst_leaf"] not in skip
+    _, failures = chip_smoke.bert_grad_gates(fault, plain, f32, fault, skip)
+    assert any("card vs f32 / plain" in f for f in failures)
+    _, failures = chip_smoke.bert_grad_gates(card, plain, f32, card, skip)
+    assert any("planted fault missed" in f for f in failures)
+    missing = {k: v for k, v in card.items() if k != "span.weight"}
+    _, failures = chip_smoke.bert_grad_gates(missing, plain, f32, fault,
+                                             skip)
+    assert "a gradient is missing or not finite" in failures
+
+
+class _StubFeed:
+    """A node's ``DataFeed`` in ``InputMode.SPARK``: each partition's rows
+    as int64 columns, ``batch_size`` at a time, a partition's tail short,
+    handed through ``device_put``."""
+
+    def __init__(self, partitions, batch_size):
+        self.batches = []
+        for rows in partitions:
+            for lo in range(0, len(rows), batch_size):
+                cols = list(zip(*rows[lo:lo + batch_size]))
+                self.batches.append({
+                    c: np.asarray(cols[i], np.int64) for i, c in
+                    enumerate(("input_ids", "token_type_ids",
+                               "attention_mask", "start_positions",
+                               "end_positions"))})
+
+    def should_stop(self):
+        return not self.batches
+
+    def next_batch(self, batch_size, device_put=False):
+        return device_put(self.batches.pop(0))
+
+
+def test_bert_replay_equals_the_examples_map_fun(monkeypatch, one_thread):
+    """Phase 15(e)'s replay steps what the example's ``map_fun`` trains on
+    (each partition's full batches, the tails dropped): the same losses,
+    bit for bit, on the CPU."""
+    from tensorflowonspark_torch.examples import bert_squad
+    from tensorflowonspark_torch.models import bert
+
+    monkeypatch.setenv("TFOS_TORCH_DEVICE", "cpu")
+    args = bert_squad.parse_args(["--tiny", "--batch_size", "4",
+                                  "--seq_len", "32"])
+    rows = [list(r) for r in bert_squad.synth_squad(
+        22, bert.Config.tiny().vocab_size, 32)]
+    partitions = [rows[:10], rows[10:]]  # tails of 2 and 0 rows... and 4
+    published = {}
+    ctx = types.SimpleNamespace(
+        num_workers=1, executor_id=1, mgr=types.SimpleNamespace(
+            set=published.__setitem__),
+        get_data_feed=lambda **_: _StubFeed(partitions, args.batch_size))
+    bert_squad.map_fun(args, ctx)
+    replay = chip_smoke.bert_replay(args, partitions, "cpu")
+    assert published["steps"] == len(replay) == 2 + 3
+    assert published["losses"] == replay
+    assert published["final_loss"] == replay[-1]
+    assert published["device"] == "cpu"
+
+
+def test_bert_slice_and_serving_on_cpu_executors(tmp_path, monkeypatch,
+                                                 one_thread):
+    """Phase 15(e)-(f) end to end at ``--tiny`` on the CPU: the example's
+    job on one executor against the replay (every gate passes), then its
+    export served with one all-padding row, both columns the eager
+    forward's bits."""
+    from tensorflowonspark_torch import pipeline, sparkapi
+
+    monkeypatch.setenv("TFOS_TORCH_DEVICE", "cpu")
+    sc = sparkapi.LocalSparkContext("local[1]")
+    try:
+        sliced = chip_smoke.bert_slice(sc, str(tmp_path), device="cpu",
+                                       tiny=True)
+        served = chip_smoke.bert_serving(sc, sliced["export"], device="cpu")
+    finally:
+        sc.stop()
+        pipeline._MODEL_CACHE.clear()
+    assert sliced["failures"] == [] and served["failures"] == []
+    assert sliced["sequences_per_s"] > 0
+    assert not any(sliced["launches"].values())
+
+
+def test_phase_15_gates_and_the_kernels_line():
+    import inspect
+
+    for fn, gates in (
+            (chip_smoke.bert_model_phase,
+             ("bert_grad_gates(", 'f"(b) trajectory', "not falls",
+              "dropped_mask(bert.attention)")),
+            (chip_smoke.bert_slice, ("slice_failures(",
+                                     "losses[:1] != replay[:1]")),
+            (chip_smoke.bert_serving, ('f"(f) rows', "not all(bits)"))):
+        src = inspect.getsource(fn)
+        for gate in gates:
+            assert gate in src, (fn.__name__, gate)
+    src = inspect.getsource(chip_smoke.bert_phase)
+    assert 'raise SystemExit("bert phase 15 failed: "' in src
+    main = inspect.getsource(chip_smoke.main)
+    assert main.count('"launches_phase15": bert_base["launches"]') == 3
+    assert main.index("bert_phase(sc, work)") < main.index("sc.stop()")

@@ -289,12 +289,13 @@ def test_zoo_registers_the_four_models():
     assert models.get_model("mobilenet_v1") is port_mobilenet
     assert models.get_model("inception_v3").__name__ == (
         "tensorflowonspark_torch.models.inception")
+    assert models.get_model("bert").__name__ == (
+        "tensorflowonspark_torch.models.bert")
     assert models.available() == sorted(
         ["mnist_mlp", "cifar10_cnn", "resnet50", "inception_v3",
-         "mobilenet_v1", "wide_deep"])
-    for name in ("bert", "tiny_lm"):
-        with pytest.raises(KeyError, match="not yet ported"):
-            models.get_model(name)
+         "mobilenet_v1", "wide_deep", "bert"])
+    with pytest.raises(KeyError, match="not yet ported"):
+        models.get_model("tiny_lm")
 
 
 @pytest.mark.parametrize("name", ["mnist_mlp", "cifar10_cnn",
