@@ -195,6 +195,38 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    eager forward's bits.  The GroupNorm and table kernels' launches are
    counted in every process of the phase and must be 0.  Phase 15 runs in
    phase 11's application and prints its seconds.
+16. The compiled step (``parallel.train.compile_step``: each batch
+   signature's step captured into one CUDA graph at its second sighting,
+   replayed after; every ``Trainer`` of phases 1-15 steps through it too).
+   (a) For ResNet-50 ``Config()`` at 8, Inception-v3 canonical at 4,
+   MobileNet-v1 at 8, the CIFAR CNN at 64, the MNIST MLP at 128,
+   wide&deep ``Config()`` at 1024 in both modes and BERT-base at 8 x 384
+   with remat on and off: 8 steps through ``Trainer`` against 8 eager steps
+   (the step swapped for ``make_train_step`` / ``make_sharded_train_step``)
+   of the same seed, weights, optimizer and batches: every loss, parameter,
+   optimizer state, table and accumulator bit for bit (BERT: phase 15's
+   gate, the first loss bit for bit, the rest within 3e-3).  (b) The
+   planned launches (ResNet 53 + 53, Inception 96 + 96, MobileNet 27 + 27,
+   CIFAR 6 + 6, a grouping and a segment walk a wide&deep step, none for
+   MNIST and BERT) counted by the wrappers in every eager step and in the
+   capture, none in a replay (which calls no wrapper), and counted by
+   kernel name in a profiler trace of step 8, a replay in the graph run
+   and an eager step in the other.  (c) A planted fault, replays whose static inputs
+   keep the capture's batch, must fail (a).  (d) ResNet's step-4
+   checkpoint restored into the trainer that captured, then steps 5-8:
+   bit for bit the uninterrupted run.  (e) Eager beside captured on the
+   same trainer: rate, device busy ms and idle share, ``Trainer.step``'s
+   host µs (captured: ``graph.replay()`` alone, the batch's copy into the
+   static inputs and the rest), the capture's seconds, peak memory allocated and reserved, for
+   wide&deep at 1024 (both modes), Inception canonical at 128, BERT-base at
+   32 x 384 (remat on, off) and ResNet-50 at 64 and 256; the ``foreach``
+   AdamW captured beside the default, ``fused=True``.  (f) The compile
+   cache: a subprocess builds the three libraries into an empty
+   ``_build`` through ``TFOS_COMPILE_CACHE_DIR``; a second, with no
+   ``nvcc``, loads all three from the cache and launches each against its
+   plain twin; a third, on a copy with one entry corrupted, rejects it and
+   rebuilds it.  Phase 16 prints its seconds beside its budget; ``python3
+   chip_smoke.py --phase 16`` runs the build and this phase alone.
 
 The last lines are the card line, one JSON line listing each kernel (the
 one-pass and two-pass forwards of ``group_norm_act`` and its one-pass and
@@ -204,7 +236,13 @@ update in each mode, times of a training step's pair on Zipf ids, the
 other cases suffixed; ``launches_tf_mode`` counts phases 11-12's,
 ``launches_phase13`` phase 13's, ``launches_phase14`` the executors' of
 phase 14(c)-(g), ``phase14_*`` the zoo's sites on each GroupNorm
-path, and ``launches_phase15`` phase 15's), and
+path, ``launches_phase15`` phase 15's and ``launches_phase16`` phase 16's
+(a)-(d), ``replay_launches_phase16`` the kernels its traced replays ran).
+Every count is a wrapper's where it launches, a CUDA graph's capture
+included; a replay calls no wrapper, so the gates of phases 6-15 plan
+their counts for the steps less those a replay ran alone
+(``parallel.train.replayed_steps``, published by each job), and 16(b)
+counts replays from traces.  Then
 ``{"ok": true, "device": {...}}``.
 Without a card it exits 1 and prints no result.
 """
@@ -1240,6 +1278,16 @@ def profile_train_step(trainer, batch, step_ms: float, steps: int = 3,
     return {"idle_share": idle}
 
 
+def replayed_steps() -> int:
+    """``parallel.train.replayed_steps`` of this process: the steps a CUDA
+    graph replay ran alone, whose kernels no wrapper counted.  A job
+    publishes how many of its steps these were (``replays``), and a gate
+    plans its wrapper counts for the other steps."""
+    from tensorflowonspark_torch.parallel import train as train_lib
+
+    return train_lib.replayed_steps
+
+
 def train_map_fun(args, ctx):
     """The training slice's ``map_fun``: a ``Trainer`` on the node's card
     fed by ``DataFeed`` (prefetching, staged by ``trainer.shard``),
@@ -1257,6 +1305,7 @@ def train_map_fun(args, ctx):
                              input_mapping=["image", "label"], prefetch=2)
     ctx.mgr.set("ready", True)
     group_norm.reset_launches()
+    replays = replayed_steps()
     losses = []
     while not feed.should_stop():
         batch = feed.next_batch(args["batch"], device_put=trainer.shard)
@@ -1264,6 +1313,7 @@ def train_map_fun(args, ctx):
             continue
         losses.append(trainer.step(batch))
     ctx.mgr.set("launches", dict(group_norm.launches_by_path))
+    ctx.mgr.set("replays", replayed_steps() - replays)
     ctx.mgr.set("losses", [float(v) for v in losses])
     ctx.mgr.set("device", str(trainer.device))
 
@@ -1303,6 +1353,7 @@ def train_slice_phase() -> dict:
         state = mgr.get("state")
         losses = mgr.get("losses") or []
         launches = mgr.get("launches") or {}
+        replays = mgr.get("replays") or 0
         device = mgr.get("device")
         agg = cluster.metrics()
     finally:
@@ -1328,7 +1379,8 @@ def train_slice_phase() -> dict:
           f"{len(losses)} steps, losses {[round(v, 5) for v in losses]}; "
           f"in-process replay {[round(v, 5) for v in replay]}; final loss "
           f"rel={rel:.3e} (tol {SLICE_TRAIN_VS_IN_PROCESS}); executor "
-          f"launches={launches}; cluster.metrics() images/s={ips}; "
+          f"launches={launches} ({replays} steps replayed alone); "
+          f"cluster.metrics() images/s={ips}; "
           f"cluster.train {train_s:.3f} s for {SLICE_TRAIN_ROWS} rows = "
           f"{wall_ips:.2f} images/s (after {ready_s:.1f} s to a ready "
           f"trainer)", flush=True)
@@ -1336,8 +1388,9 @@ def train_slice_phase() -> dict:
             or not all(math.isfinite(v) for v in losses)
             or rel > SLICE_TRAIN_VS_IN_PROCESS or not str(device).startswith(
                 "cuda")
-            or launches != launch_counts(one_pass=53 * steps,
-                                         backward_one_pass=53 * steps)
+            or launches != launch_counts(
+                one_pass=53 * (steps - replays),
+                backward_one_pass=53 * (steps - replays))
             or not ips):
         raise SystemExit("training slice phase failed")
     return {"launches": launches, "images_per_s": ips,
@@ -1854,18 +1907,22 @@ def wd_train_model_phase() -> dict:
         # update launch a step
         rows = synth_criteo(WD_BATCH * WD_STEPS, buckets, seed=8)
         sparse_adagrad.reset_launches()
+        replays = replayed_steps()
         losses = [kernel_t.step(device_batch(
             rows[i * WD_BATCH:(i + 1) * WD_BATCH])) for i in range(WD_STEPS)]
         losses = [float(v) for v in losses]
         launches = dict(sparse_adagrad.launches_by_path)
+        counted = WD_STEPS - (replayed_steps() - replays)
         falls = np.mean(losses[-5:]) < WD_FALL * losses[0]
         print(f"train wide_deep {table_update} {WD_STEPS} steps: losses "
               f"{[round(v, 5) for v in losses]}; last-5 mean / first = "
               f"{np.mean(losses[-5:]) / losses[0]:.4f} (falls below "
-              f"{WD_FALL}: {falls}); table launches {launches}", flush=True)
+              f"{WD_FALL}: {falls}); table launches {launches} (the "
+              f"{WD_STEPS - counted} steps a replay ran alone not counted)",
+              flush=True)
         if (not falls or not all(math.isfinite(v) for v in losses)
                 or launches != {**dict.fromkeys(launches, 0),
-                                "group": WD_STEPS, path: WD_STEPS}):
+                                "group": counted, path: counted}):
             raise SystemExit(f"wide&deep training-model phase failed "
                              f"({table_update}, trajectory)")
 
@@ -1977,6 +2034,7 @@ def criteo_train_fn(args, ctx):
         })
 
     sparse_adagrad.reset_launches()
+    replays = replayed_steps()
     losses = []
     while not feed.should_stop():
         batch = feed.next_batch(args.batch_size, device_put=stage)
@@ -1984,6 +2042,7 @@ def criteo_train_fn(args, ctx):
             continue
         losses.append(trainer.step(batch))
     ctx.mgr.set("launches", dict(sparse_adagrad.launches_by_path))
+    ctx.mgr.set("replays", replayed_steps() - replays)
     ctx.mgr.set("losses", [float(v) for v in losses])
     ctx.mgr.set("device", str(trainer.device))
     if ctx.job_name == "chief":
@@ -2007,6 +2066,7 @@ def fit_and_score(sc, df, args: dict, batch_size: int, cluster_size: int,
         return clusters[-1]
 
     TFCluster.run = catching_run
+    t0 = time.perf_counter()
     try:
         est = (pipeline.TFEstimator(criteo_train_fn, tf_args=args)
                .setClusterSize(cluster_size).setBatchSize(batch_size)
@@ -2021,11 +2081,15 @@ def fit_and_score(sc, df, args: dict, batch_size: int, cluster_size: int,
     for meta in cluster.cluster_info:
         mgr = TFManager.connect(tuple(meta["addr"]), authkey)
         published.append({k: mgr.get(k) for k in ("state", "losses",
-                                                  "launches", "device")})
+                                                  "launches", "replays",
+                                                  "device")})
+    t1 = time.perf_counter()
     scored = (model.setBatchSize(batch_size)
               .setInputMapping({"dense": "dense", "cat": "cat"})
               .setOutputMapping({"prediction": "ctr"})
               .transform(df.select("dense", "cat"))).collect()
+    print(f"fit_and_score: TFEstimator.fit {t1 - t0:.1f} s, "
+          f"TFModel.transform {time.perf_counter() - t1:.1f} s", flush=True)
     return cluster, published, scored
 
 
@@ -2095,12 +2159,14 @@ def wd_slice_phase() -> dict:
         ex_per_s = agg.get("total_examples_per_sec")
         steps_per_s = ex_per_s / WD_BATCH if ex_per_s else None
         launches = node["launches"] or {}
+        counted = steps - (node["replays"] or 0)
         print(f"slice wide_deep {table_update}: TFEstimator.fit -> "
               f"TFCluster.run -> DataFeed -> Trainer.step on {node['device']}"
               f": state {node['state']}, {len(losses)} steps, losses "
               f"{[round(v, 6) for v in losses]}; in-process replay "
               f"{[round(v, 6) for v in replay]}; max rel {rel:.3e} (tol "
-              f"{WD_SLICE_VS_REPLAY}); executor table launches {launches}; "
+              f"{WD_SLICE_VS_REPLAY}); executor table launches {launches} "
+              f"({steps - counted} steps replayed alone); "
               f"TFModel.transform {len(scored)} rows from the export's "
               f"serialized forward, max |score - in-process forward| "
               f"{serialized_err:.3e}, by model name from a weights-only "
@@ -2113,7 +2179,7 @@ def wd_slice_phase() -> dict:
                 or rel > WD_SLICE_VS_REPLAY
                 or not str(node["device"]).startswith("cuda")
                 or launches != {**dict.fromkeys(launches, 0),
-                                "group": steps, path: steps}
+                                "group": counted, path: counted}
                 or len(scored) != WD_SLICE_ROWS
                 or not serialized_err <= WD_SCORES_VS_FORWARD
                 or not by_name_err <= WD_SCORES_VS_FORWARD
@@ -2166,18 +2232,31 @@ def tf_resnet_resume_args(args):
                                  "ckpt_every_steps": RESUME_STEPS})
 
 
+def compile_seconds() -> float:
+    """The process's goodput ``compile`` seconds: on the card, the walls
+    of the steps that captured a CUDA graph."""
+    from tensorflowonspark_torch import obs
+
+    c = obs.get_registry().peek("goodput_seconds_total", {"phase": "compile"})
+    return float(c.value) if c is not None else 0.0
+
+
 def run_counted(map_fun, args, ctx):
     """``map_fun(args, ctx)`` with the node's GroupNorm launch counts set to
-    0 before it and published after it (``launches``), and the table
-    kernels' launches it made (``table_launches``; their counts are not
-    reset, so a phase can count an executor's launches across its jobs).
+    0 before it and published after it (``launches``), the table kernels'
+    launches it made (``table_launches``; their counts are not reset, so a
+    phase can count an executor's launches across its jobs) and its steps
+    a graph replay ran alone (``replays``).
     A job runs ``functools.partial(run_counted, map_fun)``."""
     from tensorflowonspark_torch.kernels import group_norm, sparse_adagrad
 
     ctx.mgr.set("map_fun_start", time.time())
     group_norm.reset_launches()
     tables = dict(sparse_adagrad.launches_by_path)
+    compile_s, replays = compile_seconds(), replayed_steps()
     map_fun(args, ctx)
+    ctx.mgr.set("compile_s", compile_seconds() - compile_s)
+    ctx.mgr.set("replays", replayed_steps() - replays)
     ctx.mgr.set("launches", dict(group_norm.launches_by_path))
     ctx.mgr.set("table_launches", {
         k: v - tables[k] for k, v in sparse_adagrad.launches_by_path.items()})
@@ -2250,7 +2329,10 @@ def tf_wd_train_fun(args, ctx):
 
     ctx.mgr.set("map_fun_start", time.time())
     sparse_adagrad.reset_launches()
+    compile_s, replays = compile_seconds(), replayed_steps()
     criteo_pipeline.parquet_train_fun(args, ctx)
+    ctx.mgr.set("compile_s", compile_seconds() - compile_s)
+    ctx.mgr.set("replays", replayed_steps() - replays)
     ctx.mgr.set("launches", dict(sparse_adagrad.launches_by_path))
     ctx.mgr.set("map_fun_end", time.time())
 
@@ -2305,13 +2387,14 @@ def loss_rel(losses, replay, final_only: bool) -> float:
     return max(abs(a - b) / abs(b) for a, b in pairs)
 
 
-def slice_failures(node: dict, replay: list, *, steps: int, want_launches:
+def slice_failures(node: dict, replay: list, *, steps: int, per_step:
                    dict, tol: float, final_only: bool,
                    device: str = "cuda") -> list:
     """Every gate a TENSORFLOW-mode slice breaks (empty when it passes):
     the node finished on ``device``, took ``steps`` steps with finite
-    losses within ``tol`` of the replay, and launched exactly
-    ``want_launches``."""
+    losses within ``tol`` of the replay, and its wrappers counted exactly
+    ``per_step`` launches a step for each step but those a graph replay
+    ran alone (the node's ``replays``)."""
     losses = node.get("losses") or []
     failures = []
     if node.get("state") != "finished":
@@ -2325,9 +2408,11 @@ def slice_failures(node: dict, replay: list, *, steps: int, want_launches:
     rel = loss_rel(losses, replay, final_only)
     if not rel <= tol:
         failures.append(f"loss rel {rel:.3e} > {tol}")
-    if node.get("launches") != want_launches:
-        failures.append(f"launches {node.get('launches')} (want "
-                        f"{want_launches})")
+    counted = steps - (node.get("replays") or 0)
+    want = {k: v * counted for k, v in per_step.items()}
+    if node.get("launches") != want:
+        failures.append(f"launches {node.get('launches')} (want {want}: "
+                        f"{counted} steps counted)")
     return failures
 
 
@@ -2355,10 +2440,13 @@ def job_timeline(t_run: float, t_formed: float, t_done: float, node: dict,
     start, end = node.get("map_fun_start"), node.get("map_fun_end")
     if start is None or end is None or loop_s is None:
         return "timeline not published"
+    capture = node.get("compile_s")
     return (f"formed {t_formed - t_run:.1f} s, map_fun started at "
             f"{start - t_run:.1f} s, trainer build "
-            f"{end - start - loop_s:.1f} s, loop {loop_s:.1f} s, after the "
-            f"loop {t_done - end:.1f} s")
+            f"{end - start - loop_s:.1f} s, loop {loop_s:.1f} s"
+            + ("" if capture is None else
+               f" (the capturing step {capture:.2f} s)")
+            + f", after the loop {t_done - end:.1f} s")
 
 
 def run_tf_job(sc, map_fun, args, keys=()) -> tuple:
@@ -2376,8 +2464,8 @@ def run_tf_job(sc, map_fun, args, keys=()) -> tuple:
     cluster.shutdown(grace_secs=600)
     job_s, w_done = time.perf_counter() - t0, time.time()
     [node] = node_published(cluster, ("state", "losses", "launches",
-                                      "device", "map_fun_start",
-                                      "map_fun_end", *keys))
+                                      "replays", "device", "map_fun_start",
+                                      "map_fun_end", "compile_s", *keys))
     agg = cluster.metrics()
     [snap] = agg["nodes"].values()
     return node, agg, job_s, job_timeline(w0, w_formed, w_done, node,
@@ -2451,12 +2539,12 @@ def tf_resnet_slice_phase(sc, work: str) -> dict:
                 / feed["seconds_after_first"])
     step_ips = SLICE_TRAIN_BATCH / step_ms * 1e3
     steps = TF_RECORDS // SLICE_TRAIN_BATCH
-    want = launch_counts(one_pass=53 * steps, backward_one_pass=53 * steps)
+    want = launch_counts(one_pass=53, backward_one_pass=53)
     failures = slice_failures(node, replay[:steps], steps=steps,
-                              want_launches=want,
+                              per_step=want,
                               tol=SLICE_TRAIN_VS_IN_PROCESS, final_only=True)
     failures += [f"the job with no checkpoint: {f}" for f in slice_failures(
-        plain, node["losses"] or [], steps=steps, want_launches=want,
+        plain, node["losses"] or [], steps=steps, per_step=want,
         tol=0.0, final_only=False)]
     rates = slice_rates(agg, 1)
     plain_rates = slice_rates(plain_agg, 1)
@@ -2526,9 +2614,9 @@ def tf_wd_slice_phase(sc) -> dict:
     torch.cuda.empty_cache()
     feed_steps = (feed["batches"] - 1) / feed["seconds_after_first"]
     steps = WD_SLICE_ROWS // WD_BATCH
-    want = {**dict.fromkeys(node["launches"] or {}, 0), "group": steps,
-            "combine": steps}
-    failures = slice_failures(node, replay, steps=steps, want_launches=want,
+    want = {**dict.fromkeys(node["launches"] or {}, 0), "group": 1,
+            "combine": 1}
+    failures = slice_failures(node, replay, steps=steps, per_step=want,
                               tol=WD_SLICE_VS_REPLAY, final_only=False)
     # what the Parquet files gave back is the rows, in partition order,
     # with the stager's dtypes
@@ -2937,10 +3025,9 @@ def persistence_phase(sc, work: str, tf_resnet: dict) -> dict:
     args2 = tf_resnet_resume_args(args)
     node, agg, job_s, timeline = run_tf_job(sc, tf_resnet_map_fun, args2,
                                             ("restored_step",))
-    want = launch_counts(one_pass=53 * RESUME_STEPS,
-                         backward_one_pass=53 * RESUME_STEPS)
+    want = launch_counts(one_pass=53, backward_one_pass=53)
     resumed = slice_failures(node, tf_resnet["replay"][steps:],
-                             steps=RESUME_STEPS, want_launches=want,
+                             steps=RESUME_STEPS, per_step=want,
                              tol=RESUME_LOSS_REL, final_only=False)
     if node.get("restored_step") != steps:
         resumed.append(f"restored step {node.get('restored_step')} (want "
@@ -3055,16 +3142,18 @@ def persistence_phase(sc, work: str, tf_resnet: dict) -> dict:
     torch.cuda.synchronize()
     wd_restore_s = time.perf_counter() - t0
     sparse_adagrad.reset_launches()
+    replays = replayed_steps()
     for b in batches[WD_CKPT_STEPS:]:
         wd2.step(wd2.shard(b))
     wd_launches = dict(sparse_adagrad.launches_by_path)
+    counted = WD_CKPT_STEPS - (replayed_steps() - replays)
     launches.update(wd_launches)
     for b in batches[WD_CKPT_STEPS:]:
         wd.step(wd.shard(b))
     wd_diff = state_diff(flat_state(train_lib.state_tree(wd2.state)),
                          flat_state(train_lib.state_tree(wd.state)))
-    want_wd = {**dict.fromkeys(wd_launches, 0), "group": WD_CKPT_STEPS,
-               "combine": WD_CKPT_STEPS}
+    want_wd = {**dict.fromkeys(wd_launches, 0), "group": counted,
+               "combine": counted}
     if restored != WD_CKPT_STEPS:
         failures.append(f"(c) restored step {restored}")
     if wd_diff:
@@ -3499,7 +3588,7 @@ def zoo_tf_slice(sc, work: str, arch: str, side: int, sites,
     replay = tf_resnet_replay(args, "cuda")
     steps = TF_RECORDS // SLICE_TRAIN_BATCH
     failures = slice_failures(node, replay, steps=steps,
-                              want_launches=step_launches(sites, steps),
+                              per_step=step_launches(sites),
                               tol=SLICE_TRAIN_VS_IN_PROCESS, final_only=True)
     rates = slice_rates(agg, 1)
     mb = sum(os.path.getsize(f) for f in files) / 1e6
@@ -3671,7 +3760,8 @@ def zoo_cifar(sc, work: str, sites) -> dict:
     k = 8
     falls = (len(losses) >= 2 * k
              and sum(losses[-k:]) < sum(losses[:k]))
-    want = step_launches(sites, steps)
+    # the wrappers count the steps a graph replay did not run alone
+    want = step_launches(sites, steps - (node["replays"] or 0))
     rates = slice_rates(agg, 1)
     print(f"zoo cifar10_spark defaults ({args.readers} readers, batch "
           f"{args.batch_size}, {args.epochs} epochs of {args.num_samples} "
@@ -4219,7 +4309,7 @@ def bert_slice(sc, work: str, device: str = "cuda",
     replay = bert_replay(args, partitions, device)
     steps = sum(len(p) // BERT_STEP_BATCH for p in partitions)
     failures = slice_failures(node, replay, steps=steps,
-                              want_launches=launch_counts(),
+                              per_step=launch_counts(),
                               tol=BERT_SLICE_VS_REPLAY, final_only=False,
                               device=device)
     losses = node["losses"] or []
@@ -4363,9 +4453,819 @@ def bert_phase(sc, work: str) -> dict:
     return {"launches": launches}
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Phase 16: the compiled step (one CUDA graph per batch signature)
+# ---------------------------------------------------------------------------
+
+GRAPH_STEPS = 8
+GRAPH_RESTORE_AT = 4  # (d): the checkpoint step restored after capture
+#: (b): the step (0-based) traced by the profiler in each run: a replay in
+#: the graph run, an eager step in the eager one
+GRAPH_TRACED_STEP = GRAPH_STEPS - 1
+GRAPH_TIMED_STEPS = 10
+GRAPH_PROFILED_STEPS = 3
+#: BERT's graph-against-eager gate is phase 15's slice gate: the first loss
+#: bit for bit, later losses within this rel (cuDNN's attention backward
+#: adds with atomics, so two runs of the same step differ from step 2)
+GRAPH_BERT_LOSS_REL = BERT_SLICE_VS_REPLAY
+PHASE16_BUDGET_S = 120
+#: phase 16(f)'s subprocess: build or load the kernel libraries in an
+#: empty ``_build`` through the cache at ``TFOS_COMPILE_CACHE_DIR``
+#: (argv: the build dir, whether nvcc may be used, whether to launch each
+#: kernel against its plain twin), printing one JSON line
+CACHE_PROCESS_SCRIPT = r"""
+import json, os, sys, time
+sys.path.insert(0, os.getcwd())
+t0 = time.perf_counter()
+from tensorflowonspark_torch import compile_cache
+from tensorflowonspark_torch.kernels import _build
+build_dir, nvcc, launch = sys.argv[1], sys.argv[2] == "1", sys.argv[3] == "1"
+_build.BUILD_DIR = build_dir
+if not nvcc:
+    def _no_nvcc():
+        raise RuntimeError("nvcc is off for this process")
+    _build.find_nvcc = _no_nvcc
+t1 = time.perf_counter()
+compile_cache.ensure()  # the namespace reads the card's name
+t2 = time.perf_counter()
+paths = _build.build_all()
+t3 = time.perf_counter()
+out = {"import_s": t1 - t0, "configure_s": t2 - t1,
+       "build_or_load_s": t3 - t2,
+       "libraries": sorted(os.path.basename(p) for p in paths)}
+if launch:
+    import chip_smoke
+    out["twins"] = chip_smoke.cache_twin_checks()
+out.update(compile_cache.stats())
+print(json.dumps(out))
+"""
+
+
+def cache_twin_checks() -> dict:
+    """One launch of each kernel library (forward and backward GroupNorm,
+    the grouping and the table update) against its plain twin, at small
+    shapes: ``{kernel: max abs error}``; raises on a mismatch."""
     import torch
 
+    from tensorflowonspark_torch import embedding
+    from tensorflowonspark_torch.kernels import group_norm, sparse_adagrad
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn(4, 64, 14, 14, generator=gen, device="cuda").to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    gamma = 1 + 0.1 * torch.randn(64, generator=gen, device="cuda")
+    beta = 0.1 * torch.randn(64, generator=gen, device="cuda")
+    out = {}
+    y, stats = group_norm._launch(x, gamma, beta, 32, 1e-6, None, True,
+                                  keep_stats=True)
+    plain = group_norm.group_norm_act_plain(x, gamma, beta, 32, 1e-6, None,
+                                            True)
+    out["group_norm"] = float((y.float() - plain.float()).abs().max())
+    dy = torch.randn_like(x)
+    got = group_norm._launch_backward(dy, x, y, gamma, stats, 32, False,
+                                      True)
+    want = group_norm.group_norm_act_backward_plain(dy, x, y, gamma, stats,
+                                                    32, False, True)
+    out["group_norm_bwd"] = float((got[0].float() - want[0].float())
+                                  .abs().max())
+    ids = torch.randint(0, 1000, (512,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    grouping = sparse_adagrad.group(ids, 1000)
+    out["sparse_adagrad group"] = (0.0 if grouping_matches(grouping, ids, 1000)
+                                   else 1.0)
+    table = torch.randn(1000, 8, generator=gen, device="cuda")
+    acc = torch.rand(1000, 8, generator=gen, device="cuda")
+    g = torch.randn(512, 8, generator=gen, device="cuda")
+    t2, a2 = table.clone(), acc.clone()
+    sparse_adagrad.update([(table, acc, g)], grouping, 0.1, 1e-10, False)
+    embedding.sparse_adagrad_update_plain(t2, a2, ids, g, 0.1, 1e-10, False)
+    out["sparse_adagrad update"] = float((table - t2).abs().max())
+    torch.cuda.synchronize()
+    tol = {"group_norm": 2 * 2.0 ** -7 * 8, "group_norm_bwd": 2 * 2.0 ** -7
+           * 8, "sparse_adagrad group": 0.0, "sparse_adagrad update": 1e-5}
+    bad = {k: v for k, v in out.items() if not v <= tol[k]}
+    if bad:
+        raise SystemExit(f"kernels loaded from the cache disagree with "
+                         f"their plain twins: {bad}")
+    return out
+
+
+def flat_counts() -> dict:
+    """Every counted wrapper's launches by path in one dictionary:
+    GroupNorm's paths, then the table kernels'."""
+    from tensorflowonspark_torch.kernels import group_norm, sparse_adagrad
+
+    return {**group_norm.launches_by_path, **sparse_adagrad.launches_by_path}
+
+
+#: The counted path of each hand-written kernel, by the name a profiler
+#: trace gives it.  A graph replay calls no wrapper, so 16(b) counts a
+#: replay's launches from its trace, an eager step's too (the check that
+#: the names count what the wrappers count).
+TRACED_KERNELS = {
+    "gn_one_pass": "one_pass", "gn_stats": "two_pass",
+    "gn_finalize": "two_pass", "gn_apply": "two_pass",
+    "gn_bwd_one_pass": "backward_one_pass",
+    "gn_bwd_reduce": "backward_four_launch",
+    "gn_bwd_finalize": "backward_four_launch",
+    "gn_bwd_apply": "backward_four_launch",
+    "gn_bwd_params": "backward_four_launch",
+    "tfos_id_grouping": "group",
+    # one kernel for both modes (``combine`` is an argument)
+    "tfos_adagrad_segment_walk": "table update"}
+_KERNEL_TOKEN = re.compile(r"\b(gn_[a-z_]+|tfos_[a-z_]+)\b")
+
+
+def traced_launches(names) -> dict:
+    """``{counted path: kernels}`` of the hand-written kernels among
+    ``names`` (a profiler trace's kernel names, one per launch)."""
+    out = collections.Counter()
+    for name in names:
+        m = _KERNEL_TOKEN.search(name)
+        if m and m.group(1) in TRACED_KERNELS:
+            out[TRACED_KERNELS[m.group(1)]] += 1
+    return dict(out)
+
+
+def traced_plan(planned: dict) -> dict:
+    """What :func:`traced_launches` reads of one step launching
+    ``planned`` (by counted path): each one-kernel path's count, the two
+    table update modes together.  The multi-kernel paths are planned
+    nowhere in phase 16."""
+    if planned.get("two_pass") or planned.get("backward_four_launch"):
+        raise ValueError(f"no trace plan for a multi-kernel path: {planned}")
+    out = {k: v for k, v in planned.items()
+           if v and k not in ("sparse", "combine")}
+    update = planned.get("sparse", 0) + planned.get("combine", 0)
+    if update:
+        out["table update"] = update
+    return out
+
+
+#: spin kernels launched, then waited for, in a trace before the traced
+#: step: a torch.profiler trace drops its first few dozen device records
+#: on an H100 (with none, the first ≈ 8 GroupNorm forwards of a traced
+#: ResNet step, eager or replayed, were missing and every backward there;
+#: with 16 spin kernels, all 16 and 3-4 forwards; with 512, 0-45 spins)
+TRACE_WARMUP_LAUNCHES = 512
+
+
+def traced_step(trainer, batch) -> tuple:
+    """One ``trainer.step(batch)`` under torch.profiler (CUPTI, which
+    records a graph replay's kernels as it does an eager step's), after
+    ``TRACE_WARMUP_LAUNCHES`` spin kernels and a wait: the loss,
+    :func:`traced_launches` of what ran and how many of the spin kernels
+    the trace holds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_WARMUP_LAUNCHES):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+        loss = trainer.step(batch)
+        torch.cuda.synchronize()
+    names = [name for name, _ in device_kernels(prof, 1)]
+    return (loss, traced_launches(names),
+            sum("spin" in name.lower() or "sleep" in name.lower()
+                for name in names))
+
+
+def planned_launches(tables: dict) -> dict:
+    """Each phase-16(a) model's kernel launches a training step on their
+    planned paths (GroupNorm's and the table kernels' in one dict)."""
+    from tensorflowonspark_torch.kernels import sparse_adagrad
+
+    none = dict.fromkeys(sparse_adagrad.launches_by_path, 0)
+    gn = {"resnet50": launch_counts(one_pass=53, backward_one_pass=53),
+          "inception_v3": step_launches(tables["inception_v3 canonical"]),
+          "mobilenet_v1": step_launches(tables["mobilenet_v1"]),
+          "cifar10_cnn": step_launches(tables["cifar10_cnn"])}
+    zero = launch_counts()
+    out = {k: {**v, **none} for k, v in gn.items()}
+    out["mnist_mlp"] = out["bert"] = {**zero, **none}
+    for mode, path in WD_MODES:
+        out[f"wide_deep {mode}"] = {**zero, **none, "group": 1, path: 1}
+    return out
+
+
+def graph_cases() -> list:
+    """Phase 16(a)'s models: ``(label, zoo name, config, batch size, lr,
+    optimizer factory or None, batch maker (step index -> device batch))``,
+    each at its published widths."""
+    import dataclasses
+
+    import torch
+
+    from tensorflowonspark_torch.examples import bert_squad
+    from tensorflowonspark_torch.models import (bert, cifar, inception,
+                                                mnist, mobilenet, resnet,
+                                                widedeep)
+
+    def zoo(lib, config, n):
+        return lambda i: {k: torch.from_numpy(v).cuda() for k, v in
+                          lib.example_batch(config, n, seed=16 + i).items()}
+
+    cases = [
+        ("resnet50", "resnet50", resnet.Config(), 8, TRAIN_LR, None),
+        ("inception_v3", "inception_v3", inception.Config(canonical=True), 4,
+         TRAIN_LR, None),
+        ("mobilenet_v1", "mobilenet_v1", mobilenet.Config(), 8, TRAIN_LR,
+         None),
+        ("cifar10_cnn", "cifar10_cnn", cifar.Config(), 64, TRAIN_LR, None),
+        ("mnist_mlp", "mnist_mlp", mnist.Config(), MNIST_BATCH, TRAIN_LR,
+         None)]
+    libs = {"resnet50": resnet, "inception_v3": inception,
+            "mobilenet_v1": mobilenet, "cifar10_cnn": cifar,
+            "mnist_mlp": mnist}
+    out = [(label, name, config, n, lr, opt, zoo(libs[name], config, n))
+           for label, name, config, n, lr, opt in cases]
+    for mode, _ in WD_MODES:
+        config = dataclasses.replace(widedeep.Config(), table_update=mode)
+        out.append((f"wide_deep {mode}", "wide_deep", config, WD_BATCH,
+                    WD_LR, None, zoo(widedeep, config, WD_BATCH)))
+    for remat in (True, False):
+        config = bert.Config(remat=remat)
+        out.append((f"bert remat={remat}", "bert", config, BERT_TRAJ_BATCH,
+                    BERT_LR, bert_squad.make_optimizer(BERT_LR),
+                    lambda i, c=config: bert_device_batch(
+                        c, BERT_TRAJ_BATCH, seed=16 + i)))
+    return out
+
+
+def state_tensors(trainer) -> dict:
+    """Clones of everything a step updates: parameters, the optimizer's
+    state, the model's buffers (wide&deep's tables and accumulators)."""
+    out = {f"param/{k}": v.detach().clone()
+           for k, v in trainer.model.named_parameters()}
+    out.update({f"buffer/{k}": v.clone()
+                for k, v in trainer.model.named_buffers()})
+    for k, p in trainer.model.named_parameters():
+        for name, v in trainer.optimizer.state.get(p, {}).items():
+            if hasattr(v, "clone"):
+                out[f"opt/{k}/{name}"] = v.clone()
+    return out
+
+
+def state_gap(got: dict, want: dict) -> tuple:
+    """``(tensors whose bits differ, the largest rel max-abs gap)``."""
+    differ, worst = 0, 0.0
+    for k, w in want.items():
+        g = got[k]
+        if not (g.shape == w.shape and g.dtype == w.dtype
+                and bool((g == w).all())):
+            differ += 1
+            scale = float(w.float().abs().max()) or 1.0
+            worst = max(worst, float((g.float() - w.float()).abs().max())
+                        / scale)
+    return differ, worst
+
+
+def run_trajectory(name, config, lr, optimizer, batches, mode: str,
+                   save_to: str | None = None) -> dict:
+    """``GRAPH_STEPS`` steps of a fresh seed-0 ``Trainer`` on ``batches``:
+    ``mode`` ``graph`` (its compiled step), ``eager`` (the step swapped for
+    the eager one, ``make_train_step``'s or ``make_sharded_train_step``'s)
+    or ``stale`` (the planted fault: replays whose static inputs keep the
+    capture's batch).  The losses, each step's launches counted by the
+    wrappers, the kernels a profiler trace counts in step
+    ``GRAPH_TRACED_STEP`` (not in a stale run), what the compiled step
+    did, and the final state; ``save_to`` checkpoints the step
+    ``GRAPH_RESTORE_AT`` state there, and then (d) restores it after the
+    run and steps again."""
+    import torch
+
+    from tensorflowonspark_torch.trainer import Trainer
+
+    t = Trainer(name, config=config, learning_rate=lr, seed=0,
+                device="cuda", optimizer=optimizer)
+    if mode == "eager":
+        t.train_step = eager_step(t)
+    elif mode == "stale":
+        t.train_step = StaleInputsStep(t.train_step.step, t.shard)
+    losses, launches, actions, traced, warm = [], [], [], None, None
+    for i, batch in enumerate(batches):
+        before = flat_counts()
+        if i == GRAPH_TRACED_STEP and mode != "stale":
+            loss, traced, warm = traced_step(t, batch)
+        else:
+            loss = t.step(batch)
+        losses.append(loss)
+        torch.cuda.synchronize()
+        launches.append({k: v - before[k] for k, v in flat_counts().items()})
+        actions.append(getattr(t.train_step, "last", "eager"))
+        if save_to and i + 1 == GRAPH_RESTORE_AT:
+            t.save(save_to)
+    out = {"losses": [float(v) for v in losses], "launches": launches,
+           "traced": traced, "warmup_traced": warm, "actions": actions,
+           "state": state_tensors(t)}
+    if save_to:
+        t.restore(save_to)
+        again, actions = [], []
+        for b in batches[GRAPH_RESTORE_AT:]:
+            again.append(t.step(b))
+            actions.append(t.train_step.last)
+        out["restored"] = {"losses": [float(v) for v in again],
+                           "state": state_tensors(t),
+                           "step": int(t.state.step), "actions": actions}
+    del t
+    return out
+
+
+def eager_step(trainer):
+    """``trainer``'s eager step (``make_train_step``'s or a zoo module's
+    own) in place of its compiled one, on the batch ``trainer.shard``
+    stages."""
+    step = trainer.train_step.step
+    return lambda state, batch: step(state, trainer.shard(batch))
+
+
+class StaleInputsStep:
+    """The planted fault of 16(c): a compiled step whose replays never
+    refresh their static inputs, so each trains on the capture's batch.
+    Built lazily as a ``CompiledStep`` subclass (the module imports no
+    torch at its top)."""
+
+    def __new__(cls, step, shard=None):
+        from tensorflowonspark_torch.parallel import train as train_lib
+
+        class _Stale(train_lib.CompiledStep):
+            def _refresh(self, static_leaves, leaves):
+                # only the capture's own fill: not yet a captured graph's
+                if not any(c.static_leaves is static_leaves
+                           for c in self._captured.values()):
+                    super()._refresh(static_leaves, leaves)
+
+        return _Stale(step, shard=shard)
+
+
+def trajectory_gate(label: str, graph: dict, eager: dict,
+                    planned: dict) -> list:
+    """Phase 16(a)-(b)'s gates for one model: the graph run's losses and
+    final state bit for bit the eager run's (BERT: the first loss bit for
+    bit, the rest within ``GRAPH_BERT_LOSS_REL``); the graph run eager,
+    captured, then replayed; the wrappers counting the planned launches in
+    every eager step and in the capture, none in a replay (which calls no
+    wrapper); and the profiler's trace of a replay and of an eager step
+    each counting the planned kernels (:func:`traced_plan`)."""
+    failures = []
+    bert = label.startswith("bert")
+    g, e = graph["losses"], eager["losses"]
+    rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(g, e))
+    if bert:
+        if g[0] != e[0] or rel > GRAPH_BERT_LOSS_REL:
+            failures.append(f"{label} (a) losses: first equal {g[0] == e[0]},"
+                            f" max rel {rel:.3e}")
+    elif g != e:
+        failures.append(f"{label} (a) losses differ (max rel {rel:.3e})")
+    differ, worst = state_gap(graph["state"], eager["state"])
+    if differ and not bert:
+        failures.append(f"{label} (a) {differ} state tensors differ "
+                        f"(worst rel {worst:.3e})")
+    want_actions = ["eager", "capture"] + ["replay"] * (len(g) - 2)
+    if graph["actions"] != want_actions:
+        failures.append(f"{label} (a) actions {graph['actions']}")
+    none = dict.fromkeys(planned, 0)
+    wants = {"graph": [planned, planned] + [none] * (len(g) - 2),
+             "eager": [planned] * len(e)}
+    for run, name in ((graph, "graph"), (eager, "eager")):
+        bad = [i + 1 for i, (d, w) in enumerate(zip(run["launches"],
+                                                    wants[name])) if d != w]
+        if bad:
+            failures.append(f"{label} (b) {name} steps {bad} counted "
+                            f"{run['launches'][bad[0] - 1]}, want "
+                            f"{wants[name][bad[0] - 1]}")
+    traced = traced_plan(planned)
+    for run, name in ((graph, "graph"), (eager, "eager")):
+        if run["traced"] != traced:
+            failures.append(f"{label} (b) the trace of {name} step "
+                            f"{GRAPH_TRACED_STEP + 1} ran {run['traced']}, "
+                            f"planned {traced}")
+    print(f"compiled step (a)-(b) {label}: losses graph "
+          f"{[round(v, 5) for v in g]}; eager {[round(v, 5) for v in e]}; "
+          f"max rel {rel:.3e}; state tensors differing {differ} of "
+          f"{len(eager['state'])} (worst rel {worst:.3e}); planned a step "
+          f"{ {k: v for k, v in planned.items() if v} or 'none'}: counted "
+          f"by the wrappers in every eager step and the capture, none in a "
+          f"replay, and traced in step {GRAPH_TRACED_STEP + 1} (replay "
+          f"{graph['traced'] or 'none'}, eager {eager['traced'] or 'none'};"
+          f" spin kernels before them in the traces "
+          f"{graph.get('warmup_traced')} and {eager.get('warmup_traced')} of "
+          f"{TRACE_WARMUP_LAUNCHES}): {not any('(b)' in f for f in failures)}"
+          f"; "
+          f"steps {graph['actions']}"
+          + (" (gate: first loss bit for bit, the rest within "
+             f"{GRAPH_BERT_LOSS_REL})" if bert else " (gate: bit for bit)"),
+          flush=True)
+    return failures
+
+
+def graph_numbers(label: str, make_trainer, batch, unit: str, per_step: int,
+                  modes=("eager", "captured")) -> dict:
+    """Phase 16(e) for one trainer, each mode on the same process and card:
+    rate (CUDA events over ``GRAPH_TIMED_STEPS`` steps), device busy ms a
+    step and the idle share (torch.profiler), the host µs of
+    ``Trainer.step`` (median wall of calls made on an idle card, and in the
+    timed loop, where a long graph's launch waits for room in the device's
+    queue), captured: split into ``graph.replay()`` alone on an idle card,
+    the batch's copy into the static inputs and the rest, the capture's
+    seconds, and peak memory allocated and reserved."""
+    import statistics
+
+    import torch
+
+    t = make_trainer()
+    compiled = t.train_step
+    eager = eager_step(t)
+    out = {}
+    for mode in modes:
+        t.train_step = eager if mode == "eager" else compiled
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        capture_s = None
+        t.step(batch)  # eager: warm-up; captured: the first sighting
+        if mode != "eager":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.step(batch)
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            if compiled.last != "capture":
+                raise SystemExit(f"{label}: the second step did not capture "
+                                 f"({compiled.last})")
+        t.step(batch)
+        walls = []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(GRAPH_TIMED_STEPS):
+            w0 = time.perf_counter()
+            t.step(batch)
+            walls.append(time.perf_counter() - w0)
+        end.record()
+        end.synchronize()
+        step_ms = start.elapsed_time(end) / GRAPH_TIMED_STEPS
+        # the host's own cost a step: each call on an idle card, so that
+        # no launch waits for room in the device's queue
+        host, inputs = [], []
+        for _ in range(GRAPH_TIMED_STEPS):
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            t.step(batch)
+            host.append(time.perf_counter() - w0)
+            inputs.append(getattr(t.train_step, "input_s", 0.0))
+        split = {}
+        if mode != "eager":
+            # graph.replay() alone: the same graph, on an idle card (it
+            # trains one more step each; nothing after reads the state)
+            graph, replays = compiled.graph_of(batch).graph, []
+            for _ in range(GRAPH_TIMED_STEPS):
+                torch.cuda.synchronize()
+                w0 = time.perf_counter()
+                graph.replay()
+                replays.append(time.perf_counter() - w0)
+            split = {"replay_us": statistics.median(replays) * 1e6,
+                     "input_us": statistics.median(inputs) * 1e6}
+            split["rest_us"] = (statistics.median(host) * 1e6
+                                - split["replay_us"] - split["input_us"])
+        busy = profiled_busy_ms(lambda: t.step(batch), GRAPH_PROFILED_STEPS)
+        out[mode] = {**split,
+            "step_ms": step_ms, "rate": per_step * 1e3 / step_ms,
+            "busy_ms": busy,
+            "idle_share": None if busy is None else max(0.0,
+                                                        1 - busy / step_ms),
+            "host_us": statistics.median(host) * 1e6,
+            "loop_host_us": statistics.median(walls) * 1e6,
+            "capture_s": capture_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+    parts = []
+    for mode, m in out.items():
+        idle = ("not measured" if m["idle_share"] is None
+                else f"{m['idle_share']:.1%}")
+        busy = ("not measured" if m["busy_ms"] is None
+                else f"{m['busy_ms']:.3f}")
+        split = (f" = graph.replay() alone {m['replay_us']:.1f} + the batch "
+                 f"into the static inputs {m['input_us']:.1f} + the rest "
+                 f"{m['rest_us']:.1f}" if "replay_us" in m else "")
+        parts.append(
+            f"{mode} {m['step_ms']:.4f} ms = {m['rate']:.1f} {unit}/s, busy "
+            f"{busy} ms (idle {idle}), host {m['host_us']:.1f} us a step "
+            f"on an idle card{split} ({m['loop_host_us']:.1f} in the timed "
+            f"loop), "
+            + (f"capture {m['capture_s']:.3f} s, "
+               if m["capture_s"] is not None else "")
+            + f"peak {m['peak_gb']:.2f} GB allocated / "
+              f"{m['peak_reserved_gb']:.2f} GB reserved")
+    print(f"compiled step (e) {label}: " + "; ".join(parts), flush=True)
+    del t, compiled
+    torch.cuda.empty_cache()
+    return out
+
+
+def profiled_busy_ms(fn, calls: int) -> float | None:
+    """Device busy ms per call of ``fn`` (torch.profiler, CUPTI), or None
+    when the profiler recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(ms for _, ms in device_kernels(prof, calls))
+    return busy or None
+
+
+def graph_number_cases() -> list:
+    """Phase 16(e)'s configurations: ``(label, trainer factory, batch, unit,
+    units a step, modes)``; the ``foreach`` AdamW (capturable) captured
+    beside the default, ``fused=True``."""
+    import dataclasses
+
+    import torch
+
+    from tensorflowonspark_torch import trainer as trainer_mod
+    from tensorflowonspark_torch.examples import bert_squad
+    from tensorflowonspark_torch.models import (bert, inception, resnet,
+                                                widedeep)
+    from tensorflowonspark_torch.trainer import Trainer
+
+    def foreach(lr, weight_decay=trainer_mod.ADAMW_WEIGHT_DECAY):
+        def optimizer(params):
+            return torch.optim.AdamW(
+                list(params), lr=lr, betas=trainer_mod.ADAMW_BETAS,
+                eps=trainer_mod.ADAMW_EPS, weight_decay=weight_decay,
+                foreach=True, capturable=True)
+        return optimizer
+
+    def zoo_batch(lib, config, n, seed=16):
+        return {k: torch.from_numpy(v).cuda()
+                for k, v in lib.example_batch(config, n, seed=seed).items()}
+
+    cases = []
+    for mode, _ in WD_MODES:
+        config = dataclasses.replace(widedeep.Config(), table_update=mode)
+        cases.append((f"wide_deep {mode} batch {WD_BATCH}",
+                      lambda c=config: Trainer("wide_deep", config=c,
+                                               learning_rate=WD_LR,
+                                               device="cuda"),
+                      zoo_batch(widedeep, config, WD_BATCH), "steps", 1,
+                      ("eager", "captured")))
+    config = dataclasses.replace(widedeep.Config(), table_update="dense")
+    cases.append((f"wide_deep dense batch {WD_BATCH} foreach AdamW",
+                  lambda c=config: Trainer("wide_deep", config=c,
+                                           device="cuda",
+                                           optimizer=foreach(WD_LR)),
+                  zoo_batch(widedeep, config, WD_BATCH), "steps", 1,
+                  ("captured",)))
+    config = inception.Config(canonical=True)
+    cases.append((f"inception_v3 canonical batch {INCEPTION_STEP_BATCH}",
+                  lambda c=config: Trainer("inception_v3", config=c,
+                                           learning_rate=TRAIN_LR,
+                                           device="cuda"),
+                  zoo_batch(inception, config, INCEPTION_STEP_BATCH),
+                  "images", INCEPTION_STEP_BATCH, ("eager", "captured")))
+    for remat in (True, False):
+        c = bert.Config(remat=remat)
+        cases.append((f"bert-base remat={remat} batch {BERT_STEP_BATCH} x "
+                      f"{BERT_SEQ}",
+                      lambda c=c: Trainer(
+                          "bert", config=c, device="cuda",
+                          optimizer=bert_squad.make_optimizer(BERT_LR)),
+                      bert_device_batch(c, BERT_STEP_BATCH, seed=16),
+                      "sequences", BERT_STEP_BATCH, ("eager", "captured")))
+    c = bert.Config()
+    cases.append((f"bert-base remat=False batch {BERT_STEP_BATCH} x "
+                  f"{BERT_SEQ} foreach AdamW",
+                  lambda c=c: Trainer("bert", config=c, device="cuda",
+                                      optimizer=foreach(
+                                          BERT_LR, bert_squad.WEIGHT_DECAY)),
+                  bert_device_batch(c, BERT_STEP_BATCH, seed=16),
+                  "sequences", BERT_STEP_BATCH, ("captured",)))
+    config = resnet.Config()
+    for n in (SLICE_TRAIN_BATCH, MODEL_BATCH):
+        cases.append((f"resnet50 batch {n}",
+                      lambda c=config: Trainer("resnet50", config=c,
+                                               learning_rate=TRAIN_LR,
+                                               device="cuda"),
+                      zoo_batch(resnet, config, n), "images", n,
+                      ("eager", "captured")))
+    cases.append((f"resnet50 batch {MODEL_BATCH} foreach AdamW",
+                  lambda c=config: Trainer("resnet50", config=c,
+                                           device="cuda",
+                                           optimizer=foreach(TRAIN_LR)),
+                  zoo_batch(resnet, config, MODEL_BATCH), "images",
+                  MODEL_BATCH, ("captured",)))
+    return cases
+
+
+def start_cache_process(build_dir: str, cache_dir: str, nvcc: bool,
+                        launch: bool):
+    """Phase 16(f)'s subprocess (``CACHE_PROCESS_SCRIPT``), started from
+    the repository root with ``TFOS_COMPILE_CACHE_DIR=cache_dir``."""
+    env = {**os.environ, "TFOS_COMPILE_CACHE_DIR": cache_dir}
+    env.pop("TFOS_COMPILE_CACHE", None)
+    return subprocess.Popen(
+        [sys.executable, "-c", CACHE_PROCESS_SCRIPT, build_dir,
+         "1" if nvcc else "0", "1" if launch else "0"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_cache_process(proc, label: str) -> dict:
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise SystemExit(f"compiled step (f) {label} process failed (exit "
+                         f"{proc.returncode}):\n{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def corrupt_entry(cache_dir: str, name: str) -> str:
+    """Flip bytes in the middle of the stored library ``name`` (a prefix of
+    its file name) under ``cache_dir``'s one namespace; returns its path."""
+    (namespace,) = [os.path.join(cache_dir, d) for d in os.listdir(cache_dir)]
+    (entry,) = [os.path.join(namespace, f) for f in os.listdir(namespace)
+                if f.startswith(name + "-") and f.endswith(".so")]
+    with open(entry, "r+b") as f:
+        f.seek(os.path.getsize(entry) // 2)
+        f.write(b"\x5a" * 32)
+    return entry
+
+
+def cache_gates(first: dict, second: dict, third: dict) -> list:
+    """Phase 16(f)'s gates: the first process built and wrote all three
+    libraries; the second, with no nvcc, loaded all three from the cache
+    and its kernels match their twins; the third found the corrupted entry,
+    rejected it and rebuilt (and wrote) that one, and loaded the rest."""
+    n = len(first["libraries"])
+    failures = []
+    if (first["disk_writes"], first["disk_hits"]) != (n, 0):
+        failures.append(f"(f) build process wrote {first['disk_writes']} and"
+                        f" hit {first['disk_hits']} of {n}")
+    if (second["disk_hits"], second["disk_writes"],
+            second["disk_corrupt"]) != (n, 0, 0):
+        failures.append(f"(f) nvcc-less process: hits {second['disk_hits']}, "
+                        f"writes {second['disk_writes']}, corrupt "
+                        f"{second['disk_corrupt']} (want {n}, 0, 0)")
+    if second["libraries"] != first["libraries"] or not second.get("twins"):
+        failures.append("(f) nvcc-less process: libraries or launches")
+    if (third["disk_corrupt"], third["disk_writes"],
+            third["disk_hits"]) != (1, 1, n - 1):
+        failures.append(f"(f) corrupted entry: corrupt "
+                        f"{third['disk_corrupt']}, writes "
+                        f"{third['disk_writes']}, hits {third['disk_hits']} "
+                        f"(want 1, 1, {n - 1})")
+    return failures
+
+
+def compiled_step_phase(work: str) -> dict:
+    """Phase 16 (see the module docstring)."""
+    import torch
+
+    t16 = time.perf_counter()
+    failures, seconds = [], {}
+    # (f)'s first process builds while (a)-(e) run on the card
+    cache_dir = os.path.join(work, "compile_cache")
+    first_proc = start_cache_process(os.path.join(work, "build_first"),
+                                     cache_dir, nvcc=True, launch=False)
+    planned = planned_launches(zoo_site_tables())
+    counts0 = flat_counts()
+    replay_traced = collections.Counter()  # (b)'s traced replays, by path
+
+    # (a)-(d): trajectories, launches, the planted fault, restore
+    t0 = time.perf_counter()
+    eager_wd = None
+    for label, name, config, _, lr, opt, make_batch in graph_cases():
+        batches = [make_batch(i) for i in range(GRAPH_STEPS)]
+        save_to = (os.path.join(work, "graph_restore")
+                   if label == "resnet50" else None)
+        graph = run_trajectory(name, config, lr, opt, batches, "graph",
+                               save_to)
+        torch.cuda.empty_cache()
+        eager = run_trajectory(name, config, lr, opt, batches, "eager")
+        torch.cuda.empty_cache()
+        plan = planned[label.split(" remat")[0]]
+        failures += trajectory_gate(label, graph, eager, plan)
+        for path, n in (graph["traced"] or {}).items():
+            if path == "table update":
+                path = "combine" if plan["combine"] else "sparse"
+            replay_traced[path] += n
+        if save_to:
+            r = graph["restored"]
+            want = graph["losses"][GRAPH_RESTORE_AT:]
+            differ, worst = state_gap(r["state"], graph["state"])
+            ok = (r["losses"] == want and not differ
+                  and r["step"] == len(batches)
+                  and r["actions"] == ["eager", "capture", "replay",
+                                       "replay"])
+            print(f"compiled step (d) {label}: the step-{GRAPH_RESTORE_AT} "
+                  f"checkpoint restored into the trainer that had captured "
+                  f"(its graphs dropped), then steps "
+                  f"{GRAPH_RESTORE_AT + 1}-{len(batches)}: losses "
+                  f"{[round(v, 5) for v in r['losses']]} against the "
+                  f"uninterrupted {[round(v, 5) for v in want]}; state "
+                  f"tensors differing {differ} (worst rel {worst:.3e}); "
+                  f"steps {r['actions']}; bit for bit: {ok}", flush=True)
+            if not ok:
+                failures.append(f"{label} (d) restore after capture")
+        if label == "wide_deep dense":
+            eager_wd = (name, config, lr, opt, batches, eager)
+        del graph, eager, batches
+        torch.cuda.empty_cache()
+    # (c) the planted fault: replays that keep the capture's batch
+    name, config, lr, opt, batches, eager = eager_wd
+    stale = run_trajectory(name, config, lr, opt, batches, "stale")
+    caught = stale["losses"] != eager["losses"]
+    print(f"compiled step (c) planted fault (wide_deep dense: replays whose "
+          f"static inputs are not refreshed): losses "
+          f"{[round(v, 5) for v in stale['losses']]} against eager "
+          f"{[round(v, 5) for v in eager['losses']]}: "
+          f"{'caught' if caught else 'MISSED'} by gate (a)", flush=True)
+    if not caught:
+        failures.append("(c) the planted stale-input fault was not caught")
+    del stale, eager_wd, eager, batches
+    torch.cuda.empty_cache()
+    seconds["a-d"] = time.perf_counter() - t0
+    launches = {k: v - counts0[k] for k, v in flat_counts().items()}
+
+    # (e) eager beside captured
+    t0 = time.perf_counter()
+    numbers = {}
+    for label, make, batch, unit, per_step, modes in graph_number_cases():
+        numbers[label] = graph_numbers(label, make, batch, unit, per_step,
+                                       modes)
+        del batch
+    seconds["e"] = time.perf_counter() - t0
+
+    # (f) the compile cache
+    t0 = time.perf_counter()
+    first = finish_cache_process(first_proc, "build")
+    spare = os.path.join(work, "compile_cache_corrupted")
+    shutil.copytree(cache_dir, spare)
+    corrupted = corrupt_entry(spare, "group_norm")
+    second_proc = start_cache_process(os.path.join(work, "build_second"),
+                                      cache_dir, nvcc=False, launch=True)
+    third_proc = start_cache_process(os.path.join(work, "build_third"),
+                                     spare, nvcc=True, launch=False)
+    second = finish_cache_process(second_proc, "nvcc-less load")
+    third = finish_cache_process(third_proc, "corrupted entry")
+    cache_failures = cache_gates(first, second, third)
+    print(f"compiled step (f) compile cache at {cache_dir}: build process "
+          f"{first['build_or_load_s']:.2f} s for {first['libraries']} "
+          f"(hits {first['disk_hits']}, writes {first['disk_writes']}, "
+          f"corrupt {first['disk_corrupt']}); process without nvcc loaded "
+          f"them in {second['build_or_load_s']:.3f} s after "
+          f"{second['configure_s']:.2f} s configuring the cache (hits "
+          f"{second['disk_hits']}, writes {second['disk_writes']}, corrupt "
+          f"{second['disk_corrupt']}), each kernel against its plain twin "
+          f"{second.get('twins')}; a copy with "
+          f"{os.path.basename(corrupted)} corrupted: "
+          f"{third['build_or_load_s']:.2f} s (corrupt "
+          f"{third['disk_corrupt']}, rebuilt and written "
+          f"{third['disk_writes']}, hits {third['disk_hits']}); namespace "
+          f"{second['namespace']}", flush=True)
+    failures += cache_failures
+    seconds["f"] = time.perf_counter() - t0
+    total = time.perf_counter() - t16
+    print(f"compiled step phase 16 seconds: (a)-(d) {seconds['a-d']:.1f}, "
+          f"(e) {seconds['e']:.1f}, (f) {seconds['f']:.1f}; phase 16 "
+          f"{total:.1f} (budget {PHASE16_BUDGET_S} s)", flush=True)
+    if failures:
+        raise SystemExit("compiled-step phase failed: " + "; ".join(failures))
+    return {"launches": launches, "replay_traced": dict(replay_traced),
+            "numbers": numbers,
+            "cache": {"first": first, "second": second, "third": third},
+            "seconds": total}
+
+
+def phase16_alone(card: str) -> int:
+    """``--phase 16``: phase 16 in a scratch directory, then the card
+    line."""
+    work = tempfile.mkdtemp(prefix="tfos_torch_graph_")
+    try:
+        compiled_step_phase(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(card)
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(
+        description="Drive the PyTorch port on one CUDA card (every phase "
+                    "with no arguments).")
+    parser.add_argument("--phase", type=int, choices=(16,),
+                        help="run the build and this phase alone")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this script "
               "needs a CUDA card", file=sys.stderr)
@@ -4386,6 +5286,9 @@ def main() -> int:
     libs = _build.build_all()
     print(f"build: {len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'}"
           f" in {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.phase == 16:
+        return phase16_alone(card)
+    ends = [time.perf_counter()]  # each phase's end, from phase 1 (build)
 
     config = resnet.Config()
     model = resnet.make_model(config, seed=0).cuda().eval()
@@ -4398,20 +5301,33 @@ def main() -> int:
         raise SystemExit(f"expected 53 norm calls per forward, got "
                          f"{len(sites)}")
     kern = kernel_phase(sites)
+    ends.append(time.perf_counter())
     model_phase(model, f32_model)
     del f32_model
+    ends.append(time.perf_counter())
     serving = slice_phase(model)
     del model
     torch.cuda.empty_cache()
+    ends.append(time.perf_counter())
     kern.update(backward_phase(sites))
+    ends.append(time.perf_counter())
     train_model = train_model_phase()
+    ends.append(time.perf_counter())
     main_path = train_slice_phase()
+    ends.append(time.perf_counter())
     tables = table_kernel_phase()
+    ends.append(time.perf_counter())
     wd_train = wd_train_model_phase()
+    ends.append(time.perf_counter())
     wd_slice = wd_slice_phase()
+    ends.append(time.perf_counter())
     print("wide_deep steps/s at batch 1024: " + "; ".join(
         f"{mode}: Trainer.step {wd_train[mode]['steps_per_s']:.1f}, slice "
         f"{wd_slice[path]['steps_per_s']}" for mode, path in WD_MODES),
+        flush=True)
+    print("seconds: " + ", ".join(
+        f"phase {i + 1} {end - start:.1f}"
+        for i, (start, end) in enumerate(zip([t_start] + ends, ends))),
         flush=True)
     # one application for phases 11-14: its executor carries over from one
     # job to the next, as a Spark application's executors do
@@ -4430,6 +5346,8 @@ def main() -> int:
         zoo = zoo_phase(sc, work)
         t15 = time.perf_counter()
         bert_base = bert_phase(sc, work)
+        t16 = time.perf_counter()
+        compiled = compiled_step_phase(work)
     finally:
         sc.stop()
         shutil.rmtree(work, ignore_errors=True)
@@ -4453,7 +5371,8 @@ def main() -> int:
           f"{wd_train['dense']['steps_per_s']:.1f}", flush=True)
     print(f"seconds: phase 11 {t12 - t11:.1f}, phase 12 {t13 - t12:.1f}, "
           f"phase 13 {t14 - t13:.1f}, phase 14 {t15 - t14:.1f}, phase 15 "
-          f"{t_end - t15:.1f}; all phases {t_end - t_start:.1f}", flush=True)
+          f"{t16 - t15:.1f}, phase 16 {t_end - t16:.1f}; all phases "
+          f"{t_end - t_start:.1f}", flush=True)
 
     print(card)  # as nvidia-smi gives it: name, power limit
     names = {"one_pass": "group_norm_act (one_pass)",
@@ -4473,6 +5392,8 @@ def main() -> int:
         "launches_phase13": persistence["launches"].get(path, 0),
         "launches_phase14": zoo["launches"].get(path, 0),
         "launches_phase15": bert_base["launches"][path],
+        "launches_phase16": compiled["launches"][path],
+        "replay_launches_phase16": compiled["replay_traced"].get(path, 0),
         **kern[path], **phase14_entry(zoo["kernels"], path)}
         for path in names]
     grouping = tables["combine"]
@@ -4485,6 +5406,8 @@ def main() -> int:
         "launches_phase13": persistence["launches"].get("group", 0),
         "launches_phase14": zoo["table_launches"]["group"],
         "launches_phase15": bert_base["launches"]["group"],
+        "launches_phase16": compiled["launches"]["group"],
+        "replay_launches_phase16": compiled["replay_traced"].get("group", 0),
         "max_abs_err": 0.0, "ms": grouping["group_ms"],
         "device_ms": grouping["group_device_ms"],
         "plain_ms": grouping["group_plain_ms"],
@@ -4502,6 +5425,8 @@ def main() -> int:
         "launches_phase13": persistence["launches"].get(path, 0),
         "launches_phase14": zoo["table_launches"][path],
         "launches_phase15": bert_base["launches"][path],
+        "launches_phase16": compiled["launches"][path],
+        "replay_launches_phase16": compiled["replay_traced"].get(path, 0),
         **tables[path]}
         for _, path in WD_MODES]
     print(json.dumps({"kernels": kernels}))

@@ -49,12 +49,17 @@ def check_parallelism(args) -> None:
 
 
 def make_optimizer(lr: float):
-    """The example's AdamW (``optax.adamw(lr, weight_decay=0.01)``)."""
+    """The example's AdamW (``optax.adamw(lr, weight_decay=0.01)``),
+    capturable and fused on a card (``trainer.card_adamw``)."""
     import torch
 
+    from tensorflowonspark_torch.trainer import card_adamw
+
     def optimizer(params):
+        params = list(params)
         return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999),
-                                 eps=1e-8, weight_decay=WEIGHT_DECAY)
+                                 eps=1e-8, weight_decay=WEIGHT_DECAY,
+                                 **card_adamw(params))
 
     return optimizer
 

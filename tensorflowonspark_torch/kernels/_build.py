@@ -11,6 +11,12 @@ executor processes building at once never load a half-written file.
 Nothing here runs at import: this module imports on a host without
 ``nvcc`` (the CPU tests do), and only :func:`load` / :func:`build_all`
 need the toolkit.  A missing compiler or a failed build raises.
+
+Both look in the persistent store first (``compile_cache``, when
+``TFOS_COMPILE_CACHE_DIR`` is set): a library found there, digest
+verified, is copied into ``_build/`` under a temporary name and moved into
+place, and ``nvcc`` is never looked for; a fresh build is written to the
+store for the rest of the fleet.
 """
 
 from __future__ import annotations
@@ -73,11 +79,21 @@ def find_nvcc() -> str:
         "installed")
 
 
-def _start(name: str, nvcc: str,
-           defines: tuple = ()) -> tuple[subprocess.Popen, str, str] | None:
+def _cached(name: str, defines: tuple = ()) -> bool:
+    """Whether ``name``'s library is in ``_build/``, after a look in the
+    persistent store (which copies a hit there)."""
+    from tensorflowonspark_torch import compile_cache
+
     out = library_path(name, defines)
     if os.path.exists(out):
-        return None
+        return True
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    return compile_cache.fetch(os.path.basename(out), out)
+
+
+def _start(name: str, nvcc: str,
+           defines: tuple = ()) -> tuple[subprocess.Popen, str, str]:
+    out = library_path(name, defines)
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
     cmd = [nvcc, *_flags(defines), "-o", tmp,
@@ -88,6 +104,8 @@ def _start(name: str, nvcc: str,
 
 
 def _finish(name: str, job: tuple[subprocess.Popen, str, str]) -> None:
+    from tensorflowonspark_torch import compile_cache
+
     proc, tmp, out = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
@@ -96,19 +114,20 @@ def _finish(name: str, job: tuple[subprocess.Popen, str, str]) -> None:
         raise RuntimeError(
             f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
+    compile_cache.store(out)
 
 
 def build_all(names=None, defines: tuple = ()) -> list[str]:
-    """Compile every source (or ``names``) that has no up-to-date library,
-    with ``defines`` as ``-D`` macros, all ``nvcc`` processes started
-    together.  Returns the library paths."""
+    """Compile every source (or ``names``) that has no up-to-date library
+    (in ``_build/`` or the persistent store), with ``defines`` as ``-D``
+    macros, all ``nvcc`` processes started together.  Returns the library
+    paths."""
     names = sources() if names is None else list(names)
-    nvcc = find_nvcc()
-    jobs = {n: _start(n, nvcc, defines) for n in names}
+    missing = [n for n in names if not _cached(n, defines)]
+    nvcc = find_nvcc() if missing else None
+    jobs = {n: _start(n, nvcc, defines) for n in missing}
     failures = []
     for n, job in jobs.items():
-        if job is None:
-            continue
         try:
             _finish(n, job)
         except RuntimeError as e:  # finish the other builds, then raise all
@@ -125,10 +144,8 @@ def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
         lib = _LIBS.get((name, defines))
         if lib is None:
             path = library_path(name, defines)
-            job = (None if os.path.exists(path)
-                   else _start(name, find_nvcc(), defines))
-            if job is not None:
-                _finish(name, job)
+            if not _cached(name, defines):
+                _finish(name, _start(name, find_nvcc(), defines))
             lib = ctypes.CDLL(path)
             _LIBS[(name, defines)] = lib
         return lib

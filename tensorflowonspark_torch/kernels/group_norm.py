@@ -59,8 +59,10 @@ import torch
 
 #: Kernel launches in this process: one per :func:`group_norm_act` call
 #: that reached a forward kernel and one per backward that reached the
-#: backward kernel.  Plain int; :func:`reset_launches` zeroes it and
-#: :data:`launches_by_path`.
+#: backward kernel (inside a CUDA graph's capture too, where the launch is
+#: recorded; a replay of the graph calls no wrapper and counts nothing:
+#: ``parallel.train.replayed_steps``).  Plain int; :func:`reset_launches`
+#: zeroes it and :data:`launches_by_path`.
 launches = 0
 #: The same launches, by the path :func:`_plan` (forwards) or
 #: :func:`_plan_backward` (backwards) chose: one count per wrapper call.
@@ -84,6 +86,9 @@ _PREPARED: set = set()
 _CAPACITY: dict = {}
 # (device index, stream, n, c, groups, path): the backward's scratch
 _BWD_SCRATCH: dict = {}
+# while a CUDA graph is captured: the dict its owner keeps the captured
+# backwards' scratch in (see capture_scratch)
+_CAPTURE_SCRATCH: dict | None = None
 
 
 class Plan(NamedTuple):
@@ -530,6 +535,23 @@ def _bwd_lib():
     return _BWD_LIB
 
 
+@contextlib.contextmanager
+def capture_scratch(held: dict):
+    """While a CUDA graph is captured, keep the backward's scratch in
+    ``held``, which the graph's owner keeps as long as the graph (the
+    compiled step does).  A buffer allocated during a capture comes from
+    the graph's memory pool, and the graph writes it at every replay: were
+    it evicted from the shared cache, the pool could hand its memory to
+    another tensor under a live graph.  The ``torch.zeros`` that makes a
+    buffer is captured too, so each replay zeroes it first."""
+    global _CAPTURE_SCRATCH
+    outer, _CAPTURE_SCRATCH = _CAPTURE_SCRATCH, held
+    try:
+        yield held
+    finally:
+        _CAPTURE_SCRATCH = outer
+
+
 def _bwd_scratch(device: torch.device, stream: int, n: int, c: int,
                  groups: int, plan: BwdPlan) -> torch.Tensor:
     """The backward's f32 scratch, allocated once per (device, stream, n,
@@ -537,18 +559,21 @@ def _bwd_scratch(device: torch.device, stream: int, n: int, c: int,
     per-sample channel sums and ``_TICKETS`` int tickets (which each launch
     leaves at 0); for ``four_launch`` the partials (N, chunks, C, 2), the
     channel sums (N, C, 2) and the coefficients (N, G, 2).  Calls on one
-    stream run in order, so they may share it."""
+    stream run in order, so they may share it.  Under
+    :func:`capture_scratch` the buffers live in the capture's own dict,
+    never evicted."""
     if plan.path == "one_pass":
         numel = n * c * 2 + _TICKETS
     else:
         numel = n * plan.chunks * c * 2 + n * c * 2 + n * groups * 2
     key = (device, stream, n, c, groups, plan.path)
-    buf = _BWD_SCRATCH.get(key)
+    cache = _BWD_SCRATCH if _CAPTURE_SCRATCH is None else _CAPTURE_SCRATCH
+    buf = cache.get(key)
     if buf is None or buf.numel() < numel:
-        if len(_BWD_SCRATCH) >= _SCRATCH_KEYS:
-            _BWD_SCRATCH.clear()  # freed in stream order: no launch races
-        buf = _BWD_SCRATCH[key] = torch.zeros(numel, dtype=torch.float32,
-                                              device=device)
+        if cache is _BWD_SCRATCH and len(cache) >= _SCRATCH_KEYS:
+            cache.clear()  # freed in stream order: no launch races
+        buf = cache[key] = torch.zeros(numel, dtype=torch.float32,
+                                       device=device)
     return buf
 
 

@@ -25,7 +25,9 @@ from typing import NamedTuple
 
 import torch
 
-#: Kernel launches in this process: one per :func:`group` or :func:`update`.
+#: Kernel launches in this process: one per :func:`group` or :func:`update`
+#: (inside a CUDA graph's capture too; a replay of the graph calls no
+#: wrapper and counts nothing: ``parallel.train.replayed_steps``).
 launches = 0
 #: The same launches by kernel and mode: ``group`` (the id grouping),
 #: ``sparse`` (per-occurrence accumulation, the reference's

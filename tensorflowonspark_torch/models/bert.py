@@ -260,8 +260,11 @@ class Bert(nn.Module):
         remat = self.remat and self.training and torch.is_grad_enabled()
         for block in self.layers:
             if remat:
+                # a block draws no random numbers (no dropout), so there is
+                # no RNG state to keep, and saving the card's cannot run
+                # while the compiled step captures a CUDA graph
                 x = checkpoint(block, x, bias, self.attention,
-                               use_reentrant=False)
+                               use_reentrant=False, preserve_rng_state=False)
             else:
                 x = block(x, bias, self.attention)
         logits = torch.where(mask[:, :, None], dense(x, self.span).float(),

@@ -201,7 +201,11 @@ def make_sharded_train_step(model: WideDeep, config: Config, optimizer):
     """``step(state, batch) -> (state, loss)``: one step of the MLP
     (``optimizer``) and of both tables (on the card, the id grouping and
     one AdaGrad launch for the two); see the module docstring.  ``loss``
-    is the detached scalar, averaged over the ranks of a group."""
+    is the detached scalar, averaged over the ranks of a group.  This is
+    the eager step; a ``Trainer`` compiles it with
+    ``parallel.train.compile_step``, as the reference's goes through its
+    ``compile_step``: on the card the gather, the MLP, the backward, the
+    grouping, the segment walk and AdamW replay as one CUDA graph."""
     from tensorflowonspark_torch import embedding
     from tensorflowonspark_torch.parallel import train as train_lib
 

@@ -361,16 +361,21 @@ class GoodputLedger:
             self._noted[phase] += seconds
         self._counter(phase).inc(seconds)
 
-    def note_step(self, shard_s: float, compute_s: float) -> None:
+    def note_step(self, shard_s: float, compute_s: float,
+                  compile: bool | None = None) -> None:
         """One trainer step's own windows.  The FIRST step's compute
         wall carries the jit trace+compile (the ``note_compile``
         first-call discipline), so it books as ``compile``; every later
-        step's compute is ``productive``.  The shard/stage half is
+        step's compute is ``productive``.  ``compile`` given overrides
+        that rule: the trainer passes it on a card, where the step that
+        captures a CUDA graph is the compile.  The shard/stage half is
         input movement — ``input_wait``."""
         with self._lock:
             first = self._steps == 0
             self._steps += 1
-        self.note("compile" if first else "productive", compute_s)
+        if compile is None:
+            compile = first
+        self.note("compile" if compile else "productive", compute_s)
         self.note("input_wait", shard_s)
 
     def note_checkpoint(self, seconds: float) -> None:

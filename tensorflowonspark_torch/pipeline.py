@@ -22,9 +22,10 @@ Device rule: ``TFModel(device=...)``; unset, each executor reads
 ``TFOS_TORCH_DEVICE`` (inherited from the driver) and otherwise runs on
 ``cuda``, raising where there is no card (``util.select_device``).
 
-Not ported yet: the flight recorder and cost ledger of the reference's
-``_RunModel.__call__``, the persistent compile cache and the serving
-health probe.
+The executor's model load configures the persistent compile cache first
+(``compile_cache.ensure()``: the kernel libraries from a fleet's shared
+store).  Not ported yet: the flight recorder and cost ledger of the
+reference's ``_RunModel.__call__`` and the serving health probe.
 """
 
 from __future__ import annotations
@@ -484,6 +485,11 @@ class _RunModel:
     # -- executor-side ------------------------------------------------------
 
     def _load(self):
+        from tensorflowonspark_torch import compile_cache
+
+        # the kernel libraries' shared store, before the forward loads
+        # (and builds or loads) them
+        compile_cache.ensure()
         key = model_cache_key(self.export_dir, self.model_name,
                               self.predict_fn)
         self._cache_key = key

@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import collections
 import logging
-from typing import Any, Mapping, Sequence
+from collections.abc import Mapping, Sequence
+from typing import Any
 
 import numpy as np
 import torch
@@ -51,19 +52,31 @@ def _flatten(tree: Any, path: tuple = ()):
         yield path, tree
 
 
+def leaves(tree: Any) -> list:
+    """The leaves of ``tree`` in :func:`signature`'s order (dict keys
+    sorted)."""
+    return [leaf for _, leaf in _flatten(tree)]
+
+
 def signature(batch: Any) -> tuple:
     """Hashable fingerprint of a batch: ``(path, shape, dtype)`` per leaf,
     dict keys sorted.  Plain data, so it is the same in every process.
     Leaves need only ``shape``/``dtype`` (arrays, tensors,
     :class:`TensorSpec`); anything else signs by its Python type."""
-    out = []
+    return signature_and_leaves(batch)[0]
+
+
+def signature_and_leaves(batch: Any) -> tuple[tuple, list]:
+    """:func:`signature` and :func:`leaves` of ``batch`` from one walk."""
+    sig, out = [], []
     for path, leaf in _flatten(batch):
         if hasattr(leaf, "shape") and hasattr(leaf, "dtype"):
-            out.append((path, tuple(int(d) for d in leaf.shape),
+            sig.append((path, tuple(int(d) for d in leaf.shape),
                         _dtype_name(leaf.dtype)))
         else:
-            out.append((path, (), type(leaf).__name__))
-    return tuple(out)
+            sig.append((path, (), type(leaf).__name__))
+        out.append(leaf)
+    return tuple(sig), out
 
 
 def resolve_buckets(batch_size: int,

@@ -9,12 +9,21 @@ pipeline share.
 
 What differs from the JAX package: one device, data parallel across
 processes (``torch.distributed``, formed by the cluster bootstrap) instead
-of a mesh; the step runs eagerly (no compile); the default optimizer is
-``torch.optim.AdamW`` with ``optax.adamw``'s defaults (``weight_decay=1e-4``
-— torch's own default is 1e-2 — and decay on every parameter, norm scale
-and bias included, as optax without a mask).  As in the reference, a zoo
-module may prescribe its optimizer (``make_optimizer``) and its own step
-(``make_sharded_train_step``, wide&deep's table update).
+of a mesh; the default optimizer is ``torch.optim.AdamW`` with
+``optax.adamw``'s defaults (``weight_decay=1e-4`` — torch's own default is
+1e-2 — and decay on every parameter, norm scale and bias included, as
+optax without a mask), ``capturable`` and ``fused`` on a card.  As in the
+reference, a zoo module may prescribe its optimizer (``make_optimizer``)
+and its own step (``make_sharded_train_step``, wide&deep's table update).
+
+The step compiles as the reference's does, through
+``parallel.train.compile_step``: on a card each batch signature's step is
+captured into one CUDA graph at its second sighting and replayed after
+(the first is an eager step); on the CPU it runs eagerly.  On a card the
+optimizer must be capturable, or construction raises.  The step that
+captures books its wall as ``compile`` in the goodput ledger, and a
+restore drops the graphs.  ``compile_cache.ensure()`` runs first, so the
+kernel libraries load from a fleet's shared store when one is set.
 
 Persistence, as the reference's: :meth:`Trainer.save`/:meth:`Trainer.
 restore` (one-shot), :meth:`Trainer.checkpoint` (a step-numbered cadence,
@@ -68,9 +77,12 @@ class Trainer:
         the reference takes a stateless optax transformation.  A zoo
         module's ``make_optimizer(config, learning_rate)`` returns such a
         factory."""
-        from tensorflowonspark_torch import obs
+        from tensorflowonspark_torch import compile_cache, obs
 
         _t0_wall, _t0 = time.time(), time.perf_counter()
+        # the kernel libraries' shared store (TFOS_COMPILE_CACHE_DIR), set
+        # up before the first step builds or loads them
+        compile_cache.ensure()
         self.device = util.select_device(device)
         if isinstance(model, str):
             self.module_lib = model_zoo.get_model(model)
@@ -96,11 +108,16 @@ class Trainer:
         make_custom = getattr(self.module_lib, "make_sharded_train_step",
                               None)
         if make_custom is not None:
-            self.train_step = make_custom(self.model, self.config,
-                                          self.optimizer)
+            step = make_custom(self.model, self.config, self.optimizer)
         else:
-            self.train_step = make_train_step(self.loss_fn, self.optimizer,
-                                              self.model)
+            step = make_train_step(self.loss_fn, self.optimizer, self.model)
+        # one CUDA graph per batch signature on a card (raises here when
+        # the optimizer cannot be captured); the step itself on the CPU.
+        # It takes a batch as a caller hands it, and shards it through
+        # this trainer's `shard` except on a replay
+        self.train_step = train_lib.compile_step(
+            step, self.model, self.optimizer,
+            shard=lambda batch: self.shard(batch))
         self.eval_step = make_eval_step(self.forward_fn, self.model)
         self._step_callbacks: list = []
         self._last_step_t: float | None = None
@@ -148,17 +165,23 @@ class Trainer:
         """One optimizer step; returns the loss (a device scalar, averaged
         over the ranks of a data-parallel group)."""
         t0 = time.perf_counter()
-        staged = self.shard(batch)
-        t1 = time.perf_counter()
-        self.state, loss = self.train_step(self.state, staged)
+        # the compiled step shards the batch, or on a replay copies it
+        # straight into its graph's static inputs
+        self.state, loss = self.train_step(self.state, batch)
         # `compute` is the dispatch wall: the step returns before the
         # device finishes, so it understates device time until the queue
         # of launched work backs up
-        compute_s = time.perf_counter() - t1
-        self._flight.add(shard=t1 - t0, compute=compute_s)
+        shard_s = getattr(self.train_step, "input_s", 0.0)
+        compute_s = time.perf_counter() - t0 - shard_s
+        self._flight.add(shard=shard_s, compute=compute_s)
         from tensorflowonspark_torch.obs import ledger as ledger_mod
 
-        ledger_mod.goodput().note_step(t1 - t0, compute_s)
+        # on a card the capture is the compile; the CPU's first step
+        # books as the reference's does
+        action = getattr(self.train_step, "last", None)
+        ledger_mod.goodput().note_step(
+            shard_s, compute_s,
+            compile=None if action in (None, "cpu") else action == "capture")
         return self._after_step(loss, batch)
 
     def _after_step(self, loss, batch):
@@ -214,6 +237,14 @@ class Trainer:
         from tensorflowonspark_torch import ckpt
 
         train_lib.load_state_tree(self.state, ckpt.load_pytree(path))
+        self._drop_graphs()
+
+    def _drop_graphs(self) -> None:
+        """Drop the compiled step's graphs: a restore may have replaced
+        tensors they read (``optimizer.load_state_dict``)."""
+        reset = getattr(self.train_step, "reset", None)
+        if reset is not None:
+            reset()
 
     def checkpoint(self, directory: str, every_steps: int | None = None,
                    max_to_keep: int = 3, async_save: bool = True):
@@ -263,6 +294,7 @@ class Trainer:
         if step is None:
             return None
         train_lib.load_state_tree(self.state, self._ckpt_mgr.restore(step))
+        self._drop_graphs()
         return step
 
     def finish_checkpoints(self) -> None:
@@ -302,11 +334,27 @@ class Trainer:
 
 def _adamw(learning_rate: float):
     def optimizer(params):
+        params = list(params)
         return torch.optim.AdamW(
             params, lr=learning_rate, betas=ADAMW_BETAS, eps=ADAMW_EPS,
-            weight_decay=ADAMW_WEIGHT_DECAY)
+            weight_decay=ADAMW_WEIGHT_DECAY, **card_adamw(params))
 
     return optimizer
+
+
+def on_card(params) -> bool:
+    """Whether ``params`` (a list of tensors) lie on a card."""
+    return bool(params) and params[0].is_cuda
+
+
+def card_adamw(params) -> dict:
+    """AdamW's options for ``params``: on a card ``capturable`` (its step
+    count on the device, which the compiled step's graphs need) and
+    ``fused`` (one kernel a tensor list: the faster of the two capturable
+    implementations on an H100, ``chip_smoke.py`` phase 16(e)); on the CPU
+    the default ``foreach`` implementation."""
+    card = on_card(params)
+    return {"capturable": card, "fused": True if card else None}
 
 
 def _batch_examples(batch) -> int:

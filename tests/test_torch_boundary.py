@@ -45,7 +45,7 @@ def test_importing_every_port_module_loads_nothing_of_jax():
     doc = json.loads(proc.stdout.strip().splitlines()[-1])
     assert doc["banned"] == []
     for name in ("pipeline", "serving", "shapes", "ckpt", "compat",
-                 "saved_model",
+                 "saved_model", "compile_cache",
                  "readers", "sql_compat", "util", "models.resnet",
                  "models.widedeep", "embedding", "kernels.sparse_adagrad",
                  "kernels.group_norm", "kernels._build", "sparkapi.context",

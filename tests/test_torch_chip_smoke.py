@@ -236,9 +236,13 @@ def _node(**over):
 
 
 def test_slice_gates_pass_a_good_node_and_name_each_fault():
-    want = {"group": 2, "combine": 2, "sparse": 0}
-    gate = dict(steps=2, want_launches=want, tol=1e-5, final_only=False)
+    per_step = {"group": 1, "combine": 1, "sparse": 0}
+    gate = dict(steps=2, per_step=per_step, tol=1e-5, final_only=False)
     assert chip_smoke.slice_failures(_node(), [2.0, 1.5], **gate) == []
+    # a step a graph replay ran alone is not counted by the wrappers
+    assert chip_smoke.slice_failures(_node(
+        replays=1, launches={"group": 1, "combine": 1, "sparse": 0}),
+        [2.0, 1.5], **gate) == []
     assert chip_smoke.slice_failures(
         _node(device="cpu"), [2.0, 1.5], **gate, device="cpu") == []
     faults = {
@@ -248,6 +252,7 @@ def test_slice_gates_pass_a_good_node_and_name_each_fault():
         "finite": _node(losses=[2.0, float("nan")]),
         "rel": _node(losses=[2.0, 1.5 * (1 + 2e-5)]),
         "launches": _node(launches={"group": 2, "combine": 1, "sparse": 0}),
+        "launches (want": _node(replays=1),
     }
     for name, node in faults.items():
         failures = chip_smoke.slice_failures(node, [2.0, 1.5], **gate)
@@ -346,10 +351,12 @@ def test_counted_jobs_publish_their_launches(monkeypatch):
     import functools
 
     from tensorflowonspark_torch.kernels import group_norm, sparse_adagrad
+    from tensorflowonspark_torch.parallel import train as train_lib
 
     published = {}
     ctx = types.SimpleNamespace(mgr=types.SimpleNamespace(
         set=published.__setitem__))
+    monkeypatch.setattr(train_lib, "replayed_steps", 0)
     monkeypatch.setitem(group_norm.launches_by_path, "one_pass", 7)
     monkeypatch.setitem(sparse_adagrad.launches_by_path, "group", 5)
 
@@ -357,6 +364,7 @@ def test_counted_jobs_publish_their_launches(monkeypatch):
         group_norm.launches_by_path["two_pass"] += 2
         sparse_adagrad.launches_by_path["group"] += 1
         sparse_adagrad.launches_by_path["combine"] += 3
+        train_lib.replayed_steps += 4
 
     monkeypatch.setitem(group_norm.launches_by_path, "two_pass", 0)
     monkeypatch.setitem(sparse_adagrad.launches_by_path, "combine", 0)
@@ -365,6 +373,7 @@ def test_counted_jobs_publish_their_launches(monkeypatch):
     assert published["table_launches"] == {"group": 1, "sparse": 0,
                                            "combine": 3}
     assert sparse_adagrad.launches_by_path["group"] == 6
+    assert published["replays"] == 4
     assert published["map_fun_start"] <= published["map_fun_end"]
 
 
@@ -813,3 +822,222 @@ def test_phase_15_gates_and_the_kernels_line():
     main = inspect.getsource(chip_smoke.main)
     assert main.count('"launches_phase15": bert_base["launches"]') == 3
     assert main.index("bert_phase(sc, work)") < main.index("sc.stop()")
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the compiled step
+# ---------------------------------------------------------------------------
+
+_PLANNED = {"one_pass": 1, "group": 0}
+
+
+def _run(losses, launches=None, actions=None, state=None, traced=None,
+         planned=_PLANNED, eager=False):
+    """A run as ``run_trajectory`` returns it: by default a graph run on
+    ``planned`` (the wrappers counting the eager step and the capture,
+    nothing in a replay; the trace of a step finding the planned
+    kernels), with ``eager`` an eager one."""
+    n = len(losses)
+    none = dict.fromkeys(planned, 0)
+    counted = ([dict(planned)] * n if eager
+               else [dict(planned)] * 2 + [none] * (n - 2))
+    if actions is None:
+        actions = (["eager"] * n if eager
+                   else ["eager", "capture"] + ["replay"] * (n - 2))
+    return {"losses": list(losses),
+            "launches": launches or counted,
+            "traced": (chip_smoke.traced_plan(planned) if traced is None
+                       else traced),
+            "actions": actions,
+            "state": state or {"w": torch.ones(3)}}
+
+
+def test_phase16_trajectory_gate_passes_equal_runs_and_names_each_fault():
+    planned = _PLANNED
+    none = {"one_pass": 0, "group": 0}
+    good = _run([1.0, 0.9, 0.8, 0.7])
+    eager = _run([1.0, 0.9, 0.8, 0.7], eager=True)
+    assert chip_smoke.trajectory_gate("resnet50", good, eager, planned) == []
+    faults = {
+        "losses differ": _run([1.0, 0.9, 0.8, 0.70001]),
+        "state tensors differ": _run([1.0, 0.9, 0.8, 0.7],
+                                     state={"w": torch.ones(3) * 1.0001}),
+        "actions": _run([1.0, 0.9, 0.8, 0.7], actions=["eager"] * 4),
+        # a replay the wrappers counted: it re-entered Python
+        "graph steps [3]": _run([1.0, 0.9, 0.8, 0.7], launches=[
+            planned, planned, planned, none]),
+        # the capture recorded no launch
+        "graph steps [2]": _run([1.0, 0.9, 0.8, 0.7], launches=[
+            planned, none, none, none]),
+        # a replay whose trace lacks the planned kernel
+        "the trace of graph step": _run([1.0, 0.9, 0.8, 0.7], traced={}),
+    }
+    for name, run in faults.items():
+        got = chip_smoke.trajectory_gate("resnet50", run, eager, planned)
+        assert len(got) == 1 and name in got[0], (name, got)
+    bad_eager = _run([1.0, 0.9, 0.8, 0.7], eager=True, launches=[
+        planned, planned, none, planned])
+    got = chip_smoke.trajectory_gate("resnet50", good, bad_eager, planned)
+    assert len(got) == 1 and "eager steps [3]" in got[0], got
+
+
+def test_phase16_traces_count_the_kernels_by_name():
+    """16(b) counts a replay's launches from the profiler's kernel names:
+    each hand-written kernel maps to its counted path, both table update
+    modes to the one segment walk; other kernels are not counted."""
+    names = [
+        "void (anonymous namespace)::gn_one_pass<true, true>(uint4 const*)",
+        "void (anonymous namespace)::gn_one_pass<false, true>(uint4 const*)",
+        "void (anonymous namespace)::gn_bwd_one_pass<true, false, true>("
+        "BwdArgs)",
+        "void (anonymous namespace)::tfos_id_grouping<int>(int const*)",
+        "void tfos_adagrad_segment_walk<1, 2>(int const*)",
+        "void (anonymous namespace)::gn_stats(uint4 const*)",
+        "void at::native::vectorized_elementwise_kernel<4>(int)",
+        "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64",
+        "void cudnn::align_kernel(float*)"]
+    assert chip_smoke.traced_launches(names) == {
+        "one_pass": 2, "backward_one_pass": 1, "group": 1,
+        "table update": 1, "two_pass": 1}
+    planned = chip_smoke.planned_launches(chip_smoke.zoo_site_tables())
+    assert chip_smoke.traced_plan(planned["resnet50"]) == {
+        "one_pass": 53, "backward_one_pass": 53}
+    assert chip_smoke.traced_plan(planned["wide_deep dense"]) == \
+        chip_smoke.traced_plan(planned["wide_deep sparse"]) == {
+            "group": 1, "table update": 1}
+    assert chip_smoke.traced_plan(planned["bert"]) == {}
+    with pytest.raises(ValueError):
+        chip_smoke.traced_plan({"two_pass": 1})
+
+
+def test_phase16_bert_gate_is_phase_15s():
+    planned = {"one_pass": 0}
+    eager = _run([6.0, 5.0, 4.0], planned=planned, eager=True)
+    near = _run([6.0, 5.0 * (1 + 2e-3), 4.0], planned=planned,
+                state={"w": torch.ones(3) * 1.01})
+    assert chip_smoke.trajectory_gate("bert remat=True", near, eager,
+                                      planned) == []
+    far = _run([6.0, 5.0 * (1 + 4e-3), 4.0], planned=planned)
+    first = _run([6.000001, 5.0, 4.0], planned=planned)
+    for run in (far, first):
+        assert chip_smoke.trajectory_gate("bert remat=True", run, eager,
+                                          planned)
+
+
+def test_phase16_planted_stale_inputs_are_caught(monkeypatch):
+    """16(c)'s planted fault, through stand-in graphs on the CPU: replays
+    that keep the capture's batch give other losses than eager steps, and
+    the trajectory gate says so."""
+    from tensorflowonspark_torch.parallel import train as train_lib
+
+    class Graphs:
+        @staticmethod
+        def applies(batch):
+            return True
+
+        @staticmethod
+        def device_leaf(leaf):
+            return torch.is_tensor(leaf)
+
+        @staticmethod
+        def capture(fn):
+            out = fn()
+            return {"fn": fn, "loss": out[1]}, out
+
+        @staticmethod
+        def replay(graph):
+            state, loss = graph["fn"]()
+            state.step -= 1
+            graph["loss"].copy_(loss)
+
+    def step(state, batch):
+        state.step += 1
+        return state, batch["x"].sum()
+
+    batches = [{"x": torch.full((4,), float(i))} for i in range(5)]
+    state = types.SimpleNamespace(step=0)
+    eager = [float(step(state, b)[1]) for b in batches]
+    runs = {}
+    for name, cls in (("graph", train_lib.CompiledStep),
+                      ("stale", chip_smoke.StaleInputsStep)):
+        cs = cls(step)
+        cs._graphs = Graphs()
+        state = types.SimpleNamespace(step=0)
+        runs[name] = [float(cs(state, b)[1]) for b in batches]
+        assert state.step == len(batches)
+    assert runs["graph"] == eager
+    assert runs["stale"] == eager[:2] + [eager[1]] * 3
+    planned = {"one_pass": 0}
+    assert chip_smoke.trajectory_gate(
+        "wide_deep dense", _run(runs["stale"], planned=planned),
+        _run(eager, planned=planned, eager=True), planned)
+
+
+def test_phase16_planned_launches_and_flat_counts():
+    planned = chip_smoke.planned_launches(chip_smoke.zoo_site_tables())
+    assert planned["resnet50"]["one_pass"] == 53
+    assert planned["resnet50"]["backward_one_pass"] == 53
+    inception = planned["inception_v3"]
+    assert inception["one_pass"] == inception["backward_one_pass"] == 96
+    assert planned["mobilenet_v1"]["one_pass"] == 27
+    assert planned["cifar10_cnn"]["backward_one_pass"] == 6
+    for name in ("bert", "mnist_mlp"):
+        assert not any(planned[name].values())
+    assert planned["wide_deep dense"] == {
+        **dict.fromkeys(planned["bert"], 0), "group": 1, "combine": 1}
+    assert planned["wide_deep sparse"]["sparse"] == 1
+    from tensorflowonspark_torch.kernels import group_norm, sparse_adagrad
+
+    assert chip_smoke.flat_counts() == {**group_norm.launches_by_path,
+                                        **sparse_adagrad.launches_by_path}
+    assert set(chip_smoke.flat_counts()) == set(planned["resnet50"])
+
+
+def test_phase16_state_gap_counts_the_differing_tensors():
+    want = {"a": torch.ones(2), "b": torch.zeros(2), "c": torch.ones(2)}
+    got = {"a": torch.ones(2), "b": torch.tensor([0.0, 0.5]),
+           "c": torch.ones(2, dtype=torch.float64)}
+    differ, worst = chip_smoke.state_gap(got, want)
+    assert differ == 2 and worst == pytest.approx(0.5)
+
+
+def test_phase16_cache_gates_and_the_corrupted_entry(tmp_path):
+    libs = ["group_norm-a.so", "group_norm_bwd-b.so", "sparse_adagrad-c.so"]
+    first = {"libraries": libs, "disk_hits": 0, "disk_writes": 3,
+             "disk_corrupt": 0}
+    second = {"libraries": libs, "disk_hits": 3, "disk_writes": 0,
+              "disk_corrupt": 0, "twins": {"group_norm": 0.0}}
+    third = {"libraries": libs, "disk_hits": 2, "disk_writes": 1,
+             "disk_corrupt": 1}
+    assert chip_smoke.cache_gates(first, second, third) == []
+    for bad in ({**second, "disk_hits": 2, "disk_writes": 1},
+                {**second, "twins": {}}):
+        assert chip_smoke.cache_gates(first, bad, third)
+    assert chip_smoke.cache_gates(first, second, {**third, "disk_corrupt": 0,
+                                                  "disk_hits": 3,
+                                                  "disk_writes": 0})
+    ns = tmp_path / "cc" / "torch-x-sm90"
+    ns.mkdir(parents=True)
+    for name in libs:
+        (ns / name).write_bytes(bytes(256))
+    path = chip_smoke.corrupt_entry(str(tmp_path / "cc"), "group_norm")
+    assert os.path.basename(path) == "group_norm-a.so"
+    assert (ns / "group_norm-a.so").read_bytes() != bytes(256)
+    assert (ns / "group_norm_bwd-b.so").read_bytes() == bytes(256)
+
+
+def test_phase_16_gates_budget_and_the_kernels_line():
+    import inspect
+
+    src = inspect.getsource(chip_smoke.compiled_step_phase)
+    for gate in ("trajectory_gate(", '"(c) the planted stale-input fault',
+                 '(d) restore after capture"', "cache_gates(",
+                 "PHASE16_BUDGET_S",
+                 'raise SystemExit("compiled-step phase failed: "'):
+        assert gate in src, gate
+    assert chip_smoke.PHASE16_BUDGET_S == 120
+    main = inspect.getsource(chip_smoke.main)
+    assert main.count('"launches_phase16": compiled["launches"]') == 3
+    assert main.count('"replay_launches_phase16": compiled[') == 3
+    assert main.index("compiled_step_phase(work)") < main.index("sc.stop()")
+    assert "phase 16 {t_end - t16:.1f}" in main

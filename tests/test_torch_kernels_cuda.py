@@ -694,3 +694,72 @@ def test_wide_deep_step_launches_one_grouping_and_one_update(table_update):
     for group, leaves in t.model.collections().items():
         for k, got in leaves.items():
             assert torch.equal(got, plain.model.collections()[group][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cifar10_cnn", "dense", "sparse"])
+def test_compiled_step_replays_the_eager_step_on_card(case):
+    """``Trainer``'s compiled step on the card (eager, captured at the
+    second step, then replayed) against the same trainer stepping the eager
+    step: every loss and tensor the same bits; the wrappers count the eager
+    step's and the capture's launches, the eager trainer's every step, and
+    a replay none (it calls no wrapper); and the GroupNorm backward's
+    scratch held by the graph: evicting the shared cache between replays
+    changes nothing."""
+    _needs_card()
+    import dataclasses
+
+    from tensorflowonspark_torch.kernels import sparse_adagrad
+    from tensorflowonspark_torch.models import cifar, widedeep
+    from tensorflowonspark_torch.parallel import train as train_lib
+    from tensorflowonspark_torch.trainer import Trainer
+
+    if case == "cifar10_cnn":
+        name, lib, config, n = "cifar10_cnn", cifar, cifar.Config(), 16
+    else:
+        name, lib, n = "wide_deep", widedeep, 64
+        config = dataclasses.replace(widedeep.Config.tiny(),
+                                     table_update=case)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                lib.example_batch(config, n, seed=i).items()}
+               for i in range(5)]
+
+    def counts():
+        return {**group_norm.launches_by_path,
+                **sparse_adagrad.launches_by_path}
+
+    def run(compiled):
+        t = Trainer(name, config=config, device="cuda", seed=0)
+        if not compiled:
+            step = t.train_step.step
+            t.train_step = lambda state, batch: step(state, t.shard(batch))
+        losses, launches = [], []
+        for i, b in enumerate(batches):
+            before = counts()
+            losses.append(t.step(b))
+            torch.cuda.synchronize()
+            launches.append({k: v - before[k] for k, v in counts().items()})
+            if compiled and i == 2:
+                group_norm._BWD_SCRATCH.clear()
+        state = {k: v.detach().clone()
+                 for k, v in t.model.state_dict().items()}
+        state.update({f"{k}/{s}": v.clone()
+                      for k, p in t.model.named_parameters()
+                      for s, v in t.optimizer.state[p].items()})
+        return t, losses, launches, state
+
+    replayed = train_lib.replayed_steps
+    t, losses, launches, state = run(True)
+    assert train_lib.replayed_steps - replayed == 3
+    _, want, want_launches, want_state = run(False)
+    assert t.train_step.captures == 1 and t.train_step.replays == 4
+    assert [float(v) for v in losses] == [float(v) for v in want]
+    none = dict.fromkeys(want_launches[0], 0)
+    assert launches == want_launches[:2] + [none] * 3
+    assert all(d == want_launches[0] for d in want_launches)
+    assert all(torch.equal(state[k], want_state[k]) for k in want_state)
+    if case == "cifar10_cnn":
+        assert t.train_step.graph_of(batches[0]).scratch
+        assert all(d["one_pass"] > 0 for d in want_launches)
+    else:
+        assert all(d["group"] == 1 for d in want_launches)
