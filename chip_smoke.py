@@ -49,11 +49,12 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    kernel against plain, with a falling loss; train-step images/s at batch
    256 (CUDA events), peak memory, and the step's device time by family.
 7. Training slice, the ResNet main path: ``TFCluster.run`` (one
-   executor, ``InputMode.SPARK``) → ``cluster.train`` over 256 rows of 224²
-   images in 4 partitions → ``DataFeed.next_batch(device_put=
-   trainer.shard)`` → 4 ``Trainer.step``s at batch 64 → ``shutdown``.  The
-   final loss against an in-process ``Trainer`` on the same batches, the
-   executor's forward and backward launches, and the cluster's images/s.
+   executor, ``InputMode.SPARK``) → ``cluster.train`` over 192 rows of 224²
+   images in 3 partitions → ``DataFeed.next_batch(device_put=
+   trainer.shard)`` → 3 ``Trainer.step``s at batch 64 (eager, capture, at
+   least one replay) → ``shutdown``.  The final loss against an in-process
+   ``Trainer`` on the same batches, the executor's forward and backward
+   launches, and the cluster's images/s.
 8. Table-kernel phase: the table path of ``embedding`` on the full
    ``widedeep.Config()`` tables (2.6 M rows; deep rows of 32 f32, wide rows
    scalar) at batch 1024 (26,624 ids), both modes, every case from the same
@@ -81,9 +82,9 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    (the grouping, the update and any sort named apart).
 10. Wide&deep slice, this slice's main path, once per mode: ``TFEstimator(
    criteo_train_fn).fit(df)`` (a port of ``examples/criteo/
-   criteo_pipeline.py::train_fun``; one executor on the card, 8,192 rows in
-   4 partitions, batch 1024) → ``TFCluster.run`` → ``cluster.train`` →
-   ``DataFeed.next_batch(device_put=...)`` → 8 ``Trainer.step``s →
+   criteo_pipeline.py::train_fun``; one executor on the card, 4,096 rows in
+   2 partitions, batch 1024) → ``TFCluster.run`` → ``cluster.train`` →
+   ``DataFeed.next_batch(device_put=...)`` → 4 ``Trainer.step``s →
    ``trainer.export``; then ``TFModel.transform`` of the export (its
    serialized forward) and, by ``setModelName("wide_deep")``, of the same
    weights exported weights-only (the zoo's forward).  The executor's
@@ -109,11 +110,11 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    must be the first job's, and its images/s are printed beside.
 12. Wide&deep in ``InputMode.TENSORFLOW`` over Parquet, the way
    ``examples/criteo/criteo_pipeline.py --input parquet`` launches, in
-   phase 11's local application (its executor carries over): 8,192 Zipf
-   rows saved by ``dfutil.saveAsParquet`` in 4 part files, then
+   phase 11's local application (its executor carries over): 4,096 Zipf
+   rows saved by ``dfutil.saveAsParquet`` in 2 part files, then
    ``TFCluster.run(tensorflowonspark_torch/examples/criteo_pipeline.py::
    parquet_train_fun)``: ``parquet_batches`` → the example's stager (f32
-   dense, i32 ids and labels, ``trainer.shard``) → 8 ``Trainer.step``s at
+   dense, i32 ids and labels, ``trainer.shard``) → 4 ``Trainer.step``s at
    batch 1024 (full ``Config()``, the combine update).  Gates: the executor
    on the card, one grouping and one update launch a step, every loss
    within 1e-5 of an in-process replay over the same batches, and those
@@ -160,9 +161,9 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    kernel path against the plain path and f32, 96 + 96 launches a step on
    their planned paths; 8 AdamW steps kernel against plain; the train-step
    rate at batch 128 with its profile; the forward at batch 256.  (c) and
-   (d) ``resnet_spark --arch inception_v3`` (299² records) and ``--arch
-   mobilenet_v1`` (224²) as phase 11 runs ResNet-50, against in-process
-   replays, 94 + 94 and 27 + 27 launches a step.  (e) ``TFModel`` serves
+   (d) ``resnet_spark --arch inception_v3`` (256 records of 299²) and
+   ``--arch mobilenet_v1`` (224²) as phase 11 runs ResNet-50, 4 steps,
+   against in-process replays, 94 + 94 and 27 + 27 launches a step.  (e) ``TFModel`` serves
    (c)'s export: its serialized forward (94 launches a batch, the eager
    forward's bits) and the weights by name.  (f) ``mnist_spark``'s
    ``map_fun`` on one executor in ``InputMode.SPARK`` against an in-process
@@ -227,6 +228,34 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    plain twin; a third, on a copy with one entry corrupted, rejects it and
    rebuilds it.  Phase 16 prints its seconds beside its budget; ``python3
    chip_smoke.py --phase 16`` runs the build and this phase alone.
+17. The generative decode tier (``decode.DecodeEngine`` over
+   ``models/tinylm.py`` at ``Config()``, full width, seeded weights; 8
+   slots, pages of 16, 128 positions, prompts up to 64).  (a) The paged
+   kernels (``tfos_kv_append``, ``tfos_paged_attention``) against their
+   plain twins run on the card, at the engine's decode step (8 rows, one
+   position), at each chunk rung (16 and 32 positions) and at 256 rows of
+   128 positions over 2,049 pages; rows inactive, crossing a page, sharing
+   another's pages and ending at max_len - 1: the append bit for bit
+   outside page 0, the attention within ``ATTN_TOL`` and the same bits
+   twice; ms a call of each, its twin and the library yardstick
+   (``index_put_``; ``index_select`` gathers + SDPA) beside ``bound_ms``.
+   (b) 32 greedy requests at once (a third extend registered prefixes,
+   some diverging mid-page): every stream equals the same engine's one at
+   a time, the full forward's greedy choice (``apply_tokens``, near-ties
+   within ``DECODE_TIE_GAP`` counted) and a legacy-prefill engine's; COW
+   copies and prefix hits; after ``stop()`` no used page, the pool's law
+   and the pools unmoved; ``warmup()`` captured one CUDA graph a signature
+   and serving captured and ran eagerly nothing after; the wrappers'
+   launches are the warmup's; a planted off-by-one causal bound (a
+   ``-DTFOS_PLANTED_CAUSAL_OFF_BY_ONE`` build) and replays on stale static
+   inputs must change the streams.  (c) Aggregate and one-at-a-time
+   tokens/s, TTFT and ITL p50/p99, and on an idle engine the decode and
+   chunk steps captured against eager (host µs a step, busy ms, idle
+   share) with their launches counted by the wrappers and by a traced
+   replay.  (d) ``DecodeHTTPServer`` streams one generation over ``POST
+   /v1/generate``, equal to the engine's.  Phase 17 prints its seconds
+   beside its budget; ``python3 chip_smoke.py --phase 17`` runs the build
+   and this phase alone.
 
 The last lines are the card line, one JSON line listing each kernel (the
 one-pass and two-pass forwards of ``group_norm_act`` and its one-pass and
@@ -237,7 +266,11 @@ other cases suffixed; ``launches_tf_mode`` counts phases 11-12's,
 ``launches_phase13`` phase 13's, ``launches_phase14`` the executors' of
 phase 14(c)-(g), ``phase14_*`` the zoo's sites on each GroupNorm
 path, ``launches_phase15`` phase 15's and ``launches_phase16`` phase 16's
-(a)-(d), ``replay_launches_phase16`` the kernels its traced replays ran).
+(a)-(d), ``replay_launches_phase16`` the kernels its traced replays ran;
+then the two paged kernels, times of the decode step's case and the others
+suffixed, ``launches_phase17`` the main path's (the warmup's eager calls
+and captures) and ``replay_launches_phase17`` a traced decode and chunk
+replay's).
 Every count is a wrapper's where it launches, a CUDA graph's capture
 included; a replay calls no wrapper, so the gates of phases 6-15 plan
 their counts for the steps less those a replay ran alone
@@ -305,8 +338,12 @@ TRAJECTORY_TOL = 0.02
 TRAIN_STEPS = 8
 TRAIN_LR = 1e-4
 TRAIN_GRAD_BATCH = 8
-SLICE_TRAIN_ROWS = 256
-SLICE_TRAIN_PARTITIONS = 4
+# phase 7 runs 192 rows in 3 partitions (256 in 4 before phase 17 was
+# added; a depth cut): three steps at 64, the eager one, the capture and a
+# replay, the steady state a DataFeed batch copied into the captured
+# graph's static inputs
+SLICE_TRAIN_ROWS = 192
+SLICE_TRAIN_PARTITIONS = 3
 SLICE_TRAIN_BATCH = 64
 SLICE_TRAIN_VS_IN_PROCESS = 1e-2  # rel, final loss: cuDNN weight grads
 # (batch, (kernel, plain, library) timed calls): the serving slice's batch,
@@ -324,13 +361,18 @@ WD_BATCH = 1024
 WD_ZIPF = 1.1  # Criteo's categorical features are heavy-tailed
 WD_LR = 1e-3  # AdamW on the MLP; the tables take 10x (Config's table_lr)
 WD_STEPS = 20
-WD_SLICE_ROWS = 8192
-WD_SLICE_PARTITIONS = 4
+# phases 10 and 12 run 4,096 rows in 2 partitions of 2 batches (8,192 in 4
+# before phase 17 was added; a depth cut, their gates unchanged)
+WD_SLICE_ROWS = 4096
+WD_SLICE_PARTITIONS = 2
 WD_MODES = (("dense", "combine"), ("sparse", "sparse"))  # table_update, path
 # InputMode.TENSORFLOW slices (phases 11-12)
 TF_RECORDS = 512  # ResNet: 224² TFRecords, ≈ 77 MB in all
 TF_PARTS = 4
 TF_SHUFFLE = 256  # seeded shuffle buffer of records; one reader thread
+# phase 14(c)-(d)'s records (512, TF_RECORDS, before phase 17 was added;
+# a depth cut, the gates unchanged: 4 steps at batch 64)
+ZOO_TF_RECORDS = 256
 # persistence (phase 13)
 # each job of phases 11 and 13(a) checkpoints once, at its last step: the
 # save's host call then falls after the last step's time, outside the
@@ -1359,7 +1401,7 @@ def train_slice_phase() -> dict:
     finally:
         sc.stop()
 
-    # the same 4 batches, in partition order, in this process
+    # the same batches, in partition order, in this process
     t = Trainer("resnet50", config=resnet.Config(), learning_rate=TRAIN_LR,
                 seed=0, device="cuda")
     replay = []
@@ -1384,7 +1426,7 @@ def train_slice_phase() -> dict:
           f"cluster.train {train_s:.3f} s for {SLICE_TRAIN_ROWS} rows = "
           f"{wall_ips:.2f} images/s (after {ready_s:.1f} s to a ready "
           f"trainer)", flush=True)
-    if (state != "finished" or len(losses) != steps
+    if (state != "finished" or len(losses) != steps or replays < 1
             or not all(math.isfinite(v) for v in losses)
             or rel > SLICE_TRAIN_VS_IN_PROCESS or not str(device).startswith(
                 "cuda")
@@ -3563,7 +3605,7 @@ def inception_model_phase(sites) -> dict:
 def zoo_tf_slice(sc, work: str, arch: str, side: int, sites,
                  model_dir: str | None = None) -> dict:
     """Phase 14(c)/(d): ``examples/resnet_spark.py --arch <arch>`` (the
-    default ``Config()``) on one executor from ``TF_RECORDS`` synthetic
+    default ``Config()``) on one executor from ``ZOO_TF_RECORDS`` synthetic
     ``side``² TFRecords at batch 64, one reader: the executor on the card,
     the launches of its steps, the final loss against an in-process
     replay, images/s."""
@@ -3575,7 +3617,7 @@ def zoo_tf_slice(sc, work: str, arch: str, side: int, sites,
     data_dir = os.path.join(work, f"{arch}_records")
     t0 = time.perf_counter()
     files = resnet.write_synthetic_tfrecords(
-        data_dir, TF_RECORDS, TF_PARTS, side, seed=4,
+        data_dir, ZOO_TF_RECORDS, TF_PARTS, side, seed=4,
         num_classes=config.num_classes)
     write_s = time.perf_counter() - t0
     args = resnet_spark.parse_args(
@@ -3586,13 +3628,13 @@ def zoo_tf_slice(sc, work: str, arch: str, side: int, sites,
     args.ckpt_every_steps = 0
     node, agg, job_s, timeline = run_tf_job(sc, tf_resnet_map_fun, args)
     replay = tf_resnet_replay(args, "cuda")
-    steps = TF_RECORDS // SLICE_TRAIN_BATCH
+    steps = ZOO_TF_RECORDS // SLICE_TRAIN_BATCH
     failures = slice_failures(node, replay, steps=steps,
                               per_step=step_launches(sites),
                               tol=SLICE_TRAIN_VS_IN_PROCESS, final_only=True)
     rates = slice_rates(agg, 1)
     mb = sum(os.path.getsize(f) for f in files) / 1e6
-    print(f"zoo tf-mode slice resnet_spark --arch {arch}: {TF_RECORDS} "
+    print(f"zoo tf-mode slice resnet_spark --arch {arch}: {ZOO_TF_RECORDS} "
           f"records {side}² ({mb:.1f} MB) written in {write_s:.2f} s; "
           f"Trainer.step on {node['device']}: state {node['state']}, losses "
           f"{[round(v, 5) for v in node['losses'] or []]}; in-process replay "
@@ -4462,7 +4504,8 @@ GRAPH_RESTORE_AT = 4  # (d): the checkpoint step restored after capture
 #: (b): the step (0-based) traced by the profiler in each run: a replay in
 #: the graph run, an eager step in the eager one
 GRAPH_TRACED_STEP = GRAPH_STEPS - 1
-GRAPH_TIMED_STEPS = 10
+# 10 before phase 17 was added (a depth cut: 5 steps a timed loop)
+GRAPH_TIMED_STEPS = 5
 GRAPH_PROFILED_STEPS = 3
 #: BERT's graph-against-eager gate is phase 15's slice gate: the first loss
 #: bit for bit, later losses within this rel (cuDNN's attention backward
@@ -4503,8 +4546,9 @@ print(json.dumps(out))
 
 def cache_twin_checks() -> dict:
     """One launch of each kernel library (forward and backward GroupNorm,
-    the grouping and the table update) against its plain twin, at small
-    shapes: ``{kernel: max abs error}``; raises on a mismatch."""
+    the grouping and the table update, the paged append and attention)
+    against its plain twin, at small shapes: ``{kernel: max abs error}``;
+    raises on a mismatch."""
     import torch
 
     from tensorflowonspark_torch import embedding
@@ -4540,9 +4584,14 @@ def cache_twin_checks() -> dict:
     sparse_adagrad.update([(table, acc, g)], grouping, 0.1, 1e-10, False)
     embedding.sparse_adagrad_update_plain(t2, a2, ids, g, 0.1, 1e-10, False)
     out["sparse_adagrad update"] = float((table - t2).abs().max())
+    case = paged_case(paged_case_rows("decode", 1), 1, 65, 16)
+    res = paged_kernel_case("cache", case, calls=1)
+    out["paged_attention"] = res["paged_attention"]["max_abs_err"]
+    out["kv_append"] = 0.0 if res["kv_append"]["bits"] else 1.0
     torch.cuda.synchronize()
     tol = {"group_norm": 2 * 2.0 ** -7 * 8, "group_norm_bwd": 2 * 2.0 ** -7
-           * 8, "sparse_adagrad group": 0.0, "sparse_adagrad update": 1e-5}
+           * 8, "sparse_adagrad group": 0.0, "sparse_adagrad update": 1e-5,
+           "paged_attention": ATTN_TOL, "kv_append": 0.0}
     bad = {k: v for k, v in out.items() if not v <= tol[k]}
     if bad:
         raise SystemExit(f"kernels loaded from the cache disagree with "
@@ -4572,7 +4621,8 @@ TRACED_KERNELS = {
     "gn_bwd_params": "backward_four_launch",
     "tfos_id_grouping": "group",
     # one kernel for both modes (``combine`` is an argument)
-    "tfos_adagrad_segment_walk": "table update"}
+    "tfos_adagrad_segment_walk": "table update",
+    "tfos_kv_append": "kv_append", "tfos_paged_attention": "paged_attention"}
 _KERNEL_TOKEN = re.compile(r"\b(gn_[a-z_]+|tfos_[a-z_]+)\b")
 
 
@@ -5243,6 +5293,757 @@ def compiled_step_phase(work: str) -> dict:
             "seconds": total}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the generative decode tier
+# ---------------------------------------------------------------------------
+
+PHASE17_BUDGET_S = 60
+#: the decode engine of 17(b)-(d), over ``tinylm.Config()`` at full width
+DECODE_ENGINE = {"max_seqs": 8, "page_size": 16, "max_len": 128,
+                 "max_prompt_len": 64}
+DECODE_SEED = 17
+DECODE_REQUESTS = 32
+#: requests each planted-fault engine serves (17(b))
+DECODE_PLANTED_REQUESTS = 8
+#: |kernel - plain twin| of the attention, f32: the softmax and the dot
+#: products are summed in another order (measured ≈ 3e-7)
+ATTN_TOL = 1e-5
+#: a paged-path token may differ from the full forward's argmax only where
+#: the full forward's logit of that token lies within this of its maximum
+#: (a near-tie: the two paths sum the same f32 products in other orders)
+DECODE_TIE_GAP = 1e-5
+#: 17(a)'s larger case: 256 rows of 128 positions over 2,049 pages
+SYNTH_ROWS, SYNTH_POSITIONS = 256, 128
+DECODE_TIMED_CALLS = 50
+#: the paged kernels by the name a profiler trace gives them
+PAGED_KERNELS = {k: v for k, v in TRACED_KERNELS.items()
+                 if k in ("tfos_kv_append", "tfos_paged_attention")}
+PLANTED_OFF_BY_ONE = ("TFOS_PLANTED_CAUSAL_OFF_BY_ONE",)
+
+
+def paged_case_rows(label: str, L: int) -> list:
+    """17(a)'s rows at the engine's geometry (8 pages of 16 a row, 128
+    positions): ``(start, valid length or None, pages)``, ``pages`` the
+    table's entries as ``("own", i)`` (the row's i-th private page) or
+    ``("of", r, i)`` (row r's i-th page, shared, never written here).
+    The rows: active mid-page, from a page boundary, inactive (an all-zero
+    table), ending at max_len - 1, sharing another row's first two pages,
+    and short ones."""
+    own = [("own", i) for i in range(8)]
+    shared = [("of", 3, 0), ("of", 3, 1)] + own[2:]
+    if label == "decode":  # L = 1: every position valid (lens None)
+        return [(36, None, own), (16, None, own), (0, None, []),
+                (127, None, own), (40, None, shared), (63, None, own),
+                (100, None, own), (15, None, own)]
+    return [(0, L, own), (16, L - 3, own), (0, 0, []),
+            (128 - L, L, own), (32, L, shared), (8, 5, own),
+            (48, L // 2, own), (0, 1, own)]
+
+
+def paged_case(rows: list, L: int, num_pages: int, seed: int,
+               heads: int = 4, head_dim: int = 32, layers: int = 2):
+    """The tensors of one 17(a) case on the card: random pools, q/k/v,
+    the tables (each row's private pages drawn without replacement from
+    pages 1..), start and lens."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    R = len(rows)
+    pages = rng.permutation(np.arange(1, num_pages))
+    tables = np.zeros((R, 8), np.int32)
+    used = 0
+    for r, (_, _, entries) in enumerate(rows):
+        for i, e in enumerate(entries):
+            if e[0] == "own":
+                tables[r, i] = pages[used]
+                used += 1
+    for r, (_, _, entries) in enumerate(rows):
+        for i, e in enumerate(entries):
+            if e[0] == "of":
+                tables[r, i] = tables[e[1], e[2]]
+    start = np.array([s for s, _, _ in rows], np.int32)
+    lens = (None if rows[0][1] is None
+            else np.array([n for _, n, _ in rows], np.int32))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    shape = (layers, num_pages, 16, heads, head_dim)
+    return {"k_pool": randn(*shape), "v_pool": randn(*shape),
+            "q": randn(R, L, heads, head_dim),
+            "k": randn(R, L, heads, head_dim),
+            "v": randn(R, L, heads, head_dim),
+            "tables": torch.from_numpy(tables).cuda(),
+            "start": torch.from_numpy(start).cuda(),
+            "lens": None if lens is None else torch.from_numpy(lens).cuda(),
+            "tables_np": tables, "start_np": start, "lens_np": lens}
+
+
+def paged_bounds(case: dict, max_len: int) -> dict:
+    """The least time of each paged kernel on this case's data, each
+    input read once and each output written once (bytes), against its f32
+    operations (at the f32 rate outside the tensor cores):
+    ``{"kv_append": ..., "paged_attention": ...}``.  The append reads k
+    and v and writes them into the pools; the attention reads q, the K/V
+    of the distinct pool positions its rows see (a page two rows share
+    counts once) and the tables, and writes o, with 4 operations a head
+    element for each (query, position) pair (the score's multiply-add, the
+    output's)."""
+    import numpy as np
+
+    tables, start = case["tables_np"], case["start_np"]
+    R, L, H, K = case["q"].shape
+    ps = case["k_pool"].shape[2]
+    elems = R * L * H * K
+    idx = R * (tables.shape[1] + 2) * 4
+    append_bytes = 4 * elems * 4 + idx
+    seen, pairs = set(), 0
+    for r in range(R):
+        for t in range(L):
+            p = min(max(int(start[r]) + t, 0), max_len - 1)
+            pairs += p + 1
+        last = min(max(int(start[r]) + L - 1, 0), max_len - 1)
+        for j in range(last + 1):
+            seen.add((int(tables[r, j // ps]), j % ps))
+    attn_bytes = 2 * elems * 4 + len(seen) * H * K * 4 * 2 + idx
+    return {
+        "kv_append": _bound(append_bytes / HBM_BYTES_PER_S * 1e3, 0.0,
+                            bytes=append_bytes),
+        "paged_attention": _bound(
+            attn_bytes / HBM_BYTES_PER_S * 1e3,
+            pairs * H * K * 4 / F32_OPS_PER_S * 1e3, bytes=attn_bytes)}
+
+
+def paged_library_call(case: dict, layer: int, max_len: int):
+    """One PyTorch expression of the attention, the yardstick the port
+    never calls: K and V gathered through the tables by ``index_select``
+    (the two gathers), then ``scaled_dot_product_attention`` under a
+    boolean mask of each query's positions."""
+    import torch
+    import torch.nn.functional as F
+
+    q, tables, start = case["q"], case["tables"], case["start"]
+    R, L, H, K = q.shape
+    ps = case["k_pool"].shape[2]
+    ctx = tables.shape[1] * ps
+    idx = tables.reshape(-1).long()
+    pos = (start.long()[:, None] + torch.arange(L, device=q.device)).clamp(
+        0, max_len - 1)
+    mask = (torch.arange(ctx, device=q.device)[None, None, :]
+            <= pos[:, :, None])[:, None]
+    qt = q.transpose(1, 2)
+
+    def call():
+        kg = case["k_pool"][layer].index_select(0, idx).reshape(R, ctx, H, K)
+        vg = case["v_pool"][layer].index_select(0, idx).reshape(R, ctx, H, K)
+        return F.scaled_dot_product_attention(
+            qt, kg.transpose(1, 2), vg.transpose(1, 2), attn_mask=mask)
+
+    return call
+
+
+def paged_kernel_case(label: str, case: dict, max_len: int = 128,
+                      layer: int = 1, calls: int = 50) -> dict:
+    """17(a) for one case: the append bit for bit its plain twin's outside
+    page 0 (run on the card), the attention within ``ATTN_TOL`` of its
+    twin on the same pools and the same bits twice; ms a call of each
+    kernel, its twin and the library yardstick (CUDA events), beside
+    ``bound_ms``."""
+    import torch
+
+    from tensorflowonspark_torch.kernels import paged_attention as pa
+
+    args = (case["tables"], case["start"], case["lens"])
+    kc, vc = case["k_pool"].clone(), case["v_pool"].clone()
+    kt, vt = case["k_pool"].clone(), case["v_pool"].clone()
+    pa.kv_append(kc, vc, layer, case["k"], case["v"], *args,
+                 max_len=max_len)
+    pa.kv_append_plain(kt, vt, layer, case["k"], case["v"], *args,
+                       max_len=max_len)
+    o = pa.paged_attention(case["q"], kc, vc, layer, case["tables"],
+                           case["start"], max_len=max_len)
+    o2 = pa.paged_attention(case["q"], kc, vc, layer, case["tables"],
+                            case["start"], max_len=max_len)
+    ot = pa.paged_attention_plain(case["q"], kc, vc, layer, case["tables"],
+                                  case["start"], max_len=max_len)
+    torch.cuda.synchronize()
+    append_bits = (torch.equal(kc[:, 1:], kt[:, 1:])
+                   and torch.equal(vc[:, 1:], vt[:, 1:]))
+    append_err = max(float((kc[:, 1:] - kt[:, 1:]).abs().max()),
+                     float((vc[:, 1:] - vt[:, 1:]).abs().max()))
+    attn_err = float((o - ot).abs().max())
+    same = torch.equal(o, o2)
+    case = dict(case, k_pool=kc, v_pool=vc)
+    library = paged_library_call(case, layer, max_len)
+    lib_err = float((library().transpose(1, 2) - ot).abs().max())
+    plain_index = _append_indices(case, max_len)
+    times = {
+        "kv_append": (
+            time_ms(lambda: pa.kv_append(kc, vc, layer, case["k"], case["v"],
+                                         *args, max_len=max_len), calls),
+            time_ms(lambda: pa.kv_append_plain(
+                kt, vt, layer, case["k"], case["v"], *args,
+                max_len=max_len), calls),
+            time_ms(lambda: (kt[layer].index_put_(plain_index, case["k"]),
+                             vt[layer].index_put_(plain_index, case["v"])),
+                    calls)),
+        "paged_attention": (
+            time_ms(lambda: pa.paged_attention(
+                case["q"], kc, vc, layer, case["tables"], case["start"],
+                max_len=max_len), calls),
+            time_ms(lambda: pa.paged_attention_plain(
+                case["q"], kc, vc, layer, case["tables"], case["start"],
+                max_len=max_len), calls),
+            time_ms(library, calls))}
+    bounds = paged_bounds(case, max_len)
+    out = {
+        "kv_append": {"max_abs_err": append_err, "bits": append_bits},
+        "paged_attention": {"max_abs_err": attn_err, "bits": same,
+                            "library_err": lib_err}}
+    for name, (ms, plain_ms, library_ms) in times.items():
+        out[name].update({"ms": ms, "plain_ms": plain_ms,
+                          "library_ms": library_ms, **bounds[name]})
+    R, L = case["q"].shape[:2]
+    print(f"paged kernels (a) {label} ({R} rows x {L} positions, "
+          f"{case['k_pool'].shape[1]} pages): kv_append bit for bit its "
+          f"twin outside page 0: {append_bits}; paged_attention max |kernel"
+          f" - twin| {attn_err:.3e} (tol {ATTN_TOL}), the same bits twice: "
+          f"{same}, the library's {lib_err:.3e}; ms a call (bound; plain; "
+          f"library): " + "; ".join(
+              f"{n} {v['ms']:.4f} ({v['bound_ms']:.5f} by {v['bound_by']}; "
+              f"{v['plain_ms']:.4f}; {v['library_ms']:.4f})"
+              for n, v in out.items()), flush=True)
+    return out
+
+
+def _append_indices(case: dict, max_len: int):
+    """The ``(pages, offsets)`` of the append, for the library yardstick
+    (``index_put_`` with its indices made beforehand)."""
+    import torch
+
+    R, L = case["k"].shape[:2]
+    ps = case["k_pool"].shape[2]
+    pos = (case["start"].long()[:, None]
+           + torch.arange(L, device="cuda")).clamp(0, max_len - 1)
+    pages = torch.gather(case["tables"].long(), 1, pos // ps)
+    if case["lens"] is not None:
+        pages = torch.where(torch.arange(L, device="cuda")[None]
+                            < case["lens"].long()[:, None], pages, 0)
+    return pages, pos % ps
+
+
+def paged_kernel_phase(rungs) -> tuple[dict, list]:
+    """17(a): the cases at the engine's geometry (decode, each chunk rung)
+    and the larger synthetic one; returns ``({case: result}, failures)``."""
+    import torch
+
+    results, failures = {}, []
+    cases = [("decode", 1)] + [(f"chunk{L}", L) for L in rungs]
+    for i, (label, L) in enumerate(cases):
+        rows = paged_case_rows(label, L)
+        results[label] = paged_kernel_case(
+            label, paged_case(rows, L, 1 + 8 * len(rows), 170 + i))
+    synth = [(0, SYNTH_POSITIONS, [("own", j) for j in range(8)])
+             for _ in range(SYNTH_ROWS)]
+    results["synthetic"] = paged_kernel_case(
+        "synthetic", paged_case(synth, SYNTH_POSITIONS,
+                                1 + 8 * SYNTH_ROWS, 179), calls=10)
+    torch.cuda.empty_cache()
+    for label, res in results.items():
+        if not res["kv_append"]["bits"]:
+            failures.append(f"(a) {label}: kv_append differs from its twin")
+        attn = res["paged_attention"]
+        if not (attn["max_abs_err"] <= ATTN_TOL and attn["bits"]):
+            failures.append(f"(a) {label}: paged_attention "
+                            f"{attn['max_abs_err']:.3e} from its twin or "
+                            f"not the same bits twice")
+    return results, failures
+
+
+def decode_workload(seed: int = DECODE_SEED, vocab: int = 256,
+                    n: int = DECODE_REQUESTS) -> list:
+    """17(b)'s requests, ``(prompt int32, max_new_tokens)``: three 48-token
+    prompts first (their three full pages register as prefixes), then
+    singletons, then eight that extend a registered prefix, cut at a page
+    boundary (16, 32) or mid-page (20, 24, 28, 33, 40, 44: a COW copy),
+    with tails; prompts of 4-64 tokens, 16-64 new tokens, within 128
+    positions."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    bases = [rng.randint(0, vocab, size=(48,)) for _ in range(3)]
+    family = []
+    for i, cut in enumerate((32, 24, 40, 20, 44, 33, 16, 28)):
+        tail = rng.randint(0, vocab, size=(rng.randint(1, 64 - cut + 1),))
+        family.append(np.concatenate([bases[i % 3][:cut], tail]))
+    singles = [rng.randint(0, vocab, size=(rng.randint(4, 65),))
+               for _ in range(n - len(bases) - len(family))]
+    out = []
+    for p in bases + singles + family:
+        p = p.astype(np.int32)
+        out.append((p, int(rng.randint(16, min(64, 128 - len(p)) + 1))))
+    return out
+
+
+def serve_all(engine, requests, concurrent: bool) -> tuple[list, float]:
+    """Every request's token stream from ``engine`` (started), submitted
+    all at once from as many threads or one after another, and the wall
+    seconds."""
+    import threading
+
+    out = [None] * len(requests)
+
+    def run(i):
+        prompt, n = requests[i]
+        out[i] = engine.submit(prompt, max_new_tokens=n).result(timeout=300)
+
+    t0 = time.perf_counter()
+    if concurrent:
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(requests))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    else:
+        for i in range(len(requests)):
+            run(i)
+    return out, time.perf_counter() - t0
+
+
+def greedy_gaps(params, config, requests, streams) -> tuple[int, int]:
+    """Hold each stream to the full forward (``tinylm.apply_tokens``, plain
+    PyTorch, no kernel) over the prompt and the stream itself: the logits
+    at each position are those of the forward recomputed in full on the
+    tokens before it (causal), so a stream is the greedy continuation when
+    each of its tokens is that position's argmax.  Returns ``(tokens that
+    are not the argmax, of which near-ties within DECODE_TIE_GAP)``."""
+    import torch
+
+    from tensorflowonspark_torch.models import tinylm
+
+    off = ties = 0
+    device = next(iter(params.values())).device
+    with torch.no_grad():
+        for (prompt, _), stream in zip(requests, streams):
+            seq = torch.tensor([list(prompt) + list(stream)], device=device)
+            logits = tinylm.apply_tokens(params, seq, config)[0]
+            rows = logits[len(prompt) - 1: len(prompt) - 1 + len(stream)]
+            want = torch.tensor(stream, device=device)
+            best = rows.max(dim=-1).values
+            got = rows.gather(1, want[:, None])[:, 0]
+            wrong = rows.argmax(dim=-1) != want
+            off += int(wrong.sum())
+            ties += int((wrong & (best - got <= DECODE_TIE_GAP)).sum())
+    return off, ties
+
+
+def engine_contract(engine, pool_bytes: int, ptrs: tuple) -> list:
+    """After ``stop()``: no used page, the pool's conservation law, the
+    pools' bytes and storage unchanged since construction."""
+    failures = []
+    inv = engine.pool.invariant()
+    if engine.pool.used_pages or not inv["ok"]:
+        failures.append(f"pool after stop: {inv}")
+    if (engine.kv_pool_bytes != pool_bytes
+            or (engine._kp.data_ptr(), engine._vp.data_ptr()) != ptrs):
+        failures.append("the KV pools moved or grew")
+    return failures
+
+
+def hist_quantiles(name: str, before: dict) -> dict:
+    """p50/p99 (bucket upper bounds, ms) of the observations ``name`` (a
+    decode histogram) took since ``before`` (its ``cumulative()``)."""
+    from tensorflowonspark_torch import obs
+
+    hist = obs.get_registry().peek(name)
+    now = dict(hist.cumulative())
+    delta = [(le, now[le] - before.get(le, 0)) for le in sorted(now)]
+    total = delta[-1][1] if delta else 0
+    out = {}
+    for q in (0.5, 0.99):
+        le = next((le for le, n in delta if total and n >= q * total), None)
+        out[f"p{int(q * 100)}_ms"] = (None if le is None
+                                      else le * 1e3 if le != float("inf")
+                                      else float("inf"))
+    out["n"] = total
+    return out
+
+
+def decode_step_numbers(engine, kind: str, batch: dict,
+                        modes=("eager", "captured")) -> dict:
+    """17(c) for one step kind of an idle engine: the wrappers' launches
+    of one eager step; for each of ``modes``, the captured step (copy in,
+    ``graph.replay()``, copy out) or the eager one: host µs a step on an
+    idle card (median wall, the step's own sync included), device busy ms
+    by family and the idle share (torch.profiler, after
+    ``TRACE_WARMUP_LAUNCHES`` spin kernels); and the kernels a traced
+    replay ran, a step."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tensorflowonspark_torch import decode, shapes
+    from tensorflowonspark_torch.kernels import paged_attention as pa
+
+    prog = engine._programs[shapes.signature(batch)]
+    calls = 5
+
+    def eager():
+        prog.staged.refresh(batch)
+        return decode._fetch(engine._call(kind, prog.staged.views))
+
+    def captured():
+        return engine._run(kind, batch)[0]
+
+    before = dict(pa.launches_by_kernel)
+    eager()
+    torch.cuda.synchronize()
+    wrapper = {k: v - before[k] for k, v in pa.launches_by_kernel.items()}
+    out = {"wrapper_launches": wrapper}
+    for mode in modes:  # "captured" among them: its trace counts
+        fn = eager if mode == "eager" else captured
+        walls = []
+        for _ in range(DECODE_TIMED_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            walls.append(time.perf_counter() - t0)
+        host_us = statistics.median(walls) * 1e6
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_WARMUP_LAUNCHES):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names, families = [], collections.Counter()
+        for name, ms in device_kernels(prof, calls):
+            if "spin" in name.lower() or "sleep" in name.lower():
+                continue
+            names.append(name)
+            families[decode_family(name)] += ms
+        busy = sum(families.values()) or None
+        out[mode] = {"host_us": host_us, "busy_ms": busy,
+                     "families_ms": dict(families),
+                     "idle_share": (None if busy is None else
+                                    max(0.0, 1 - busy * 1e3 / host_us))}
+        if mode == "captured":  # a whole count a step, unless one dropped
+            out["traced_launches"] = {
+                k: v // calls if v % calls == 0 else v / calls
+                for k, v in traced_launches(names).items()
+                if k in PAGED_KERNELS.values()}
+    return out
+
+
+def decode_family(kernel: str) -> str:
+    """The family of one kernel of a decode or chunk step: either paged
+    kernel by name, the GEMMs (cuBLAS), the host-to-card and card-to-host
+    copies, or the rest (elementwise, norms, gathers, argmax)."""
+    m = _KERNEL_TOKEN.search(kernel)
+    if m and m.group(1) in PAGED_KERNELS:
+        return PAGED_KERNELS[m.group(1)]
+    low = kernel.lower()
+    if "gemm" in low or "xmma" in low or "cutlass" in low:
+        return "GEMMs"
+    if "memcpy" in low:
+        return "copies"
+    return "other"
+
+
+def idle_step_batches(engine, seed: int) -> tuple[dict, list]:
+    """A decode-step batch and a chunk-step batch of the engine's largest
+    rung, every slot live at random lengths, over pages allocated from the
+    idle engine's pool (returned, to free after)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    S, P = engine.max_seqs, engine.pages_per_seq
+    pages = engine.pool.alloc(S * P)
+    tables = np.array(pages, np.int32).reshape(S, P)
+    vocab = engine.config.vocab_size
+    L = engine.prefill_chunks[-1]
+    decode_batch = {
+        "tokens": rng.randint(0, vocab, size=(S,)).astype(np.int32),
+        "seq_lens": rng.randint(16, engine.max_len - 1,
+                                size=(S,)).astype(np.int32),
+        "page_tables": tables}
+    chunk_batch = {
+        "tokens": rng.randint(0, vocab, size=(S, L)).astype(np.int32),
+        "start_lens": (rng.randint(0, 3, size=(S,)) * L).astype(np.int32),
+        "chunk_lens": np.full((S,), L, np.int32),
+        "page_tables": tables}
+    return {"decode": decode_batch, "chunk": chunk_batch}, pages
+
+
+def http_generation(engine, prompt, max_new: int) -> list:
+    """One streamed generation over ``POST /v1/generate`` of a
+    ``DecodeHTTPServer`` on ``engine``: the streamed tokens (the done
+    line's must equal them)."""
+    import http.client
+
+    from tensorflowonspark_torch import decode
+
+    srv = decode.DecodeHTTPServer(engine)
+    try:
+        host, port = srv.start()
+        conn = http.client.HTTPConnection(host, port, timeout=60)
+        conn.request("POST", "/v1/generate", body=json.dumps(
+            {"prompt": [int(t) for t in prompt],
+             "max_new_tokens": max_new}).encode())
+        resp = conn.getresponse()
+        lines = [json.loads(ln) for ln in
+                 resp.read().decode().strip().splitlines()]
+    finally:
+        srv.stop()
+    streamed = [d["token"] for d in lines[:-1]]
+    if resp.status != 200 or lines[-1].get("tokens") != streamed:
+        raise SystemExit(f"decode (d): HTTP {resp.status}, {lines[-1]}")
+    return streamed
+
+
+def decode_phase() -> dict:
+    """Phase 17 (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch import decode, obs, shapes
+    from tensorflowonspark_torch.kernels import _build
+    from tensorflowonspark_torch.kernels import paged_attention as pa
+    from tensorflowonspark_torch.models import tinylm
+
+    t17 = time.perf_counter()
+    failures, seconds = [], {}
+    planted = (None if _build._cached("paged_attention", PLANTED_OFF_BY_ONE)
+               else _build._start("paged_attention", _build.find_nvcc(),
+                                  PLANTED_OFF_BY_ONE))
+    config = tinylm.Config()
+    params = tinylm.init_params(config, seed=DECODE_SEED)
+    requests = decode_workload()
+    tokens_out = sum(n for _, n in requests)
+
+    # (a) the kernels against their plain twins
+    t0 = time.perf_counter()
+    rungs = shapes.prefill_chunks(
+        DECODE_ENGINE["max_prompt_len"], DECODE_ENGINE["page_size"],
+        max_chunk=decode.DEFAULT_PREFILL_CHUNK_PAGES
+        * DECODE_ENGINE["page_size"])
+    kern, kern_failures = paged_kernel_phase(rungs)
+    failures += kern_failures
+    seconds["a"] = time.perf_counter() - t0
+
+    # (b) the engine, greedy: the main path, counted from construction
+    t0 = time.perf_counter()
+    pa.reset_launches()
+    engine = decode.DecodeEngine(config, params, **DECODE_ENGINE)
+    contract = (engine.kv_pool_bytes,
+                (engine._kp.data_ptr(), engine._vp.data_ptr()))
+    w0 = time.perf_counter()
+    engine.warmup()
+    warmup_s = time.perf_counter() - w0
+    sigs = len(engine.enumerate_signatures())
+    warm = (engine.captures, engine.eager_calls)
+    engine.start()
+    hists = {n: dict(obs.get_registry().peek(n).cumulative())
+             for n in ("decode_ttft_seconds", "decode_itl_seconds")}
+    conc, conc_s = serve_all(engine, requests, concurrent=True)
+    latency = {"ttft": hist_quantiles("decode_ttft_seconds",
+                                      hists["decode_ttft_seconds"]),
+               "itl": hist_quantiles("decode_itl_seconds",
+                                     hists["decode_itl_seconds"]),
+               "window": engine.slo_snapshot()}
+    seq, seq_s = serve_all(engine, requests, concurrent=False)
+    main_launches = dict(pa.launches_by_kernel)
+    after = (engine.captures, engine.eager_calls)
+    kv = engine.stats()["admission"]["kv"]
+    off, ties = greedy_gaps(engine._params, config, requests, conc)
+    legacy = decode.DecodeEngine(config, params, prefill_chunk=0,
+                                 **DECODE_ENGINE)
+    legacy_contract = (legacy.kv_pool_bytes,
+                       (legacy._kp.data_ptr(), legacy._vp.data_ptr()))
+    legacy.warmup()
+    legacy.start()
+    legacy_out, legacy_s = serve_all(legacy, requests, concurrent=True)
+    legacy.stop()
+    failures += engine_contract(legacy, *legacy_contract)
+    # each signature's eager call and capture launch each kernel a layer
+    planned = (len(rungs) + 1) * config.n_layers * 2
+    lengths_ok = all(len(s) == n for s, (_, n) in zip(conc, requests))
+    print(f"decode (b) tinylm.Config() {engine.max_seqs} slots x "
+          f"{engine.pages_per_seq} pages of {engine.page_size}, "
+          f"{len(requests)} greedy requests (prompts "
+          f"{min(len(p) for p, _ in requests)}-"
+          f"{max(len(p) for p, _ in requests)}, {tokens_out} tokens) on "
+          f"{engine.device}: concurrent streams == one at a time: "
+          f"{conc == seq}; == a legacy-prefill engine's: "
+          f"{conc == legacy_out}; tokens not the full forward's argmax "
+          f"{off} (near-ties within {DECODE_TIE_GAP}: {ties}); prefix hits "
+          f"{kv['prefix_hits_total']}, shared pages "
+          f"{kv['shared_pages_total']}, COW copies {kv['cow_copies_total']};"
+          f" warmup {warmup_s:.2f} s captured {warm[0]} of {sigs} "
+          f"signatures ({warm[1]} eager calls), after serving "
+          f"{after[0]} captures and {after[1]} eager calls, "
+          f"{engine.replays} replays; wrapper launches {main_launches} "
+          f"(planned {planned} each: the warmup's eager calls and "
+          f"captures)", flush=True)
+    if not (lengths_ok and conc == seq == legacy_out):
+        failures.append("(b) streams differ: concurrent, sequential, "
+                        "legacy or lengths")
+    if off != ties:
+        failures.append(f"(b) {off - ties} tokens are not the full "
+                        f"forward's greedy choice")
+    if not (kv["cow_copies_total"] > 0 and kv["prefix_hits_total"] > 0):
+        failures.append("(b) no COW copy or no prefix hit")
+    if not (warm[0] == sigs and after == warm and engine.replays > 0):
+        failures.append(f"(b) captures {warm} -> {after}, signatures {sigs}")
+    if main_launches != dict.fromkeys(PAGED_KERNELS.values(), planned):
+        failures.append(f"(b) wrapper launches {main_launches}")
+
+    # (b) planted faults: an off-by-one causal bound, stale static inputs
+    saved = pa._LIB
+    try:
+        if planted is not None:
+            _build._finish("paged_attention", planted)
+        pa._LIB = pa._bind(_build.load("paged_attention",
+                                       PLANTED_OFF_BY_ONE))
+        faulty = decode.DecodeEngine(config, params, **DECODE_ENGINE)
+        faulty.warmup()
+        faulty.start()
+        off_by_one = serve_all(faulty, requests[:DECODE_PLANTED_REQUESTS],
+                               concurrent=False)[0]
+        faulty.stop()
+    finally:
+        pa._LIB = saved
+    stale_engine = decode.DecodeEngine(config, params, **DECODE_ENGINE)
+    stale_engine.warmup()
+    stale_engine._refresh = lambda staged, arrays: None
+    stale_engine.start()
+    stale = serve_all(stale_engine, requests[:DECODE_PLANTED_REQUESTS],
+                      concurrent=False)[0]
+    stale_engine.stop()
+    want = conc[:DECODE_PLANTED_REQUESTS]
+    caught = {"causal j < p": off_by_one != want,
+              "stale static inputs": stale != want}
+    print(f"decode (b) planted faults caught by the stream gate: {caught}",
+          flush=True)
+    failures += [f"(b) planted {k} not caught" for k, v in caught.items()
+                 if not v]
+    seconds["b"] = time.perf_counter() - t0
+
+    # (c) timing on an idle engine; the registry's pinned pages released,
+    # so that the timed steps' tables take every page
+    t0 = time.perf_counter()
+    engine._registry.clear()
+    batches, pages = idle_step_batches(engine, DECODE_SEED)
+    steps = {kind: decode_step_numbers(
+        engine, kind, batch,
+        ("eager", "captured") if kind == "decode" else ("captured",))
+        for kind, batch in batches.items()}
+    engine.pool.free(pages)
+    per_kernel = dict.fromkeys(PAGED_KERNELS.values(), config.n_layers)
+    for kind, s in steps.items():
+        if not (s["wrapper_launches"] == s["traced_launches"]
+                == per_kernel):
+            failures.append(f"(c) {kind} step launches: wrappers "
+                            f"{s['wrapper_launches']}, traced replay "
+                            f"{s['traced_launches']}")
+    card = torch.cuda.get_device_name(0)
+
+    def fmt(v, spec):
+        return "not measured" if v is None else format(v, spec)
+
+    print(f"decode (c) on {card}: aggregate {tokens_out / conc_s:.1f} "
+          f"tokens/s ({len(requests)} requests at once, {conc_s:.3f} s), "
+          f"one at a time {tokens_out / seq_s:.1f} tokens/s ({seq_s:.3f} "
+          f"s), legacy-prefill engine at once {tokens_out / legacy_s:.1f};"
+          f" TTFT p50/p99 {latency['ttft']['p50_ms']}/"
+          f"{latency['ttft']['p99_ms']} ms and ITL p50/p99 "
+          f"{latency['itl']['p50_ms']}/{latency['itl']['p99_ms']} ms "
+          f"(histogram bucket bounds; window p99s "
+          f"{latency['window']['ttft_p99_ms']}/"
+          f"{latency['window']['itl_p99_ms']} ms)", flush=True)
+    for kind, s in steps.items():
+        print(f"decode (c) {kind} step on an idle engine, "
+              f"{engine.max_seqs} live slots: launches a step by the "
+              f"wrappers {s['wrapper_launches']}, by a traced replay "
+              f"{s['traced_launches']}; " + "; ".join(
+                  f"{mode} {s[mode]['host_us']:.1f} us a step (copy in, "
+                  f"step, copy out), busy {fmt(s[mode]['busy_ms'], '.4f')}"
+                  f" ms (" + ", ".join(
+                      f"{k} {v:.4f}" for k, v in sorted(
+                          s[mode]["families_ms"].items(),
+                          key=lambda kv: -kv[1]))
+                  + f"), idle {fmt(s[mode]['idle_share'], '.1%')}"
+                  for mode in ("eager", "captured") if mode in s),
+              flush=True)
+    seconds["c"] = time.perf_counter() - t0
+
+    # (d) one streamed generation over HTTP
+    t0 = time.perf_counter()
+    prompt, n = requests[3]
+    streamed = http_generation(engine, prompt, n)
+    http_ok = streamed == conc[3]
+    print(f"decode (d) POST /v1/generate streamed {len(streamed)} tokens; "
+          f"equal to the engine's: {http_ok}", flush=True)
+    if not http_ok:
+        failures.append("(d) the HTTP stream differs from the engine's")
+    replays = engine.replays
+    engine.stop()
+    failures += engine_contract(engine, *contract)
+    seconds["d"] = time.perf_counter() - t0
+    total = time.perf_counter() - t17
+    print(f"decode phase 17 seconds: (a) {seconds['a']:.1f}, (b) "
+          f"{seconds['b']:.1f}, (c) {seconds['c']:.1f}, (d) "
+          f"{seconds['d']:.1f}; phase 17 {total:.1f} (budget "
+          f"{PHASE17_BUDGET_S} s)", flush=True)
+    if failures:
+        raise SystemExit("decode phase 17 failed: " + "; ".join(failures))
+    for name in PAGED_KERNELS.values():  # the profiler's ms a launch
+        kern["decode"][name]["device_ms"] = (
+            steps["decode"]["captured"]["families_ms"].get(name, 0.0)
+            / config.n_layers)
+    return {"kernels": kern, "launches": main_launches,
+            "replay_traced": {k: steps["decode"]["traced_launches"].get(k, 0)
+                              + steps["chunk"]["traced_launches"].get(k, 0)
+                              for k in PAGED_KERNELS.values()},
+            "steps": steps, "replays": replays, "seconds": total,
+            "tokens_per_s": tokens_out / conc_s,
+            "sequential_tokens_per_s": tokens_out / seq_s}
+
+
+def phase17_entries(decode_result: dict) -> list:
+    """The kernels line's entries of the two paged kernels: the decode
+    step's case (the main path's shape) and the others suffixed."""
+    sources = "tensorflowonspark_torch/csrc/paged_attention.cu"
+    replaces = {"kv_append": "tensorflowonspark_tpu/models/tinylm.py:318",
+                "paged_attention": "tensorflowonspark_tpu/models/tinylm.py:320"}
+    out = []
+    for name in PAGED_KERNELS.values():
+        kern = {label: res[name]
+                for label, res in decode_result["kernels"].items()}
+        main = kern["decode"]
+        entry = {"name": f"tfos_{name}", "route": "cuda", "source": sources,
+                 "replaces": replaces[name],
+                 "launches": decode_result["launches"][name],
+                 "launches_phase17": decode_result["launches"][name],
+                 "replay_launches_phase17":
+                     decode_result["replay_traced"][name],
+                 **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms", "device_ms")}}
+        for label, res in kern.items():
+            if label != "decode":
+                entry.update({f"{k}_{label}": res[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "library_ms")})
+        out.append(entry)
+    return out
+
+
 def phase16_alone(card: str) -> int:
     """``--phase 16``: phase 16 in a scratch directory, then the card
     line."""
@@ -5255,6 +6056,15 @@ def phase16_alone(card: str) -> int:
     return 0
 
 
+def phase17_alone(card: str) -> int:
+    """``--phase 17``: phase 17 alone (after the build), then its kernels
+    line and the card line."""
+    result = decode_phase()
+    print(card)
+    print(json.dumps({"kernels": phase17_entries(result)}))
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5263,7 +6073,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Drive the PyTorch port on one CUDA card (every phase "
                     "with no arguments).")
-    parser.add_argument("--phase", type=int, choices=(16,),
+    parser.add_argument("--phase", type=int, choices=(16, 17),
                         help="run the build and this phase alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -5288,6 +6098,8 @@ def main(argv=None) -> int:
           f" in {time.perf_counter() - t0:.1f} s", flush=True)
     if args.phase == 16:
         return phase16_alone(card)
+    if args.phase == 17:
+        return phase17_alone(card)
     ends = [time.perf_counter()]  # each phase's end, from phase 1 (build)
 
     config = resnet.Config()
@@ -5352,6 +6164,8 @@ def main(argv=None) -> int:
         sc.stop()
         shutil.rmtree(work, ignore_errors=True)
     t_end = time.perf_counter()
+    decoded = decode_phase()
+    t_done = time.perf_counter()
     print(f"resnet50 images/s at batch {SLICE_TRAIN_BATCH}: TENSORFLOW-mode "
           f"slice {tf_resnet['images_per_s']} by cluster.metrics() "
           f"(a checkpoint at its last step; "
@@ -5369,10 +6183,16 @@ def main(argv=None) -> int:
           f"{wd_slice['combine']['steps_per_s']}; the Parquet feed alone "
           f"{tf_wd['feed_steps_per_s']:.1f}; Trainer.step "
           f"{wd_train['dense']['steps_per_s']:.1f}", flush=True)
+    print(f"tinylm Config() greedy decode on the card: "
+          f"{decoded['tokens_per_s']:.1f} tokens/s with "
+          f"{DECODE_REQUESTS} requests at once, "
+          f"{decoded['sequential_tokens_per_s']:.1f} one at a time",
+          flush=True)
     print(f"seconds: phase 11 {t12 - t11:.1f}, phase 12 {t13 - t12:.1f}, "
           f"phase 13 {t14 - t13:.1f}, phase 14 {t15 - t14:.1f}, phase 15 "
-          f"{t16 - t15:.1f}, phase 16 {t_end - t16:.1f}; all phases "
-          f"{t_end - t_start:.1f}", flush=True)
+          f"{t16 - t15:.1f}, phase 16 {t_end - t16:.1f}, phase 17 "
+          f"{t_done - t_end:.1f}; all phases {t_done - t_start:.1f}",
+          flush=True)
 
     print(card)  # as nvidia-smi gives it: name, power limit
     names = {"one_pass": "group_norm_act (one_pass)",
@@ -5429,6 +6249,7 @@ def main(argv=None) -> int:
         "replay_launches_phase16": compiled["replay_traced"].get(path, 0),
         **tables[path]}
         for _, path in WD_MODES]
+    kernels += phase17_entries(decoded)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

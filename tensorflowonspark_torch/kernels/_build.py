@@ -21,6 +21,7 @@ store for the rest of the fleet.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -149,3 +150,16 @@ def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
             lib = ctypes.CDLL(path)
             _LIBS[(name, defines)] = lib
         return lib
+
+
+@contextlib.contextmanager
+def raw_stream(device):
+    """The current stream of the CUDA ``device``, as the raw pointer a
+    ``ctypes`` launch takes (the device made current for the block when it
+    is not)."""
+    import torch
+
+    index = device.index
+    with (contextlib.nullcontext() if index == torch.cuda.current_device()
+          else torch.cuda.device(index)):
+        yield torch._C._cuda_getCurrentRawStream(index)

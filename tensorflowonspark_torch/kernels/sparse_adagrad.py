@@ -18,12 +18,13 @@ falls back.  Launches count in :data:`launches` and
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import math
 from typing import NamedTuple
 
 import torch
+
+from tensorflowonspark_torch.kernels import _build
 
 #: Kernel launches in this process: one per :func:`group` or :func:`update`
 #: (inside a CUDA graph's capture too; a replay of the graph calls no
@@ -91,8 +92,6 @@ def reset_launches() -> None:
 def _lib():
     global _LIB
     if _LIB is None:
-        from tensorflowonspark_torch.kernels import _build
-
         lib = _build.load("sparse_adagrad")
         p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                             ctypes.c_float)
@@ -105,15 +104,6 @@ def _lib():
         lib.tfos_adagrad_segments_f32.restype = i32
         _LIB = lib
     return _LIB
-
-
-@contextlib.contextmanager
-def _on(device: torch.device):
-    """The current stream of ``device``, as a raw pointer."""
-    index = device.index
-    with (contextlib.nullcontext() if index == torch.cuda.current_device()
-          else torch.cuda.device(index)):
-        yield torch._C._cuda_getCurrentRawStream(index)
 
 
 def _count(path: str) -> None:
@@ -140,7 +130,7 @@ def group(flat: torch.Tensor, vocab: int) -> Grouping:
     if not flat.is_contiguous():
         raise ValueError("grouping kernel: ids must be contiguous")
     out = Grouping.empty(n, vocab, flat.device)
-    with _on(flat.device) as stream:
+    with _build.raw_stream(flat.device) as stream:
         err = _lib().tfos_group_ids(
             flat.data_ptr(), flat.element_size(), n, vocab,
             out.keys.data_ptr(), out.pos.data_ptr(), *out.scratch(),
@@ -192,7 +182,7 @@ def update(tables, grouping: Grouping, lr: float, eps: float,
         dim = _check_table(t, a, g, grouping)
         args += [g.data_ptr(), t.data_ptr(), a.data_ptr(), dim]
     args += [None, None, None, 0] * (2 - len(tables))  # no second table
-    with _on(grouping.keys.device) as stream:
+    with _build.raw_stream(grouping.keys.device) as stream:
         err = _lib().tfos_adagrad_segments_f32(
             grouping.pos.data_ptr(), grouping.seg_start.data_ptr(),
             grouping.seg_row.data_ptr(), grouping.n, grouping.vocab,

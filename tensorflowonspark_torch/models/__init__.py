@@ -14,7 +14,9 @@ Every model module exposes the reference's surface, in PyTorch:
 - ``params_from_flax(params)`` / ``opt_state_from_optax(opt_state,
   params)`` → the JAX package's weights and AdamW state, as numpy
 
-``tiny_lm`` is not ported yet: its name raises ``KeyError`` saying so.
+``tiny_lm`` (``models/tinylm.py``) carries the decode surface that
+``decode.DecodeEngine`` serves; its training, export and serving through
+``TFModel`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,17 +31,12 @@ _REGISTRY = {
     "mobilenet_v1": "tensorflowonspark_torch.models.mobilenet",
     "wide_deep": "tensorflowonspark_torch.models.widedeep",
     "bert": "tensorflowonspark_torch.models.bert",
+    "tiny_lm": "tensorflowonspark_torch.models.tinylm",
 }
-
-#: reference zoo entries the port does not have yet
-_NOT_PORTED = ("tiny_lm",)
 
 
 def get_model(name: str):
     """Return the model module registered under ``name``."""
-    if name in _NOT_PORTED:
-        raise KeyError(f"model {name!r} is not yet ported to "
-                       f"tensorflowonspark_torch; available: {available()}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; available: {available()}")
     return importlib.import_module(_REGISTRY[name])

@@ -18,8 +18,10 @@ Reference anchor: ``tensorflowonspark_tpu/serving.py``; this is the part
 - **Masked per-column emission** (:func:`emit_rows`): one host copy and one
   ``tolist()`` per output column per batch.
 
-The obs counters, compile-time histogram and padding-waste gauge of the
-reference wait for the port's observability slice.
+:func:`observe_compile_seconds` keeps the reference's compile-time
+histogram (the decode engine observes into it); the obs counters and
+padding-waste gauge of the reference wait for the rest of the serving
+plane.
 """
 
 from __future__ import annotations
@@ -91,6 +93,27 @@ def note_compile(key: Any, batch: Mapping[str, Any]) -> bool:
         return False
     seen.add(sig)
     return True
+
+
+#: bounds of ``serving_compile_seconds``, the reference's
+_COMPILE_BUCKETS = (0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 30.0, 60.0,
+                    120.0, float("inf"))
+
+
+def observe_compile_seconds(seconds: float) -> None:
+    """Record the wall of one first call with a shape signature that
+    :func:`note_compile` reported as new, into ``serving_compile_seconds``
+    (reference ``serving.py:288``).  PyTorch compiles nothing per shape:
+    the decode engine observes a signature's eager call plus its CUDA
+    graph capture.  The reference's hit/miss split over its persistent
+    XLA cache has no counterpart here."""
+    from tensorflowonspark_torch import obs
+
+    obs.histogram(
+        "serving_compile_seconds",
+        "wall time of first-call forwards with a new shape signature "
+        "(the eager call and, on the card, its CUDA graph capture)",
+        buckets=_COMPILE_BUCKETS).observe(float(seconds))
 
 
 def forget(key: Any = None) -> None:

@@ -14,6 +14,10 @@ hands a forward (``serving.note_compile``) to show that it does.
 - :func:`input_specs` / :func:`model_specs` / :func:`zero_batch` /
   :func:`enumerate_signatures` — the finite set of signatures a bucketed
   runtime requests for one model.
+- :func:`pow2_bucket` / :func:`prefill_buckets` / :func:`prefill_chunks` —
+  the decode tier's prompt ladders (``decode.py``): on the card each rung
+  is one captured CUDA graph, as each is one jit signature in the
+  reference.  ``spec_ladder`` waits for speculation.
 """
 
 from __future__ import annotations
@@ -188,3 +192,94 @@ def enumerate_signatures(specs: Mapping[str, tuple[tuple, Any]],
     return [signature({name: TensorSpec((int(b), *tail), np.dtype(dt))
                        for name, (tail, dt) in specs.items()})
             for b in buckets]
+
+
+def pow2_bucket(n: int) -> int:
+    """Next power-of-two ≥ n — the implicit bucket ladder used by callers
+    with no configured geometry (``infer_embed``'s JVM batches)."""
+    b = 1
+    while b < n:
+        b <<= 1
+    return b
+
+
+def prefill_buckets(max_prompt_len: int, *, min_bucket: int = 8,
+                    cap: int | None = None) -> tuple[int, ...]:
+    """The generative-decode PREFILL ladder: power-of-two prompt-length
+    buckets from ``min_bucket`` up to the one covering
+    ``max_prompt_len``, optionally capped at ``cap`` (the model's
+    positional capacity ``max_len`` — a bucket longer than the position
+    table cannot be embedded).
+
+    This is the decode tier's compile-triggering shape policy: every
+    prompt pads to a ladder bucket, so prefill compiles once per BUCKET
+    and the decode step (whose shapes are fixed by the slot/page
+    geometry, not the sequence length) compiles exactly once — sequence
+    growth never mints a new jit signature.  Pure arithmetic (no
+    env, no device state), so every process derives the identical
+    ladder from the same config — the fleet-compile-cache discipline.
+
+    When the covering power of two exceeds ``cap``, the terminal bucket
+    is ``max_prompt_len`` itself (one exact-fit compile instead of an
+    un-embeddable shape).
+    """
+    max_prompt_len = int(max_prompt_len)
+    if max_prompt_len < 1:
+        raise ValueError(f"max_prompt_len must be >= 1, got {max_prompt_len}")
+    terminal = pow2_bucket(max_prompt_len)
+    if cap is not None and terminal > int(cap):
+        if max_prompt_len > int(cap):
+            raise ValueError(
+                f"max_prompt_len {max_prompt_len} exceeds cap {cap}")
+        terminal = max_prompt_len
+    out: list[int] = []
+    b = pow2_bucket(max(1, int(min_bucket)))
+    while b < terminal and b < max_prompt_len:
+        out.append(b)
+        b <<= 1
+    out.append(terminal)
+    return tuple(out)
+
+
+def prefill_chunks(max_prompt_len: int, page_size: int, *,
+                   max_chunk: int | None = None) -> tuple[int, ...]:
+    """The CHUNKED-prefill ladder: page-aligned chunk lengths the decode
+    tier compiles its multi-sequence prefill step at.
+
+    Chunked prefill splits every prompt into page-aligned chunks and
+    packs chunks from several requests into one jitted call of fixed
+    ``(chunks, chunk_len)`` geometry — ``chunk_len`` must come from this
+    ladder, so prefill compiles once per RUNG and a long prompt advances
+    at most ``max_chunk`` tokens per engine step (the TTFT bound: decode
+    steps interleave between chunks, so a long prompt cannot monopolize
+    the loop).  Page alignment is load-bearing twice over: a chunk
+    boundary always lands on a page boundary (so a chunk never
+    half-fills a page another chunk must append to mid-call), and the
+    prefix-sharing registry maps whole pages, so shared prefixes compose
+    with chunk boundaries without remapping.
+
+    Rungs are power-of-two multiples of ``page_size`` (``ps, 2ps, 4ps,
+    ...``) up to the terminal rung: the page-aligned cover of
+    ``max_prompt_len``, capped at ``max_chunk`` rounded DOWN to a page
+    multiple (never below one page).  Pure arithmetic — no env, no
+    device state — so every process derives the identical ladder from
+    the same config, same as :func:`prefill_buckets`.
+    """
+    max_prompt_len = int(max_prompt_len)
+    page_size = int(page_size)
+    if max_prompt_len < 1:
+        raise ValueError(f"max_prompt_len must be >= 1, got {max_prompt_len}")
+    if page_size < 1:
+        raise ValueError(f"page_size must be >= 1, got {page_size}")
+    cover = -(-max_prompt_len // page_size) * page_size
+    top = cover
+    if max_chunk is not None:
+        budget = max(page_size, (int(max_chunk) // page_size) * page_size)
+        top = min(top, budget)
+    out: list[int] = []
+    rung = page_size
+    while rung < top:
+        out.append(rung)
+        rung <<= 1
+    out.append(top)
+    return tuple(out)

@@ -1041,3 +1041,166 @@ def test_phase_16_gates_budget_and_the_kernels_line():
     assert main.count('"replay_launches_phase16": compiled[') == 3
     assert main.index("compiled_step_phase(work)") < main.index("sc.stop()")
     assert "phase 16 {t_end - t16:.1f}" in main
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the generative decode tier
+# ---------------------------------------------------------------------------
+
+
+def _cpu_engine(**kw):
+    from tensorflowonspark_torch import decode
+    from tensorflowonspark_torch.models import tinylm
+
+    geometry = dict(max_seqs=4, page_size=8, max_len=64, max_prompt_len=24,
+                    device="cpu")
+    geometry.update(kw)
+    return decode.DecodeEngine(tinylm.Config.tiny(), **geometry)
+
+
+def test_phase17_workload_extends_prefixes_within_the_geometry():
+    """32 requests, prompts 4-64 and 16-64 new tokens within 128
+    positions; a third extend one of the three registered 48-token
+    prompts, most of them cut mid-page (a COW copy each); the same draw
+    every run."""
+    reqs = chip_smoke.decode_workload()
+    assert len(reqs) == chip_smoke.DECODE_REQUESTS == 32
+    assert all(4 <= len(p) <= 64 and 16 <= n <= 64 and len(p) + n <= 128
+               and p.dtype == np.int32 for p, n in reqs)
+    bases = [p for p, _ in reqs[:3]]
+    assert all(len(b) == 48 for b in bases)
+    family = [p for p, _ in reqs[3:]
+              if any(np.array_equal(p[:16], b[:16]) for b in bases)]
+    assert len(family) == 8
+    cuts = sorted(max(int(np.argmax(np.append(p[:48] != b[:len(p[:48])],
+                                              True)))
+                      for b in bases) for p in family)
+    assert sum(c % 16 != 0 for c in cuts) >= 4
+    again = chip_smoke.decode_workload()
+    assert all(np.array_equal(a, b) and m == n
+               for (a, m), (b, n) in zip(reqs, again))
+
+
+def test_phase17_case_rows_keep_shared_pages_read_only():
+    """17(a)'s rows never write a page another row reads: the sharing row
+    maps row 3's first two pages, which row 3 does not write."""
+    for label, L in (("decode", 1), ("chunk16", 16), ("chunk32", 32)):
+        rows = chip_smoke.paged_case_rows(label, L)
+        assert len(rows) == 8
+        start, n, entries = rows[4]
+        assert entries[:2] == [("of", 3, 0), ("of", 3, 1)]
+        s3, n3, _ = rows[3]
+        last = min(s3 + (n3 or 1) - 1, 127)
+        assert s3 // 16 >= 2 and last == 127  # ends at max_len - 1
+        assert start // 16 >= 2  # writes its own pages only
+        assert rows[2][2] == []  # inactive: an all-zero table
+
+
+def test_phase17_serves_and_gates_on_the_cpu():
+    """17(b)'s pieces on a CPU engine: streams at once equal streams one at
+    a time and are the full forward's greedy choice (no tie needed); the
+    pool contract after stop; the histogram quantiles of the run."""
+    from tensorflowonspark_torch import obs
+
+    eng = _cpu_engine()
+    contract = (eng.kv_pool_bytes, (eng._kp.data_ptr(), eng._vp.data_ptr()))
+    eng.warmup()
+    eng.start()
+    rng = np.random.RandomState(0)
+    reqs = [(rng.randint(0, 64, size=(n,)).astype(np.int32), 6)
+            for n in (3, 9, 17, 24, 5)]
+    before = dict(obs.get_registry().peek("decode_itl_seconds").cumulative())
+    conc, _ = chip_smoke.serve_all(eng, reqs, concurrent=True)
+    q = chip_smoke.hist_quantiles("decode_itl_seconds", before)
+    seq, _ = chip_smoke.serve_all(eng, reqs, concurrent=False)
+    assert conc == seq and all(len(s) == 6 for s in conc)
+    assert q["n"] == 5 * 5 and q["p50_ms"] <= q["p99_ms"]
+    assert chip_smoke.greedy_gaps(eng._params, eng.config, reqs, conc) == (
+        0, 0)
+    wrong = [list(s) for s in conc]
+    wrong[1][2] = (wrong[1][2] + 1) % 64
+    assert chip_smoke.greedy_gaps(eng._params, eng.config, reqs,
+                                  wrong)[0] >= 1
+    eng.stop()
+    assert chip_smoke.engine_contract(eng, *contract) == []
+    assert chip_smoke.engine_contract(eng, contract[0] + 4, contract[1])
+
+
+def test_phase17_idle_batches_take_free_pages_only():
+    eng = _cpu_engine()
+    eng.warmup()
+    batches, pages = chip_smoke.idle_step_batches(eng, 3)
+    assert set(batches) == {"decode", "chunk"}
+    assert 0 not in pages and len(set(pages)) == len(pages)
+    assert batches["chunk"]["tokens"].shape[1] == eng.prefill_chunks[-1]
+    assert (batches["decode"]["seq_lens"] < eng.max_len).all()
+    host, fresh = eng._run("decode", batches["decode"])
+    assert not fresh and host.shape == (eng.max_seqs,)
+    eng.pool.free(pages)
+    eng.stop()
+
+
+def test_phase17_traces_count_the_paged_kernels_by_name():
+    names = ["void (anonymous namespace)::tfos_kv_append(float*, float*)",
+             "void (anonymous namespace)::tfos_paged_attention(float const*)",
+             "void (anonymous namespace)::tfos_paged_attention(float const*)",
+             "void at::native::index_elementwise_kernel<128, 4>(int)"]
+    assert chip_smoke.traced_launches(names) == {"kv_append": 1,
+                                                 "paged_attention": 2}
+    assert set(chip_smoke.PAGED_KERNELS.values()) == {"kv_append",
+                                                      "paged_attention"}
+
+
+def test_phase17_gates_budget_and_the_kernels_line():
+    import inspect
+
+    src = inspect.getsource(chip_smoke.decode_phase)
+    for gate in ('"(b) streams differ', "tokens are not the full",
+                 '"(b) no COW copy or no prefix hit"', '"(b) captures',
+                 '"(b) wrapper launches', "planted {k} not caught",
+                 '"(c) {kind} step launches', "engine_contract(",
+                 '"(d) the HTTP stream differs', "PHASE17_BUDGET_S",
+                 'raise SystemExit("decode phase 17 failed: "'):
+        assert gate in src, gate
+    src = inspect.getsource(chip_smoke.paged_kernel_phase)
+    assert "kv_append differs from its twin" in src
+    assert "ATTN_TOL" in src
+    assert chip_smoke.PHASE17_BUDGET_S == 60
+    main = inspect.getsource(chip_smoke.main)
+    assert main.index("decode_phase()") > main.index("sc.stop()")
+    assert "kernels += phase17_entries(decoded)" in main
+    assert "choices=(16, 17)" in main
+    result = {
+        "kernels": {label: {k: {"max_abs_err": 0.0, "ms": 1.0,
+                                "plain_ms": 2.0, "bound_ms": 0.5,
+                                "bound_by": "bytes", "library_ms": 3.0,
+                                "device_ms": 0.25}
+                            for k in ("kv_append", "paged_attention")}
+                    for label in ("decode", "chunk16", "synthetic")},
+        "launches": {"kv_append": 12, "paged_attention": 12},
+        "replay_traced": {"kv_append": 4, "paged_attention": 4}}
+    entries = chip_smoke.phase17_entries(result)
+    keys = {"name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "launches_phase17", "replay_launches_phase17"}
+    for e in entries:
+        assert keys <= set(e) and e["route"] == "cuda"
+        assert e["source"] == (
+            "tensorflowonspark_torch/csrc/paged_attention.cu")
+        assert os.path.exists(os.path.join(
+            os.path.dirname(chip_smoke.__file__), e["source"]))
+        assert "ms_synthetic" in e and "ms_chunk16" in e
+        assert e["device_ms"] == 0.25
+    assert [e["launches"] for e in entries] == [12, 12]
+
+
+def test_phase17_families_name_the_paged_kernels_apart():
+    fam = chip_smoke.decode_family
+    assert fam("void (anonymous namespace)::tfos_paged_attention(float "
+               "const*)") == "paged_attention"
+    assert fam("void (anonymous namespace)::tfos_kv_append(float*)") == \
+        "kv_append"
+    assert fam("sm90_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize64x64x8") == \
+        "GEMMs"
+    assert fam("Memcpy HtoD (Pinned -> Device)") == "copies"
+    assert fam("void at::native::reduce_kernel<512, 1>(int)") == "other"

@@ -1,5 +1,7 @@
 """The CUDA kernels of the port on the card, against their plain twins:
-the fused GroupNorm forward and backward, and the AdaGrad table update.
+the fused GroupNorm forward and backward, the AdaGrad table update, and
+the decode tier's paged K/V append and attention (with the decode engine
+that runs them inside CUDA graphs).
 
 Needs a CUDA card (the kernels have no CPU mode) and skips without one.
 It imports nothing of JAX, so it also runs where JAX is not installed:
@@ -763,3 +765,157 @@ def test_compiled_step_replays_the_eager_step_on_card(case):
         assert all(d["one_pass"] > 0 for d in want_launches)
     else:
         assert all(d["group"] == 1 for d in want_launches)
+
+
+# ---------------------------------------------------------------------------
+# The decode tier: paged K/V append and attention, and the engine
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,L", [("decode", 1), ("chunk16", 16),
+                                     ("chunk32", 32)])
+def test_paged_kernels_match_plain_twins_on_card(label, L):
+    """At the decode engine's geometry (tinylm.Config(): 4 heads of 32,
+    pages of 16, 128 positions): rows inactive, crossing a page, sharing
+    another's pages, ending at max_len - 1.  The append bit for bit its
+    twin outside page 0, the attention within 1e-5 and the same bits
+    twice, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from tensorflowonspark_torch.kernels import paged_attention as pa
+
+    rows = chip_smoke.paged_case_rows(label, L)
+    case = chip_smoke.paged_case(rows, L, 1 + 8 * len(rows), 7)
+    before = dict(pa.launches_by_kernel)
+    for layer in (0, 1):
+        kc, vc = case["k_pool"].clone(), case["v_pool"].clone()
+        kt, vt = case["k_pool"].clone(), case["v_pool"].clone()
+        idx = (case["tables"], case["start"], case["lens"])
+        pa.kv_append(kc, vc, layer, case["k"], case["v"], *idx, max_len=128)
+        pa.kv_append_plain(kt, vt, layer, case["k"], case["v"], *idx,
+                           max_len=128)
+        attn = [pa.paged_attention(case["q"], kc, vc, layer, case["tables"],
+                                   case["start"], max_len=128)
+                for _ in range(2)]
+        plain = pa.paged_attention_plain(case["q"], kc, vc, layer,
+                                         case["tables"], case["start"],
+                                         max_len=128)
+        torch.cuda.synchronize()
+        assert torch.equal(kc[:, 1:], kt[:, 1:])
+        assert torch.equal(vc[:, 1:], vt[:, 1:])
+        assert float((attn[0] - plain).abs().max()) <= 1e-5
+        assert torch.equal(attn[0], attn[1])
+    assert pa.launches_by_kernel == {"kv_append": before["kv_append"] + 2,
+                                     "paged_attention":
+                                         before["paged_attention"] + 4}
+
+
+@pytest.mark.cuda
+def test_paged_attention_reads_nothing_past_the_bound_on_card():
+    """Positions past each query's bound are never read: NaN there leaves
+    every output bit as it was."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from tensorflowonspark_torch.kernels import paged_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    kp = torch.randn(1, 5, 16, 2, 32, generator=gen, device="cuda")
+    vp = torch.randn(1, 5, 16, 2, 32, generator=gen, device="cuda")
+    q = torch.randn(1, 4, 2, 32, generator=gen, device="cuda")
+    tables = torch.tensor([[3, 1, 0, 0]], dtype=torch.int32, device="cuda")
+    start = torch.tensor([17], dtype=torch.int32, device="cuda")
+    o = pa.paged_attention(q, kp, vp, 0, tables, start, max_len=64)
+    kp[0, 1, 5:] = float("nan")  # positions 21.. of the row: past 17 + 3
+    vp[0, 1, 5:] = float("nan")
+    kp[0, 0] = float("nan")
+    vp[0, 0] = float("nan")
+    again = pa.paged_attention(q, kp, vp, 0, tables, start, max_len=64)
+    torch.cuda.synchronize()
+    assert torch.isfinite(again).all() and torch.equal(o, again)
+
+
+@pytest.mark.cuda
+def test_paged_kernels_reject_what_they_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from tensorflowonspark_torch.kernels import paged_attention as pa
+
+    kp = torch.zeros(2, 5, 16, 2, 32, device="cuda")
+    q = torch.zeros(1, 1, 2, 32, device="cuda")
+    tables = torch.zeros(1, 4, dtype=torch.int32, device="cuda")
+    start = torch.zeros(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="one device"):
+        pa.paged_attention(q, kp, kp, 0, tables.cpu(), start, max_len=64)
+    with pytest.raises(ValueError, match="float32"):
+        pa.paged_attention(q.half(), kp, kp, 0, tables, start, max_len=64)
+    with pytest.raises(ValueError, match="int32"):
+        pa.paged_attention(q, kp, kp, 0, tables.long(), start, max_len=64)
+    with pytest.raises(ValueError, match="max_len"):
+        pa.paged_attention(q, kp, kp, 0, tables, start, max_len=65)
+    with pytest.raises(ValueError, match="layer"):
+        pa.kv_append(kp, kp.clone(), 2, q, q.clone(), tables, start,
+                     max_len=64)
+    with pytest.raises(ValueError, match="head_dim"):
+        wide = torch.zeros(1, 5, 16, 1, 160, device="cuda")
+        pa.paged_attention(torch.zeros(1, 1, 1, 160, device="cuda"), wide,
+                           wide, 0, tables, start, max_len=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [16, 0], ids=["chunked", "legacy"])
+def test_decode_engine_on_card_equals_the_cpu_engine(chunk):
+    """The engine on the card (its default device) serves the CPU
+    engine's greedy streams on the same weights, concurrently, with
+    prefix sharing and a mid-page COW; warmup() captured one graph a
+    signature and serving captured and ran eagerly nothing after; the
+    pools never moved."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import threading
+
+    import numpy as np
+
+    from tensorflowonspark_torch import decode
+    from tensorflowonspark_torch.models import tinylm
+
+    config = tinylm.Config()
+    params = tinylm.init_params(config, seed=5)
+    geometry = dict(max_seqs=8, page_size=16, max_len=128,
+                    max_prompt_len=64, prefill_chunk=chunk)
+    rng = np.random.RandomState(5)
+    base = rng.randint(0, 256, size=(48,))
+    prompts = [base] + [rng.randint(0, 256, size=(n,)) for n in (4, 17, 64)]
+    prompts += [np.concatenate([base[:24], rng.randint(0, 256, size=(9,))]),
+                np.concatenate([base[:32], rng.randint(0, 256, size=(5,))])]
+    cpu = decode.DecodeEngine(config, params, device="cpu", **geometry)
+    cpu.start()
+    want = [cpu.submit(p, max_new_tokens=20).result() for p in prompts]
+    cpu.stop()
+    eng = decode.DecodeEngine(config, params, **geometry)
+    assert eng.device.type == "cuda"
+    ptrs = (eng._kp.data_ptr(), eng._vp.data_ptr(), eng.kv_pool_bytes)
+    eng.warmup()
+    sigs = len(eng.enumerate_signatures())
+    assert eng.captures == eng.eager_calls == sigs
+    eng.start()
+    got = [eng.submit(p, max_new_tokens=20).result() for p in prompts]
+    out = [None] * len(prompts)
+
+    def run(i):
+        out[i] = eng.submit(prompts[i], max_new_tokens=20).result()
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert got == want and out == want
+    assert eng.captures == eng.eager_calls == sigs and eng.replays > 0
+    if chunk:
+        assert eng.stats()["admission"]["kv"]["cow_copies_total"] >= 1
+    eng.stop()
+    assert eng.pool.used_pages == 0 and eng.pool.invariant()["ok"]
+    assert (eng._kp.data_ptr(), eng._vp.data_ptr(),
+            eng.kv_pool_bytes) == ptrs

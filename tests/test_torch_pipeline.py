@@ -1,22 +1,32 @@
-"""The port's ``TFModel.transform`` slice against the JAX package's forward.
+"""The port's serving planes against the JAX package's: the
+``TFModel.transform`` slice and the token-level decode tier.
 
 The port runs on its own local Spark substrate (spawned executors) with
 ``TFOS_TORCH_DEVICE=cpu``; the reference is the JAX package's tiny ResNet
-forward on the same weights (converted) and the same images.
+forward on the same weights (converted) and the same images.  The decode
+tier's section below says what it holds.
 """
 
 import functools
+import json
 import os
+import threading
+import time
 
 import jax
 import numpy as np
 import pytest
 import torch
 
-from tensorflowonspark_torch import (ckpt, compat, pipeline, serving, shapes,
-                                     sparkapi, util)
+from tensorflowonspark_torch import (ckpt, compat, decode, online, pipeline,
+                                     serving, shapes, sparkapi, util)
 from tensorflowonspark_torch.models import resnet as port
+from tensorflowonspark_torch.models import tinylm
+from tensorflowonspark_tpu import decode as ref_decode
+from tensorflowonspark_tpu import online as ref_online
+from tensorflowonspark_tpu import shapes as ref_shapes
 from tensorflowonspark_tpu.models import resnet as ref
+from tensorflowonspark_tpu.models import tinylm as ref_tinylm
 
 
 @pytest.fixture(autouse=True)
@@ -189,3 +199,914 @@ def test_is_tiny_detects_the_export_geometry():
     assert port.config_from_state({"params": full}) == port.Config()
     batch = port.state_of(port.make_model(port.Config.tiny("batch")))
     assert port.config_from_state(batch) == port.Config.tiny("batch")
+
+
+# ---------------------------------------------------------------------------
+# The decode tier (``tensorflowonspark_torch.decode``), the token-level
+# serving plane
+# ---------------------------------------------------------------------------
+#
+# Ported from the reference's ``tests/test_decode.py`` and
+# ``tests/test_decode_prefill.py`` (less speculation and the mesh router,
+# which wait for their slices), plus the parity the port owes: the CPU
+# ``DecodeEngine``'s greedy streams equal the JAX ``DecodeEngine``'s on the
+# same weights (``tinylm.params_from_flax``) over a mixed workload with
+# shared prefixes and a mid-page copy-on-write.  Every engine a test makes
+# is held at teardown to the KV-pool contract: no leaked page, the
+# conservation law, and pools whose bytes and storage (``data_ptr``) never
+# moved — the captured graphs on the card write them in place.  On the card
+# the engine captures each signature into a CUDA graph; here a stand-in
+# graph backend (``StandInGraphs``) exercises the capture-and-replay
+# bookkeeping.
+
+DECODE_CFG = tinylm.Config.tiny()
+
+
+class StandInGraphs:
+    """The engine's graph backend on the CPU: a capture runs the step
+    once (its writes to the pools are the ones the eager call just made,
+    so they change nothing) and keeps it; a replay reruns it on the
+    static inputs and copies its output into the captured output tensor,
+    as a real replay overwrites it in place."""
+
+    def __init__(self):
+        self.captured = 0
+
+    def capture(self, fn):
+        out = fn()
+        self.captured += 1
+        return {"fn": fn, "out": out}, out
+
+    @staticmethod
+    def replay(graph):
+        out = graph["fn"]()
+        if out is not None:
+            graph["out"].copy_(out)
+
+
+@pytest.fixture
+def make_engine():
+    """Engine factory with the KV-pool hygiene contract enforced at
+    teardown for EVERY engine a test creates, after stop()."""
+    engines = []
+
+    def _make(**kw):
+        defaults = dict(max_seqs=4, page_size=8, max_len=64,
+                        max_prompt_len=24, device="cpu")
+        defaults.update(kw)
+        eng = decode.DecodeEngine(DECODE_CFG, **defaults)
+        engines.append((eng, eng.kv_pool_bytes, eng._kp.data_ptr(),
+                        eng._vp.data_ptr()))
+        return eng
+
+    yield _make
+    for eng, pool_bytes, kptr, vptr in engines:
+        eng.stop()
+        assert eng.pool.used_pages == 0, "leaked KV pages"
+        assert eng.pool.free_pages == eng.num_pages - 1
+        assert eng.pool.shared_pages == 0  # no orphaned references
+        eng.pool.check_invariant()
+        assert eng.kv_pool_bytes == pool_bytes, "device pool grew"
+        assert (eng._kp.data_ptr(), eng._vp.data_ptr()) == (kptr, vptr)
+        assert tuple(eng._kp.shape) == tinylm.kv_pool_shape(
+            eng.config, eng.num_pages, eng.page_size)
+        assert tuple(eng._vp.shape) == tuple(eng._kp.shape)
+
+
+def _prompts(n, lo=3, hi=24, seed=3):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, DECODE_CFG.vocab_size,
+                        size=(lo + (i * (hi - lo)) // max(1, n - 1),)
+                        ).astype(np.int32) for i in range(n)]
+
+
+def _family(prefix_len, tail_len, n, seed=11):
+    """``n`` prompts sharing an identical ``prefix_len``-token prefix
+    with distinct ``tail_len``-token tails."""
+    rng = np.random.RandomState(seed)
+    prefix = rng.randint(0, DECODE_CFG.vocab_size, size=(prefix_len,))
+    return [np.concatenate([
+        prefix, rng.randint(0, DECODE_CFG.vocab_size, size=(tail_len,))]
+    ).astype(np.int32) for _ in range(n)]
+
+
+def _run_all(eng, prompts, max_new, concurrent=False):
+    if not concurrent:
+        return [eng.submit(p, max_new_tokens=max_new).result()
+                for p in prompts]
+    out = [None] * len(prompts)
+
+    def run(i):
+        out[i] = eng.submit(prompts[i], max_new_tokens=max_new).result()
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    return out
+
+
+def _slow_decode(eng, seconds=0.02):
+    """Meter the engine's decode step (the reference's slow ``_decode_jit``)."""
+    real = eng._call
+
+    def slow(kind, v):
+        if kind == "decode":
+            time.sleep(seconds)
+        return real(kind, v)
+
+    eng._call = slow
+
+
+# -- pool + ladder units ------------------------------------------------------
+
+
+def test_paged_pool_alloc_free_and_trash_page_reserved():
+    pool = decode.PagedKVPool(5)
+    assert pool.free_pages == 4  # page 0 is the trash page, never handed out
+    a = pool.alloc(2)
+    assert 0 not in a and len(set(a)) == 2
+    b = pool.alloc(2)
+    assert not set(a) & set(b)
+    assert not pool.can_alloc(1)
+    with pytest.raises(RuntimeError):
+        pool.alloc(1)
+    pool.free(a)
+    assert pool.free_pages == 2
+    with pytest.raises(ValueError):
+        pool.free(a)  # double free is loud
+    with pytest.raises(ValueError):
+        pool.free([0])  # the trash page is not freeable
+    assert pool.peak_used == 4
+
+
+def test_pool_refcounts_make_shared_double_free_impossible():
+    pool = decode.PagedKVPool(6)
+    pages = pool.alloc(2)
+    pool.share(pages)
+    assert pool.shared_pages == 2 and pool.logical_pages == 4
+    assert pool.used_pages == 2
+    pool.free(pages)
+    assert pool.used_pages == 2 and pool.shared_pages == 0
+    pool.free(pages)
+    assert pool.used_pages == 0 and pool.free_pages == 5
+    with pytest.raises(ValueError):
+        pool.free(pages)
+    pool.check_invariant()
+
+
+def test_pool_duplicate_free_validated_before_mutation():
+    pool = decode.PagedKVPool(4)
+    (p,) = pool.alloc(1)
+    with pytest.raises(ValueError):
+        pool.free([p, p])
+    assert pool.refcount(p) == 1 and pool.used_pages == 1
+    pool.free([p])
+    pool.check_invariant()
+
+
+def test_pool_share_validates_and_trash_page_protected():
+    pool = decode.PagedKVPool(4)
+    with pytest.raises(ValueError):
+        pool.share([0])
+    with pytest.raises(ValueError):
+        pool.share([1])
+    pages = pool.alloc(1)
+    pool.share(pages)
+    pool.free(pages + pages)
+    assert pool.invariant()["ok"]
+
+
+@pytest.mark.parametrize("args,kwargs", [
+    ((24,), {}), ((8,), {}), ((5,), {}), ((100,), {"min_bucket": 16}),
+    ((60,), {"cap": 60}), ((64,), {"cap": 64})])
+def test_prefill_buckets_ladder_is_the_references(args, kwargs):
+    assert shapes.prefill_buckets(*args, **kwargs) == \
+        ref_shapes.prefill_buckets(*args, **kwargs)
+
+
+@pytest.mark.parametrize("args,kwargs", [
+    ((24, 8), {"max_chunk": 16}), ((24, 8), {}), ((8, 8), {}), ((5, 8), {}),
+    ((100, 8), {"max_chunk": 20}), ((100, 8), {"max_chunk": 3}),
+    ((64, 16), {"max_chunk": 64}), ((64, 16), {"max_chunk": 32})])
+def test_prefill_chunks_ladder_is_the_references(args, kwargs):
+    assert shapes.prefill_chunks(*args, **kwargs) == \
+        ref_shapes.prefill_chunks(*args, **kwargs)
+
+
+def test_ladders_refuse_what_the_reference_refuses():
+    assert shapes.prefill_buckets(24) == (8, 16, 32)
+    assert shapes.prefill_chunks(24, 8, max_chunk=16) == (8, 16)
+    assert shapes.pow2_bucket(33) == ref_shapes.pow2_bucket(33) == 64
+    for call in (lambda s: s.prefill_buckets(0),
+                 lambda s: s.prefill_buckets(100, cap=64),
+                 lambda s: s.prefill_chunks(0, 8),
+                 lambda s: s.prefill_chunks(8, 0)):
+        for mod in (shapes, ref_shapes):
+            with pytest.raises(ValueError):
+                call(mod)
+
+
+def test_shed_window_and_rejected_are_the_references():
+    ours, theirs = online.ShedWindow(10.0), ref_online.ShedWindow(10.0)
+    for t, shed in ((100.0, False), (101.0, True), (112.0, True),
+                    (125.0, False), (131.0, True)):
+        ours.note(shed, now=t)
+        theirs.note(shed, now=t)
+        assert ours.snapshot(now=t + 0.5) == theirs.snapshot(now=t + 0.5)
+    e = online.Rejected("full", retry_after_s=0.25)
+    assert isinstance(e, RuntimeError) and e.retry_after_s == 0.25
+    assert online.Rejected("x").retry_after_s == \
+        ref_online.Rejected("x").retry_after_s
+
+
+def test_sampling_params_and_dist_are_the_references():
+    rng = np.random.RandomState(0)
+    logits = rng.randn(64).astype(np.float32)
+    for kw in ({}, {"temperature": 0.7}, {"temperature": 1.3, "top_k": 5},
+               {"temperature": 0.9, "top_p": 0.8},
+               {"temperature": 1.0, "top_k": 10, "top_p": 0.5, "seed": 3}):
+        sp, rsp = decode.SamplingParams(**kw), ref_decode.SamplingParams(**kw)
+        assert all(getattr(sp, k) == getattr(rsp, k) for k in (
+            "temperature", "top_k", "top_p", "seed", "greedy"))
+        if not sp.greedy:
+            assert np.array_equal(decode._sampling_dist(logits, sp),
+                                  ref_decode._sampling_dist(logits, rsp))
+    for bad in ({"temperature": -1}, {"top_k": -1}, {"top_p": 0.0}):
+        with pytest.raises(ValueError):
+            decode.SamplingParams(**bad)
+
+
+def test_module_signatures_count_the_references():
+    """Geometry alone gives one signature per rung (or bucket), the decode
+    step and the COW copy: as many as the reference's."""
+    for kw in ({"prefill_chunks": (8, 16), "share_prefixes": True},
+               {"prefill_chunks": (16,), "share_prefixes": False},
+               {"prefill_buckets": (8, 16, 32)}):
+        ours = decode.enumerate_signatures(max_seqs=4, pages_per_seq=8, **kw)
+        theirs = ref_decode.enumerate_signatures(max_seqs=4,
+                                                 pages_per_seq=8, **kw)
+        assert len(set(ours)) == len(ours) == len(theirs)
+
+
+def test_observe_compile_seconds_feeds_the_histogram():
+    from tensorflowonspark_torch import obs
+
+    hist = obs.histogram("serving_compile_seconds", buckets=(
+        0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 30.0, 60.0, 120.0,
+        float("inf")))
+    before = hist.count
+    serving.observe_compile_seconds(0.2)
+    assert hist.count == before + 1
+
+
+# -- construction ------------------------------------------------------------
+
+
+def test_engine_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.delenv("TFOS_TORCH_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        decode.DecodeEngine(DECODE_CFG)
+    eng = decode.DecodeEngine(DECODE_CFG, device="cpu")
+    assert eng.device == torch.device("cpu") and eng._graphs is None
+    assert all(t.device.type == "cpu" for t in eng._params.values())
+    eng.stop()
+
+
+def test_speculation_is_not_ported_yet(monkeypatch):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        decode.DecodeEngine(DECODE_CFG, device="cpu", spec_tokens=2)
+    monkeypatch.setenv("TFOS_SPEC_TOKENS", "4")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        decode.DecodeEngine(DECODE_CFG, device="cpu")
+    monkeypatch.setenv("TFOS_SPEC_TOKENS", "0")
+    decode.DecodeEngine(DECODE_CFG, device="cpu").stop()
+
+
+def test_non_greedy_sampling_is_refused(make_engine):
+    eng = make_engine()
+    eng.start()
+    with pytest.raises(ValueError, match="sampling"):
+        eng.submit([1, 2, 3], max_new_tokens=2,
+                   sampling=decode.SamplingParams(temperature=0.8))
+    greedy = decode.SamplingParams(temperature=0.0)
+    assert eng.submit([1, 2, 3], max_new_tokens=3, sampling=greedy
+                      ).result() == eng.submit([1, 2, 3],
+                                               max_new_tokens=3).result()
+
+
+# -- decode semantics ---------------------------------------------------------
+
+
+def test_incremental_paged_decode_matches_full_forward(make_engine):
+    """Prefill + per-token decode through page tables gives EXACTLY the
+    greedy continuation the full teacher-forced forward predicts."""
+    eng = make_engine()
+    eng.start()
+    params = eng._params
+    for prompt in _prompts(3, lo=3, hi=20):
+        got = eng.submit(prompt, max_new_tokens=8).result()
+        seq = [int(t) for t in prompt]
+        want = []
+        for _ in range(8):
+            logits = tinylm.apply_tokens(params, torch.tensor([seq]), DECODE_CFG)
+            want.append(int(torch.argmax(logits[0, -1])))
+            seq.append(want[-1])
+        assert got == want
+
+
+@pytest.mark.parametrize("share", [True, False])
+def test_concurrent_decode_matches_sequential(make_engine, share):
+    eng = make_engine(max_seqs=4, share_prefixes=share)
+    eng.warmup()
+    eng.start()
+    prompts = _prompts(8)
+    seq_out = _run_all(eng, prompts, 10)
+    assert _run_all(eng, prompts, 10, concurrent=True) == seq_out
+
+
+@pytest.mark.parametrize("chunk", [16, 0], ids=["chunked", "legacy"])
+def test_zero_new_signatures_after_warmup(make_engine, chunk):
+    """warmup() runs and captures exactly the enumerated set (the ladder,
+    the one decode step, the COW copy when sharing); steady-state serving
+    (varied prompt and generation lengths, admissions, retirements, prefix
+    hits and COW copies) meets no new signature and only replays."""
+    graphs = StandInGraphs()
+    eng = make_engine(prefill_chunk=chunk, graphs=graphs)
+    eng.warmup()
+    enumerated = set(eng.enumerate_signatures())
+    if eng.chunked_prefill:
+        expected = len(eng.prefill_chunks) + 1 + int(eng.share_prefixes)
+    else:
+        expected = len(eng.prefill_buckets) + 1
+    assert len(enumerated) == expected
+    assert serving._SEEN_SHAPES[eng.cache_key] == enumerated
+    assert eng.captures == graphs.captured == eng.eager_calls == expected
+    assert eng.replays == 0
+    eng.start()
+    for i, p in enumerate(_prompts(6)):
+        eng.submit(p, max_new_tokens=3 + 2 * i).result()
+    rng = np.random.RandomState(43)
+    base = rng.randint(0, DECODE_CFG.vocab_size, size=(16,)).astype(np.int32)
+    eng.submit(base, max_new_tokens=3).result()
+    eng.submit(np.concatenate([base[:12], [1, 2, 3]]).astype(np.int32),
+               max_new_tokens=3).result()  # mid-page COW when sharing
+    assert serving._SEEN_SHAPES[eng.cache_key] == enumerated
+    assert eng.captures == graphs.captured == eng.eager_calls == expected
+    assert eng.replays > 0
+    st = eng.stats()["compile_cache"]
+    assert (st["signatures"], st["captures"], st["replays"]) == (
+        expected, expected, eng.replays)
+    if eng.share_prefixes:
+        assert eng.stats()["admission"]["kv"]["cow_copies_total"] >= 1
+
+
+def test_a_signature_met_before_warmup_is_captured_then(make_engine):
+    """Without warmup() each signature's first sighting runs eagerly
+    (its output serves the request) and is captured; later ones replay,
+    with the same tokens as an engine without graphs."""
+    graphs = StandInGraphs()
+    eng = make_engine(graphs=graphs)
+    plain = make_engine()
+    eng.start()
+    plain.start()
+    prompts = _prompts(4, lo=3, hi=20)
+    assert _run_all(eng, prompts, 6) == _run_all(plain, prompts, 6)
+    assert eng.captures == eng.eager_calls == len(
+        serving._SEEN_SHAPES[eng.cache_key])
+    assert eng.replays > 0 and plain.captures == plain.replays == 0
+
+
+def test_stale_static_inputs_change_the_tokens(make_engine):
+    """The planted fault of chip_smoke.py 17(b): replays whose static
+    inputs are not refreshed serve wrong tokens, so the gate sees it."""
+    good = make_engine(graphs=StandInGraphs())
+    bad = make_engine(graphs=StandInGraphs())
+    for eng in (good, bad):
+        eng.warmup()
+    bad._refresh = lambda staged, arrays: None
+    good.start()
+    bad.start()
+    prompts = _prompts(3, lo=5, hi=20)
+    assert _run_all(bad, prompts, 6) != _run_all(good, prompts, 6)
+
+
+def test_submits_from_many_threads_under_a_short_switch_interval(
+        make_engine):
+    """Stress: more submitting threads than cores against the engine's
+    loop, the interpreter switching threads every 10 µs: every stream is
+    its sequential run's, every request counted once, no page lost."""
+    import os
+    import sys
+
+    eng = make_engine(max_seqs=4, share_prefixes=True)
+    eng.start()
+    prompts = (_family(prefix_len=16, tail_len=3, n=6, seed=83)
+               + _prompts(6, lo=2, hi=20, seed=84))
+    want = _run_all(eng, prompts, 5)
+    requests0 = int(eng._requests_total.value)
+    n = 2 * (os.cpu_count() or 4)
+    jobs = [prompts[i % len(prompts)] for i in range(n)]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        got = _run_all(eng, jobs, 5, concurrent=True)
+    finally:
+        sys.setswitchinterval(old)
+    assert got == [want[i % len(prompts)] for i in range(n)]
+    assert int(eng._requests_total.value) - requests0 == n
+    deadline = time.time() + 10
+    while eng.pool.used_pages > eng._registry.pinned_pages and \
+            time.time() < deadline:
+        time.sleep(0.01)
+    assert eng.pool.used_pages == eng._registry.pinned_pages
+    eng.pool.check_invariant()
+
+
+def test_eos_retires_early_and_frees_slot(make_engine):
+    eng = make_engine()
+    eng.start()
+    prompt = _prompts(1)[0]
+    toks = eng.submit(prompt, max_new_tokens=12).result()
+    eos = toks[-1]
+    first = toks.index(eos)
+    eng.eos_id = eos
+    toks2 = eng.submit(prompt, max_new_tokens=12).result()
+    assert toks2 == toks[: first + 1]
+    assert eng.pool.used_pages == 0
+
+
+# -- admission, cancellation, shutdown ---------------------------------------
+
+
+def test_admission_sheds_loudly_and_validates(make_engine):
+    eng = make_engine(max_pending_requests=0)
+    eng.start()
+    with pytest.raises(online.Rejected) as ei:
+        eng.submit([1, 2, 3], max_new_tokens=2)
+    assert ei.value.retry_after_s > 0
+    assert int(eng._shed_total.value) >= 1
+    assert eng.stats()["admission"]["shed_window"]["shed"] >= 1
+    eng2 = make_engine()
+    eng2.start()
+    with pytest.raises(ValueError):
+        eng2.submit([], max_new_tokens=2)
+    with pytest.raises(ValueError):
+        eng2.submit(list(range(25)), max_new_tokens=2)
+    with pytest.raises(ValueError):
+        eng2.submit([1, 2], max_new_tokens=0)
+    with pytest.raises(ValueError):
+        eng2.submit([1, 2], max_new_tokens=63)
+    with pytest.raises(ValueError):
+        eng2.submit([DECODE_CFG.vocab_size + 5], max_new_tokens=2)
+    assert len(eng2.submit([1, 2, 3], max_new_tokens=2).result()) == 2
+
+
+def test_unsatisfiable_request_refused_not_queued(make_engine):
+    eng = make_engine(num_pages=5)  # 4 allocatable pages = 32 tokens
+    eng.start()
+    with pytest.raises(ValueError, match="KV pages worst-case"):
+        eng.submit([1, 2, 3, 4, 5, 6, 7, 8], max_new_tokens=40)
+    assert len(eng.submit([1, 2, 3], max_new_tokens=4).result()) == 4
+
+
+def test_cancel_mid_stream_frees_pages(make_engine):
+    eng = make_engine(max_seqs=2)
+    eng.start()
+    victim = eng.submit(_prompts(1)[0], max_new_tokens=40)
+    it = victim.tokens(timeout=30)
+    next(it)
+    next(it)
+    other = eng.submit([5, 6, 7], max_new_tokens=6)
+    victim.cancel()
+    assert other.result() == eng.submit([5, 6, 7], max_new_tokens=6).result()
+    deadline = time.time() + 10
+    while eng.pool.used_pages and time.time() < deadline:
+        time.sleep(0.01)
+    assert eng.pool.used_pages == 0
+    assert int(eng._cancelled_total.value) >= 1
+
+
+def test_stop_fails_inflight_loudly(make_engine):
+    eng = make_engine(max_seqs=1)
+    eng.start()
+    streams = [eng.submit(p, max_new_tokens=38)
+               for p in _prompts(3, lo=3, hi=20)]
+    results = []
+
+    def consume(s):
+        try:
+            results.append(("ok", s.result(timeout=30)))
+        except Exception as e:
+            results.append(("err", type(e).__name__))
+
+    threads = [threading.Thread(target=consume, args=(s,))
+               for s in streams]
+    for t in threads:
+        t.start()
+    eng.stop()
+    for t in threads:
+        t.join(timeout=30)
+    assert len(results) == 3
+    assert any(kind == "err" for kind, _ in results)
+    assert eng.state == "stopped"
+    with pytest.raises(RuntimeError):
+        eng.submit([1], max_new_tokens=1)
+
+
+def test_cancel_mid_prefill_frees_shared_and_exclusive_pages(make_engine):
+    eng = make_engine(max_seqs=2, prefill_chunk=8)
+    eng.start()
+    prompts = _family(prefix_len=16, tail_len=8, n=6, seed=53)
+    eng.submit(prompts[0], max_new_tokens=2).result()  # register prefix
+    survivors = []
+    for i, p in enumerate(prompts[1:]):
+        s = eng.submit(p, max_new_tokens=12)
+        if i % 2:
+            s.cancel()
+        else:
+            survivors.append((p, s))
+    want = [eng.submit(p, max_new_tokens=12).result()
+            for p, _ in survivors]
+    assert [s.result(timeout=60) for _, s in survivors] == want
+    deadline = time.time() + 10
+    while eng.pool.used_pages and time.time() < deadline:
+        time.sleep(0.01)
+    eng.pool.check_invariant()
+    assert eng.stats()["admission"]["kv"]["invariant"]["ok"]
+
+
+def test_stop_mid_flight_keeps_invariant(make_engine):
+    eng = make_engine(max_seqs=2, prefill_chunk=8)
+    eng.start()
+    streams = [eng.submit(p, max_new_tokens=30)
+               for p in _family(prefix_len=16, tail_len=8, n=5, seed=61)]
+    results = []
+
+    def consume(s):
+        try:
+            results.append(("ok", s.result(timeout=30)))
+        except Exception as e:
+            results.append(("err", type(e).__name__))
+
+    threads = [threading.Thread(target=consume, args=(s,))
+               for s in streams]
+    for t in threads:
+        t.start()
+    eng.stop()
+    for t in threads:
+        t.join(timeout=30)
+    assert len(results) == 5
+    assert any(kind == "err" for kind, _ in results)
+    assert eng.pool.used_pages == 0
+    eng.pool.check_invariant()
+
+
+# -- chunked prefill and prefix sharing --------------------------------------
+
+
+def test_chunked_prefill_token_exact_vs_legacy(make_engine):
+    legacy = make_engine(prefill_chunk=0)
+    chunked = make_engine(prefill_chunk=16)
+    assert not legacy.chunked_prefill and chunked.chunked_prefill
+    legacy.start()
+    chunked.start()
+    prompts = _prompts(8, lo=1, hi=24, seed=7)
+    assert _run_all(chunked, prompts, 8) == _run_all(legacy, prompts, 8)
+
+
+def test_shared_prefix_token_exact_and_sublinear_alloc(make_engine):
+    legacy = make_engine(prefill_chunk=0)
+    chunked = make_engine(prefill_chunk=16)
+    legacy.start()
+    chunked.start()
+    prompts = _family(prefix_len=16, tail_len=4, n=6)
+    assert _run_all(chunked, prompts, 6) == _run_all(legacy, prompts, 6)
+    st = chunked.stats()
+    assert st["engine"]["prefix_registry"]["hits"] == len(prompts) - 1
+    kv = st["admission"]["kv"]
+    assert kv["prefix_hits_total"] >= len(prompts) - 1
+    assert kv["shared_pages_total"] >= 2 * (len(prompts) - 1)
+    assert chunked.pool.alloc_total < legacy.pool.alloc_total
+    assert kv["invariant"]["ok"]
+
+
+def test_prefix_diverging_mid_page_cow_copies(make_engine):
+    legacy = make_engine(prefill_chunk=0)
+    chunked = make_engine(prefill_chunk=16)
+    legacy.start()
+    chunked.start()
+    rng = np.random.RandomState(23)
+    base = rng.randint(0, DECODE_CFG.vocab_size, size=(16,)).astype(np.int32)
+    fork = np.concatenate([
+        base[:12], rng.randint(0, DECODE_CFG.vocab_size, size=(8,))]
+    ).astype(np.int32)
+    for p in (base, fork):
+        assert (chunked.submit(p, max_new_tokens=6).result()
+                == legacy.submit(p, max_new_tokens=6).result())
+    st = chunked.stats()
+    assert st["engine"]["prefix_registry"]["hits"] >= 1
+    assert st["admission"]["kv"]["cow_copies_total"] >= 1
+    assert (chunked.submit(base, max_new_tokens=6).result()
+            == legacy.submit(base, max_new_tokens=6).result())
+
+
+def test_concurrent_shared_prefix_matches_sequential(make_engine):
+    eng = make_engine(max_seqs=4)
+    eng.start()
+    prompts = _family(prefix_len=16, tail_len=6, n=8, seed=31)
+    seq = _run_all(eng, prompts, 8)
+    assert _run_all(eng, prompts, 8, concurrent=True) == seq
+
+
+def test_legacy_mode_forces_sharing_off(make_engine):
+    eng = make_engine(prefill_chunk=0, share_prefixes=True)
+    assert not eng.chunked_prefill and not eng.share_prefixes
+    assert len(eng.enumerate_signatures()) == len(eng.prefill_buckets) + 1
+
+
+# -- parity with the JAX engine ------------------------------------------------
+
+
+def _mixed_workload():
+    """Singletons of mixed lengths, a prefix family, and a fork of the
+    family's prefix diverging mid-page (a COW copy)."""
+    rng = np.random.RandomState(97)
+    prompts = _prompts(5, lo=1, hi=24, seed=98)
+    family = _family(prefix_len=16, tail_len=5, n=3, seed=99)
+    fork = np.concatenate([family[0][:12], rng.randint(
+        0, DECODE_CFG.vocab_size, size=(7,))]).astype(np.int32)
+    return prompts + family + [fork]
+
+
+@pytest.mark.parametrize("chunk", [16, 0], ids=["chunked", "legacy"])
+def test_streams_equal_the_jax_engine(make_engine, chunk):
+    """The port's CPU engine and the JAX engine on the same weights give
+    the same greedy streams, token for token, over the mixed workload:
+    prefix hits and a mid-page COW in the chunked engine."""
+    ref_params = ref_tinylm.init_params(ref_tinylm.Config.tiny(), seed=5)
+    params = tinylm.params_from_flax(jax.tree_util.tree_map(
+        np.asarray, dict(ref_params)))
+    geometry = dict(max_seqs=4, page_size=8, max_len=64, max_prompt_len=24,
+                    prefill_chunk=chunk)
+    prompts = _mixed_workload()
+    ref_eng = ref_decode.DecodeEngine(ref_tinylm.Config.tiny(), ref_params,
+                                      **geometry)
+    ref_eng.start()
+    try:
+        want = _run_all(ref_eng, prompts, 10)
+    finally:
+        ref_eng.stop()
+    eng = make_engine(params=params, **geometry)
+    eng.start()
+    assert _run_all(eng, prompts, 10) == want
+    if chunk:
+        kv = eng.stats()["admission"]["kv"]
+        assert kv["prefix_hits_total"] >= 2 and kv["cow_copies_total"] >= 1
+
+
+# -- observability -----------------------------------------------------------
+
+
+def test_flight_plane_and_slo_windows(make_engine):
+    from tensorflowonspark_torch.obs import flight
+
+    eng = make_engine()
+    eng.start()
+    rec = flight.recorder("decode")
+    rec.reset()
+    for p in _prompts(3):
+        eng.submit(p, max_new_tokens=6).result()
+    snap = rec.snapshot()
+    assert snap["stages_s"].get("prefill_chunk", 0) > 0
+    assert snap["stages_s"].get("decode", 0) > 0
+    assert snap["verdict"] in flight.VERDICTS
+    slo = eng.slo_snapshot()
+    assert slo["samples"] >= 3
+    assert slo["ttft_p99_ms"] > 0
+    assert slo["itl_p99_ms"] > 0
+    assert slo["ttft_slo_ms"] == decode.DEFAULT_TTFT_SLO_MS
+    st = eng.stats()
+    assert st["admission"]["slo"] == eng.slo_snapshot()
+    assert st["engine"]["kv_pages_total"] == eng.num_pages - 1
+    assert st["tokens_total"] >= 18
+
+
+def test_healthz_compile_cache_block_and_uptime(make_engine):
+    eng = make_engine()
+    st = eng.stats()
+    cc = st["compile_cache"]
+    for key in ("dir", "disk_hits", "signatures", "captures", "replays",
+                "eager_calls"):
+        assert key in cc
+    assert st["uptime_s"] is None
+    assert st["engine"]["device"] == "cpu"
+    eng.start()
+    st = eng.stats()
+    assert st["uptime_s"] is not None and st["uptime_s"] >= 0.0
+
+
+def test_stats_keep_the_references_schema(make_engine):
+    """/healthz keeps the reference's keys (the mesh router reads them),
+    speculation's at their off values."""
+    ours = make_engine().stats()
+    theirs = ref_decode.DecodeEngine(ref_tinylm.Config.tiny(), max_seqs=4,
+                                     page_size=8, max_len=64,
+                                     max_prompt_len=24)
+    try:
+        ref_doc = theirs.stats()
+    finally:
+        theirs.stop()
+    for block in (None, "engine", "admission", "slo"):
+        a = ours if block is None else ours[block]
+        b = ref_doc if block is None else ref_doc[block]
+        assert set(b) <= set(a), (block, set(b) - set(a))
+    assert set(ref_doc["admission"]["kv"]) <= set(ours["admission"]["kv"])
+    assert ours["engine"]["spec"]["spec_tokens"] == 0
+
+
+def test_per_token_spans_on_retained_trace(make_engine, monkeypatch):
+    from tensorflowonspark_torch.obs import trace as trace_lib
+
+    monkeypatch.setenv("TFOS_TRACE_SAMPLE", "1")
+    eng = make_engine()
+    eng.start()
+    ctx = trace_lib.TraceContext(trace_lib.new_trace_id(),
+                                 trace_lib.new_span_id())
+    stream = eng.submit(_prompts(1)[0], max_new_tokens=6, trace_ctx=ctx)
+    assert stream.trace_id == ctx.trace_id
+    stream.result()
+    deadline = time.time() + 5
+    entry = None
+    while entry is None and time.time() < deadline:
+        for e in trace_lib.get_trace_store().to_doc()["retained"]:
+            if e.get("trace_id") == ctx.trace_id:
+                entry = e
+        time.sleep(0.01)
+    assert entry is not None, "armed decode request was not retained"
+    names = [s["name"] for s in entry["spans"]]
+    assert "prefill_chunk" in names and "queue" in names
+    assert names.count("token") == 5
+    token_spans = [s for s in entry["spans"] if s["name"] == "token"]
+    assert [s["attrs"]["index"] for s in token_spans] == [1, 2, 3, 4, 5]
+
+
+def test_journal_records_the_slot_lifecycle(make_engine):
+    from tensorflowonspark_torch.obs import journal
+
+    eng = make_engine()
+    eng.start()
+    rng = np.random.RandomState(71)
+    base = rng.randint(0, DECODE_CFG.vocab_size, size=(16,)).astype(np.int32)
+    eng.submit(base, max_new_tokens=2).result()
+    eng.submit(np.concatenate([base[:12], [4, 5]]).astype(np.int32),
+               max_new_tokens=2, tenant="t2").result()
+    events = journal.get_journal().tail(10000)
+    kinds = {e["type"] for e in events
+             if e["attrs"].get("tenant") == "t2"}
+    assert {"decode.admit", "decode.cow_copy", "decode.prefill",
+            "decode.retire"} <= kinds
+
+
+def test_http_streaming_healthz_metrics(make_engine):
+    import http.client
+
+    from tensorflowonspark_torch.obs.httpd import validate_prometheus_text
+
+    eng = make_engine()
+    eng.start()
+    srv = decode.DecodeHTTPServer(eng)
+    try:
+        host, port = srv.start()
+        conn = http.client.HTTPConnection(host, port, timeout=30)
+        conn.request("POST", "/v1/generate", body=json.dumps(
+            {"prompt": [1, 2, 3, 4], "max_new_tokens": 5}).encode())
+        resp = conn.getresponse()
+        assert resp.status == 200
+        assert resp.getheader("Transfer-Encoding") == "chunked"
+        lines = [json.loads(ln) for ln in
+                 resp.read().decode().strip().splitlines()]
+        assert [d["token"] for d in lines[:-1]] == lines[-1]["tokens"]
+        assert lines[-1]["done"] is True and lines[-1]["n"] == 5
+        assert lines[-1]["tokens"] == eng.submit(
+            [1, 2, 3, 4], max_new_tokens=5).result()
+        conn.request("POST", "/v1/generate", body=json.dumps(
+            {"prompt": [1, 2, 3, 4], "max_new_tokens": 5,
+             "stream": False}).encode())
+        r2 = conn.getresponse()
+        assert r2.status == 200
+        assert json.loads(r2.read())["tokens"] == lines[-1]["tokens"]
+        conn.request("GET", "/healthz")
+        h = conn.getresponse()
+        doc = json.loads(h.read())
+        assert h.status == 200
+        adm = doc["admission"]
+        assert adm["admission_schema"] == 1
+        assert {"ttft_p99_ms", "itl_p99_ms", "ttft_slo_ms",
+                "itl_slo_ms", "samples"} <= set(adm["slo"])
+        conn.request("GET", "/metrics")
+        text = conn.getresponse().read().decode()
+        assert validate_prometheus_text(text) == []
+        assert "decode_ttft_seconds_bucket" in text
+        assert "decode_itl_seconds_bucket" in text
+        conn.request("POST", "/v1/generate", body=b'{"prompt": []}')
+        r = conn.getresponse()
+        assert r.status == 400
+        r.read()
+        conn.request("POST", "/v1/generate", body=json.dumps(
+            {"prompt": [1], "temperature": 0.5}).encode())
+        r = conn.getresponse()
+        assert r.status == 400  # sampling waits for speculation
+        r.read()
+        eng.max_pending_requests = 0
+        conn.request("POST", "/v1/generate", body=json.dumps(
+            {"prompt": [1], "max_new_tokens": 1}).encode())
+        r = conn.getresponse()
+        assert r.status == 429
+        assert int(r.getheader("Retry-After")) >= 1
+        r.read()
+        eng.max_pending_requests = 128
+    finally:
+        srv.stop()
+
+
+def test_http_nonstream_timeout_cancels_generation(make_engine):
+    import http.client
+
+    eng = make_engine()
+    _slow_decode(eng)
+    eng.start()
+    srv = decode.DecodeHTTPServer(eng)
+    try:
+        host, port = srv.start()
+        cancelled0 = int(eng._cancelled_total.value)
+        conn = http.client.HTTPConnection(host, port, timeout=30)
+        conn.request("POST", "/v1/generate", body=json.dumps(
+            {"prompt": [1, 2, 3], "max_new_tokens": 50,
+             "stream": False, "timeout_s": 0.1}).encode())
+        resp = conn.getresponse()
+        assert resp.status == 504
+        resp.read()
+        deadline = time.time() + 10
+        while time.time() < deadline and (
+                int(eng._cancelled_total.value) == cancelled0
+                or eng.pool.used_pages):
+            time.sleep(0.05)
+        assert int(eng._cancelled_total.value) > cancelled0
+        assert eng.pool.used_pages == 0
+    finally:
+        srv.stop()
+
+
+def test_http_client_disconnect_cancels_generation(make_engine):
+    import socket as socket_mod
+
+    eng = make_engine()
+    _slow_decode(eng)
+    eng.start()
+    srv = decode.DecodeHTTPServer(eng)
+    try:
+        host, port = srv.start()
+        cancelled0 = int(eng._cancelled_total.value)
+        body = json.dumps({"prompt": [1, 2, 3],
+                           "max_new_tokens": 50}).encode()
+        sock = socket_mod.create_connection((host, port), timeout=10)
+        sock.sendall(b"POST /v1/generate HTTP/1.1\r\nHost: x\r\n"
+                     b"Content-Type: application/json\r\n"
+                     b"Content-Length: %d\r\n\r\n" % len(body) + body)
+        f = sock.makefile("rb")
+        assert b"200" in f.readline()
+        while b'"token"' not in f.readline():
+            pass
+        sock.shutdown(socket_mod.SHUT_RDWR)
+        f.close()
+        sock.close()
+        deadline = time.time() + 10
+        while time.time() < deadline and (
+                int(eng._cancelled_total.value) == cancelled0
+                or eng.pool.used_pages):
+            time.sleep(0.05)
+        assert int(eng._cancelled_total.value) > cancelled0, \
+            "disconnect did not cancel the generation"
+        assert eng.pool.used_pages == 0
+    finally:
+        srv.stop()
+
+
+def test_healthz_503_when_stopped(make_engine):
+    import http.client
+
+    eng = make_engine()
+    eng.start()
+    srv = decode.DecodeHTTPServer(eng)
+    try:
+        host, port = srv.start()
+        eng.stop()
+        conn = http.client.HTTPConnection(host, port, timeout=10)
+        conn.request("GET", "/healthz")
+        assert conn.getresponse().status == 503
+    finally:
+        srv.stop()

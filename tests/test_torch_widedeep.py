@@ -260,8 +260,9 @@ def test_params_from_flax_raises_on_unmapped_leaves():
 
 def test_zoo_registers_wide_deep_and_the_optimizer_hook():
     assert models.get_model("wide_deep") is port
-    with pytest.raises(KeyError, match="not yet ported"):
-        models.get_model("tiny_lm")
+    assert models.get_model("tiny_lm").__name__ == (
+        "tensorflowonspark_torch.models.tinylm")
+    assert len(models.available()) == 8
     calls = []
 
     def make_optimizer(config, learning_rate):

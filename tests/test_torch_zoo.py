@@ -1,5 +1,5 @@
-"""The port's MNIST MLP, CIFAR-10 CNN and MobileNet-v1 against the JAX
-package's, on the same weights.
+"""The port's MNIST MLP, CIFAR-10 CNN, MobileNet-v1 and tiny_lm against the
+JAX package's, on the same weights.
 
 Flax weights are drawn with numpy from a seed in the shapes of the JAX
 model's init (``jax.eval_shape``, no compile), carried across by each
@@ -16,18 +16,22 @@ import functools
 import importlib
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from tensorflowonspark_torch import models
 from tensorflowonspark_torch.kernels import group_norm
+from tensorflowonspark_torch.kernels import paged_attention as pa
 from tensorflowonspark_torch.models import cifar as port_cifar
 from tensorflowonspark_torch.models import mnist as port_mnist
 from tensorflowonspark_torch.models import mobilenet as port_mobilenet
+from tensorflowonspark_torch.models import tinylm as port_tinylm
 from tensorflowonspark_tpu.models import cifar as ref_cifar
 from tensorflowonspark_tpu.models import mnist as ref_mnist
 from tensorflowonspark_tpu.models import mobilenet as ref_mobilenet
+from tensorflowonspark_tpu.models import tinylm as ref_tinylm
 
 #: f32: the same arithmetic summed in another order
 F32_REL = 1e-5
@@ -291,11 +295,11 @@ def test_zoo_registers_the_four_models():
         "tensorflowonspark_torch.models.inception")
     assert models.get_model("bert").__name__ == (
         "tensorflowonspark_torch.models.bert")
+    assert models.get_model("tiny_lm").__name__ == (
+        "tensorflowonspark_torch.models.tinylm")
     assert models.available() == sorted(
         ["mnist_mlp", "cifar10_cnn", "resnet50", "inception_v3",
-         "mobilenet_v1", "wide_deep", "bert"])
-    with pytest.raises(KeyError, match="not yet ported"):
-        models.get_model("tiny_lm")
+         "mobilenet_v1", "wide_deep", "bert", "tiny_lm"])
 
 
 @pytest.mark.parametrize("name", ["mnist_mlp", "cifar10_cnn",
@@ -357,3 +361,396 @@ def test_group_norm_plain_twin_is_what_the_cpu_runs():
         want = model(images)
         model.norm_act = group_norm.group_norm_act_plain
         np.testing.assert_array_equal(model(images), want)
+
+
+# ---------------------------------------------------------------------------
+# tiny_lm: the decode surface and its paged-KV twins
+# ---------------------------------------------------------------------------
+#
+# The port's ``models/tinylm.py`` against the JAX package's on the same
+# weights (``params_from_flax``) and the same pools, drawn with numpy.  On
+# the CPU ``kernels/paged_attention.py`` runs its plain twins; the CUDA
+# kernels are held against them on the card
+# (``tests/test_torch_kernels_cuda.py``, ``chip_smoke.py`` phase 17).
+# Tolerances: the two frameworks sum the f32 products and softmaxes in
+# other orders, about 1e-7 apart at these widths; pools and logits are held
+# within 1e-5 (page 0, the trash page, excluded: several positions may
+# write one place of it and the winner is undefined), tokens exactly.
+
+LM_TOL = 1e-5
+LM_CFG = port_tinylm.Config.tiny()
+LM_REF_CFG = ref_tinylm.Config.tiny()
+PS = 8
+P = LM_CFG.max_len // PS
+NUM_PAGES = 1 + 4 * P
+
+
+@pytest.fixture(scope="module")
+def lm_weights():
+    """The reference's init at seed 1: the JAX dict and the port's."""
+    rp = ref_tinylm.init_params(LM_REF_CFG, seed=1)
+    pp = port_tinylm.params_from_flax(jax.tree_util.tree_map(np.asarray, dict(rp)))
+    return rp, {k: torch.from_numpy(v) for k, v in pp.items()}
+
+
+def _pools(seed=0):
+    rng = np.random.RandomState(seed)
+    shape = ref_tinylm.kv_pool_shape(LM_REF_CFG, NUM_PAGES, PS)
+    return (rng.randn(*shape).astype(np.float32),
+            rng.randn(*shape).astype(np.float32))
+
+
+def _tables(rows):
+    """``(len(rows), P)`` int32 tables: row i maps ``rows[i]`` pages."""
+    out = np.zeros((len(rows), P), np.int32)
+    for i, pages in enumerate(rows):
+        out[i, :len(pages)] = pages
+    return out
+
+
+def _close(jax_out, torch_out, skip_trash=False):
+    a = np.asarray(jax_out)
+    b = torch_out.numpy() if isinstance(torch_out, torch.Tensor) else \
+        np.asarray(torch_out)
+    if skip_trash:
+        a, b = a[:, 1:], b[:, 1:]
+    return float(np.abs(a - b).max())
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# -- the model surface -------------------------------------------------------
+
+
+def test_configs_match_the_reference():
+    for pc, rc in ((port_tinylm.Config(), ref_tinylm.Config()),
+                   (port_tinylm.Config.tiny(), ref_tinylm.Config.tiny()),
+                   (port_tinylm.Config.draft_for(port_tinylm.Config()),
+                    ref_tinylm.Config.draft_for(ref_tinylm.Config()))):
+        assert pc.__dict__ == rc.__dict__
+    assert port_tinylm.kv_pool_shape(LM_CFG, 9, 8) == ref_tinylm.kv_pool_shape(LM_REF_CFG, 9, 8)
+    assert port_tinylm.SEQUENCE_AXES == ref_tinylm.SEQUENCE_AXES
+
+
+def test_model_carries_the_reference_names_and_shapes(lm_weights):
+    rp, _ = lm_weights
+    model = port_tinylm.make_model(LM_CFG, seed=0)
+    got = {k: tuple(v.shape) for k, v in model.named_parameters()}
+    assert got == {k: tuple(np.shape(v)) for k, v in rp.items()}
+    init = port_tinylm.init_params(LM_CFG, seed=0)
+    assert all(torch.equal(init[k], v) for k, v in model.named_parameters())
+    assert all(float(v.std()) == pytest.approx(0.02, rel=0.2)
+               for k, v in init.items() if k.startswith("w"))
+    assert all(torch.all(v == 1) for k, v in init.items()
+               if k.startswith("ln"))
+
+
+def test_example_batch_is_the_references():
+    a = port_tinylm.example_batch(LM_CFG, batch_size=3, seed=4, seq_len=9)
+    b = ref_tinylm.example_batch(LM_REF_CFG, batch_size=3, seed=4, seq_len=9)
+    assert a.keys() == b.keys()
+    assert np.array_equal(a["tokens"], b["tokens"])
+
+
+def test_params_from_flax_rejects_unknown_and_nested_leaves(lm_weights):
+    rp, _ = lm_weights
+    flat = jax.tree_util.tree_map(np.asarray, dict(rp))
+    with pytest.raises(KeyError, match="extra_0"):
+        port_tinylm.params_from_flax(dict(flat, extra_0=np.zeros(3)))
+    with pytest.raises(KeyError, match="lnf"):
+        port_tinylm.params_from_flax(dict(flat, lnf={"scale": np.zeros(3)}))
+
+
+def test_apply_tokens_forward_and_loss_match_jax(lm_weights):
+    rp, tp = lm_weights
+    tokens = port_tinylm.example_batch(LM_CFG, batch_size=3, seed=2, seq_len=13)
+    want = ref_tinylm.apply_tokens(rp, jnp.asarray(tokens["tokens"]), LM_REF_CFG)
+    got = port_tinylm.apply_tokens(tp, _t(tokens["tokens"]), LM_CFG)
+    assert _close(want, got) <= LM_TOL
+    model = port_tinylm.make_model(LM_CFG)
+    with torch.no_grad():
+        for k, v in model.named_parameters():
+            v.copy_(tp[k])
+    fwd = port_tinylm.make_forward_fn(model, LM_CFG)(model, {"tokens": _t(
+        tokens["tokens"])})
+    assert torch.equal(fwd.detach(), got)
+    module = ref_tinylm.make_model(LM_REF_CFG)
+    ref_loss = ref_tinylm.make_loss_fn(module, LM_REF_CFG)(rp, tokens)
+    port_loss = port_tinylm.make_loss_fn(model, LM_CFG)(model, {"tokens": _t(
+        tokens["tokens"])})
+    assert abs(float(ref_loss) - port_loss.item()) <= LM_TOL
+
+
+# -- the incremental functions against JAX -----------------------------------
+
+
+#: (start_lens, chunk_lens, pages a row maps): a full chunk from 0, a chunk
+#: after a one-page prefix crossing into the next page, an idle row, and a
+#: row whose positions run past max_len - 1 (clipped there)
+CHUNK_ROWS = [
+    (0, 16, [1, 2]),
+    (8, 11, [3, 4, 5]),
+    (0, 0, []),
+    (58, 16, [6, 7, 8, 9, 10, 11, 12, 13]),
+]
+
+
+@pytest.mark.parametrize("L", [8, 16])
+def test_prefill_chunk_fn_matches_jax(lm_weights, L):
+    rp, tp = lm_weights
+    rng = np.random.RandomState(L)
+    C = len(CHUNK_ROWS)
+    tokens = rng.randint(0, LM_CFG.vocab_size, size=(C, L)).astype(np.int32)
+    starts = np.array([r[0] for r in CHUNK_ROWS], np.int32)
+    lens = np.minimum(np.array([r[1] for r in CHUNK_ROWS], np.int32), L)
+    tables = _tables([r[2] for r in CHUNK_ROWS])
+    kp, vp = _pools(L)
+    lg, kr, vr = ref_tinylm.prefill_chunk_fn(
+        rp, jnp.asarray(tokens), jnp.asarray(starts), jnp.asarray(lens),
+        jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tables),
+        config=LM_REF_CFG, page_size=PS)
+    k2, v2 = _t(kp.copy()), _t(vp.copy())
+    lg2, kout, vout = port_tinylm.prefill_chunk_fn(
+        tp, _t(tokens), _t(starts), _t(lens), k2, v2, _t(tables),
+        config=LM_CFG, page_size=PS)
+    assert kout is k2 and vout is v2  # written in place
+    live = lens > 0
+    assert _close(np.asarray(lg)[live], lg2[live]) <= LM_TOL
+    assert lg2.dtype == torch.float32 and lg2.shape == (C, LM_CFG.vocab_size)
+    assert _close(kr, k2, skip_trash=True) <= LM_TOL
+    assert _close(vr, v2, skip_trash=True) <= LM_TOL
+    assert np.array_equal(np.asarray(lg)[live].argmax(-1),
+                          lg2.numpy()[live].argmax(-1))
+
+
+def test_prefill_chunk_rows_sharing_prefix_pages_read_them_only(lm_weights):
+    """Two rows map the same prefix page (prefix sharing) and write only
+    their private pages: the shared page is never written."""
+    rp, tp = lm_weights
+    rng = np.random.RandomState(3)
+    tokens = rng.randint(0, LM_CFG.vocab_size, size=(2, 8)).astype(np.int32)
+    starts = np.array([8, 8], np.int32)
+    lens = np.array([8, 5], np.int32)
+    tables = _tables([[1, 2], [1, 3]])
+    kp, vp = _pools(3)
+    lg, kr, vr = ref_tinylm.prefill_chunk_fn(
+        rp, jnp.asarray(tokens), jnp.asarray(starts), jnp.asarray(lens),
+        jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tables),
+        config=LM_REF_CFG, page_size=PS)
+    k2, v2 = _t(kp.copy()), _t(vp.copy())
+    lg2, _, _ = port_tinylm.prefill_chunk_fn(tp, _t(tokens), _t(starts), _t(lens),
+                                      k2, v2, _t(tables), config=LM_CFG,
+                                      page_size=PS)
+    assert np.array_equal(k2[:, 1].numpy(), kp[:, 1])  # shared, untouched
+    assert _close(lg, lg2) <= LM_TOL
+    assert _close(kr, k2, skip_trash=True) <= LM_TOL
+
+
+def test_decode_fn_matches_jax(lm_weights):
+    """Active slots mid-page and at a page's last position, an idle slot
+    (zero table, seq_len 0), a slot at max_len - 1 and one past it
+    (clipped there), two slots sharing a prefix page."""
+    rp, tp = lm_weights
+    rng = np.random.RandomState(7)
+    seq = np.array([3, 0, 7, 63, 70, 9], np.int32)
+    tables = _tables([[1], [], [2], list(range(6, 14)),
+                      list(range(14, 22)), [2, 23]])
+    tokens = rng.randint(0, LM_CFG.vocab_size, size=(len(seq),)).astype(
+        np.int32)
+    kp, vp = _pools(7)
+    nt, kr, vr = ref_tinylm.decode_fn(rp, jnp.asarray(tokens), jnp.asarray(seq),
+                               jnp.asarray(kp), jnp.asarray(vp),
+                               jnp.asarray(tables), config=LM_REF_CFG,
+                               page_size=PS)
+    k2, v2 = _t(kp.copy()), _t(vp.copy())
+    nt2, _, _ = port_tinylm.decode_fn(tp, _t(tokens), _t(seq), k2, v2, _t(tables),
+                               config=LM_CFG, page_size=PS)
+    assert nt2.dtype == torch.int32
+    assert np.array_equal(np.asarray(nt), nt2.numpy())
+    assert _close(kr, k2, skip_trash=True) <= LM_TOL
+    assert _close(vr, v2, skip_trash=True) <= LM_TOL
+
+
+@pytest.mark.parametrize("plen,bucket,pages", [(11, 16, [3, 5]),
+                                               (1, 8, [4]),
+                                               (9, 16, [2, 6])])
+def test_prefill_fn_matches_jax(lm_weights, plen, bucket, pages):
+    """The legacy one-prompt prefill: the same first token and every
+    allocated page's K/V (padded positions inside them included)."""
+    rp, tp = lm_weights
+    rng = np.random.RandomState(plen)
+    tokens = np.zeros((bucket,), np.int32)
+    tokens[:plen] = rng.randint(0, LM_CFG.vocab_size, size=(plen,))
+    row = _tables([pages])[0]
+    kp, vp = _pools(plen)
+    nt, kr, vr = ref_tinylm.prefill_fn(rp, jnp.asarray(tokens),
+                                jnp.asarray(plen, jnp.int32),
+                                jnp.asarray(kp), jnp.asarray(vp),
+                                jnp.asarray(row), config=LM_REF_CFG,
+                                page_size=PS)
+    k2, v2 = _t(kp.copy()), _t(vp.copy())
+    nt2, _, _ = port_tinylm.prefill_fn(tp, _t(tokens),
+                                torch.tensor(plen, dtype=torch.int32), k2,
+                                v2, _t(row), config=LM_CFG, page_size=PS)
+    assert int(nt2) == int(nt) and nt2.dtype == torch.int32
+    assert _close(kr, k2, skip_trash=True) <= LM_TOL
+    assert _close(vr, v2, skip_trash=True) <= LM_TOL
+
+
+def test_copy_page_fn_matches_jax():
+    kp, vp = _pools(11)
+    kr, vr = ref_tinylm.copy_page_fn(jnp.asarray(kp), jnp.asarray(vp),
+                              jnp.asarray(3, jnp.int32),
+                              jnp.asarray(7, jnp.int32))
+    k2, v2 = _t(kp.copy()), _t(vp.copy())
+    port_tinylm.copy_page_fn(k2, v2, torch.tensor(3, dtype=torch.int32),
+                      torch.tensor(7, dtype=torch.int32))
+    assert np.array_equal(np.asarray(kr), k2.numpy())
+    assert np.array_equal(np.asarray(vr), v2.numpy())
+
+
+def test_greedy_steps_continue_the_full_forward(lm_weights):
+    """Chunked prefill then decode steps through the pool give the greedy
+    continuation ``apply_tokens`` recomputes in full each token."""
+    _, tp = lm_weights
+    rng = np.random.RandomState(19)
+    prompt = rng.randint(0, LM_CFG.vocab_size, size=(13,)).astype(np.int32)
+    kp, vp = (torch.zeros(port_tinylm.kv_pool_shape(LM_CFG, NUM_PAGES, PS))
+              for _ in range(2))
+    table = _t(_tables([[5, 2, 9, 4]]))
+    tokens = np.zeros((1, 16), np.int32)
+    tokens[0, :13] = prompt
+    lg, _, _ = port_tinylm.prefill_chunk_fn(
+        tp, _t(tokens), torch.zeros(1, dtype=torch.int32),
+        torch.tensor([13], dtype=torch.int32), kp, vp, table, config=LM_CFG,
+        page_size=PS)
+    got = [int(lg[0].argmax())]
+    for n in range(13, 13 + 12):
+        nt, _, _ = port_tinylm.decode_fn(
+            tp, torch.tensor(got[-1:], dtype=torch.int32),
+            torch.tensor([n], dtype=torch.int32), kp, vp, table,
+            config=LM_CFG, page_size=PS)
+        got.append(int(nt[0]))
+    seq = list(prompt)
+    want = []
+    for _ in range(len(got)):
+        logits = port_tinylm.apply_tokens(tp, torch.tensor([seq]), LM_CFG)
+        want.append(int(logits[0, -1].argmax()))
+        seq.append(want[-1])
+    assert got == want
+
+
+# -- the plain twins against the reference math ------------------------------
+
+
+def _twin_case(seed, R=5, L=4, H=2, K=16, num_pages=12):
+    rng = np.random.RandomState(seed)
+    pools = [rng.randn(2, num_pages, PS, H, K).astype(np.float32)
+             for _ in range(2)]
+    q, k, v = (rng.randn(R, L, H, K).astype(np.float32) for _ in range(3))
+    tables = np.zeros((R, 4), np.int32)
+    tables[0, :2] = [1, 2]       # crosses a page boundary below
+    tables[1, :2] = [1, 3]       # shares page 1 with row 0
+    tables[3, :4] = [4, 5, 6, 7]  # runs to max_len - 1
+    tables[4, :1] = [11]
+    start = np.array([6, 8, 0, 30, 2], np.int32)  # row 2 inactive
+    lens = np.array([4, 3, 0, 4, 1], np.int32)
+    return pools, q, k, v, tables, start, lens
+
+
+def test_kv_append_plain_is_the_reference_scatter():
+    (kp, vp), _, k, v, tables, start, lens = _twin_case(0)
+    max_len = 4 * PS
+    pos = np.minimum(start[:, None] + np.arange(4)[None], max_len - 1)
+    valid = np.arange(4)[None] < lens[:, None]
+    pages = np.where(valid, np.take_along_axis(tables, pos // PS, 1), 0)
+    want_k = jnp.asarray(kp).at[1, pages, pos % PS].set(k)
+    k2, v2 = _t(kp.copy()), _t(vp.copy())
+    pa.kv_append(k2, v2, 1, _t(k), _t(v), _t(tables), _t(start), _t(lens),
+                 max_len=max_len)
+    assert np.array_equal(np.asarray(want_k)[:, 1:], k2.numpy()[:, 1:])
+    assert np.array_equal(kp[0], k2[0].numpy())  # another layer untouched
+    # lens None: every position valid (the decode step's)
+    k3, v3 = _t(kp.copy()), _t(vp.copy())
+    pa.kv_append(k3, v3, 0, _t(k[:, :1]), _t(v[:, :1]), _t(tables),
+                 _t(start), None, max_len=max_len)
+    p0 = np.minimum(start, max_len - 1)
+    pg = tables[np.arange(5), p0 // PS]
+    for r in range(5):
+        if pg[r]:
+            assert np.array_equal(k3[0, pg[r], p0[r] % PS].numpy(),
+                                  k[r, 0])
+            assert np.array_equal(v3[0, pg[r], p0[r] % PS].numpy(),
+                                  v[r, 0])
+
+
+def test_kv_append_plain_drops_a_page_outside_the_pool():
+    (kp, vp), _, k, v, tables, start, lens = _twin_case(1)
+    tables[4, 0] = 99
+    k2, v2 = _t(kp.copy()), _t(vp.copy())
+    pa.kv_append(k2, v2, 0, _t(k), _t(v), _t(tables), _t(start), _t(lens),
+                 max_len=4 * PS)
+    assert torch.isfinite(k2).all()
+
+
+def _attend_reference(q, kp, vp, layer, tables, start, max_len, scale):
+    """float64 loops: query (r, t, h) over j <= min(start + t, max_len-1)."""
+    R, L, H, K = q.shape
+    out = np.zeros((R, L, H, K))
+    for r in range(R):
+        for t in range(L):
+            p = min(start[r] + t, max_len - 1)
+            js = np.arange(p + 1)
+            pages = tables[r, js // PS]
+            kk = kp[layer, pages, js % PS].astype(np.float64)  # (n, H, K)
+            vv = vp[layer, pages, js % PS].astype(np.float64)
+            for h in range(H):
+                s = kk[:, h] @ q[r, t, h].astype(np.float64) * scale
+                w = np.exp(s - s.max())
+                out[r, t, h] = (w / w.sum()) @ vv[:, h]
+    return out
+
+
+@pytest.mark.parametrize("L", [1, 4])
+def test_paged_attention_plain_is_the_reference_softmax(L):
+    (kp, vp), q, _, _, tables, start, _ = _twin_case(2)
+    q = q[:, :L].copy()
+    scale = 1 / np.sqrt(q.shape[-1])
+    want = _attend_reference(q, kp, vp, 1, tables, start, 4 * PS, scale)
+    got = pa.paged_attention(_t(q), _t(kp), _t(vp), 1, _t(tables),
+                             _t(start), max_len=4 * PS)
+    assert float(np.abs(got.numpy() - want).max()) <= LM_TOL
+    assert got.shape == q.shape and got.dtype == torch.float32
+
+
+def test_paged_attention_reads_nothing_past_the_causal_bound():
+    """Positions beyond p add exactly nothing: poisoning them (finite, as
+    the twin's masked lm_weights are 0 and 0 * NaN is NaN) leaves every
+    output bit unchanged.  The card test poisons the kernel's with NaN."""
+    (kp, vp), q, _, _, tables, start, _ = _twin_case(3)
+    got = pa.paged_attention(_t(q), _t(kp), _t(vp), 0, _t(tables),
+                             _t(start), max_len=4 * PS)
+    poisoned_k, poisoned_v = kp.copy(), vp.copy()
+    r, p = 4, start[4] + 3  # row 4 sees positions 0..5 of page 11
+    poisoned_k[0, 11, p + 1:] = 1e4
+    poisoned_v[0, 11, p + 1:] = -1e4
+    again = pa.paged_attention(_t(q), _t(poisoned_k), _t(poisoned_v), 0,
+                               _t(tables), _t(start), max_len=4 * PS)
+    assert torch.isfinite(again[r]).all()
+    assert torch.equal(got[r], again[r])
+
+
+def test_wrappers_count_nothing_on_the_cpu_and_refuse_mixed_devices():
+    (kp, vp), q, k, v, tables, start, lens = _twin_case(4)
+    before = (pa.launches, dict(pa.launches_by_kernel))
+    pa.kv_append(_t(kp), _t(vp), 0, _t(k), _t(v), _t(tables), _t(start),
+                 _t(lens), max_len=4 * PS)
+    pa.paged_attention(_t(q), _t(kp), _t(vp), 0, _t(tables), _t(start),
+                       max_len=4 * PS)
+    assert (pa.launches, pa.launches_by_kernel) == before
+    meta = torch.empty(q.shape, device="meta")
+    with pytest.raises(ValueError, match="one device"):
+        pa.paged_attention(meta, _t(kp), _t(vp), 0, _t(tables), _t(start),
+                           max_len=4 * PS)
