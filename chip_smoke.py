@@ -233,7 +233,8 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    slots, pages of 16, 128 positions, prompts up to 64).  (a) The paged
    kernels (``tfos_kv_append``, ``tfos_paged_attention``) against their
    plain twins run on the card, at the engine's decode step (8 rows, one
-   position), at each chunk rung (16 and 32 positions) and at 256 rows of
+   position), at each chunk rung (16 and 32 positions), at 16 decode rows
+   over up to 1,024 positions (64 pages of 16 a row) and at 256 rows of
    128 positions over 2,049 pages; rows inactive, crossing a page, sharing
    another's pages and ending at max_len - 1: the append bit for bit
    outside page 0, the attention within ``ATTN_TOL`` and the same bits
@@ -5314,6 +5315,9 @@ ATTN_TOL = 1e-5
 DECODE_TIE_GAP = 1e-5
 #: 17(a)'s larger case: 256 rows of 128 positions over 2,049 pages
 SYNTH_ROWS, SYNTH_POSITIONS = 256, 128
+#: 17(a)'s long decode case: 16 rows of one query over up to 1,024
+#: positions (64 pages of 16 a row)
+LONG_ROWS, LONG_PAGES, LONG_MAX_LEN = 16, 64, 1024
 DECODE_TIMED_CALLS = 50
 #: the paged kernels by the name a profiler trace gives them
 PAGED_KERNELS = {k: v for k, v in TRACED_KERNELS.items()
@@ -5323,12 +5327,21 @@ PLANTED_OFF_BY_ONE = ("TFOS_PLANTED_CAUSAL_OFF_BY_ONE",)
 
 def paged_case_rows(label: str, L: int) -> list:
     """17(a)'s rows at the engine's geometry (8 pages of 16 a row, 128
-    positions): ``(start, valid length or None, pages)``, ``pages`` the
-    table's entries as ``("own", i)`` (the row's i-th private page) or
-    ``("of", r, i)`` (row r's i-th page, shared, never written here).
-    The rows: active mid-page, from a page boundary, inactive (an all-zero
-    table), ending at max_len - 1, sharing another row's first two pages,
-    and short ones."""
+    positions), or ``"long"``'s (:data:`LONG_ROWS` decode rows of
+    :data:`LONG_PAGES` pages, up to :data:`LONG_MAX_LEN` positions):
+    ``(start, valid length or None, pages)``, ``pages`` the table's
+    entries as ``("own", i)`` (the row's i-th private page) or ``("of",
+    r, i)`` (row r's i-th page, shared, never written here).  The rows:
+    active mid-page, from a page boundary, inactive (an all-zero table),
+    ending at max_len - 1, sharing another row's first two pages, and
+    short ones."""
+    if label == "long":
+        own = [("own", i) for i in range(LONG_PAGES)]
+        shared = [("of", 3, i) for i in range(8)] + own[8:]
+        starts = (517, 256, 0, LONG_MAX_LEN - 1, 200, 1000, 63, 15, 640,
+                  128, 900, 333, 768, 47, 1022, 700)
+        return [(s, None, [] if r == 2 else shared if r == 4 else own)
+                for r, s in enumerate(starts[:LONG_ROWS])]
     own = [("own", i) for i in range(8)]
     shared = [("of", 3, 0), ("of", 3, 1)] + own[2:]
     if label == "decode":  # L = 1: every position valid (lens None)
@@ -5341,17 +5354,19 @@ def paged_case_rows(label: str, L: int) -> list:
 
 
 def paged_case(rows: list, L: int, num_pages: int, seed: int,
-               heads: int = 4, head_dim: int = 32, layers: int = 2):
-    """The tensors of one 17(a) case on the card: random pools, q/k/v,
-    the tables (each row's private pages drawn without replacement from
-    pages 1..), start and lens."""
+               heads: int = 4, head_dim: int = 32, layers: int = 2,
+               page_size: int = 16, width: int = 8):
+    """The tensors of one 17(a) case on the card: random pools of pages of
+    ``page_size``, q/k/v, the tables (``width`` entries a row; each row's
+    private pages drawn without replacement from pages 1..), start and
+    lens."""
     import numpy as np
     import torch
 
     rng = np.random.RandomState(seed)
     R = len(rows)
     pages = rng.permutation(np.arange(1, num_pages))
-    tables = np.zeros((R, 8), np.int32)
+    tables = np.zeros((R, width), np.int32)
     used = 0
     for r, (_, _, entries) in enumerate(rows):
         for i, e in enumerate(entries):
@@ -5370,7 +5385,7 @@ def paged_case(rows: list, L: int, num_pages: int, seed: int,
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
 
-    shape = (layers, num_pages, 16, heads, head_dim)
+    shape = (layers, num_pages, page_size, heads, head_dim)
     return {"k_pool": randn(*shape), "v_pool": randn(*shape),
             "q": randn(R, L, heads, head_dim),
             "k": randn(R, L, heads, head_dim),
@@ -5535,8 +5550,9 @@ def _append_indices(case: dict, max_len: int):
 
 
 def paged_kernel_phase(rungs) -> tuple[dict, list]:
-    """17(a): the cases at the engine's geometry (decode, each chunk rung)
-    and the larger synthetic one; returns ``({case: result}, failures)``."""
+    """17(a): the cases at the engine's geometry (decode, each chunk rung),
+    the long decode case and the larger synthetic one; returns ``({case:
+    result}, failures)``."""
     import torch
 
     results, failures = {}, []
@@ -5545,6 +5561,10 @@ def paged_kernel_phase(rungs) -> tuple[dict, list]:
         rows = paged_case_rows(label, L)
         results[label] = paged_kernel_case(
             label, paged_case(rows, L, 1 + 8 * len(rows), 170 + i))
+    rows = paged_case_rows("long", 1)
+    results["long"] = paged_kernel_case(
+        "long", paged_case(rows, 1, 1 + LONG_PAGES * len(rows), 178,
+                           width=LONG_PAGES), max_len=LONG_MAX_LEN)
     synth = [(0, SYNTH_POSITIONS, [("own", j) for j in range(8)])
              for _ in range(SYNTH_ROWS)]
     results["synthetic"] = paged_kernel_case(
@@ -6003,9 +6023,11 @@ def decode_phase() -> dict:
     if failures:
         raise SystemExit("decode phase 17 failed: " + "; ".join(failures))
     for name in PAGED_KERNELS.values():  # the profiler's ms a launch
-        kern["decode"][name]["device_ms"] = (
-            steps["decode"]["captured"]["families_ms"].get(name, 0.0)
-            / config.n_layers)
+        for label, kind in (("decode", "decode"),
+                            (f"chunk{rungs[-1]}", "chunk")):
+            kern[label][name]["device_ms"] = (
+                steps[kind]["captured"]["families_ms"].get(name, 0.0)
+                / config.n_layers)
     return {"kernels": kern, "launches": main_launches,
             "replay_traced": {k: steps["decode"]["traced_launches"].get(k, 0)
                               + steps["chunk"]["traced_launches"].get(k, 0)
@@ -6039,7 +6061,7 @@ def phase17_entries(decode_result: dict) -> list:
             if label != "decode":
                 entry.update({f"{k}_{label}": res[k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms",
-                    "library_ms")})
+                    "library_ms", "device_ms") if k in res})
         out.append(entry)
     return out
 

@@ -14,7 +14,10 @@ synchronisation, so a CUDA graph captures them:
 
 On a CUDA tensor each wrapper checks what its kernel takes, launches it
 or raises, and counts the launch in :data:`launches` and
-:data:`launches_by_kernel`.  On CPU tensors it runs the plain twin beside
+:data:`launches_by_kernel`.  :func:`plan` is the attention's launch plan,
+pure Python: one block a (row, head, query tile), the tiles and the shared
+memory chosen from the shapes alone, so that a CUDA graph replays it with
+new ``start`` values.  On CPU tensors it runs the plain twin beside
 it (:func:`kv_append_plain`, :func:`paged_attention_plain`: an
 ``index_select`` gather and an einsum softmax, the reference's math), which
 counts nothing: that is the caller's explicit request for the CPU, not a
@@ -31,7 +34,9 @@ wins is undefined, so nothing compares it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -44,10 +49,132 @@ launches = 0
 #: The same launches by kernel.
 launches_by_kernel = {"kv_append": 0, "paged_attention": 0}
 
-#: The widest head the attention kernel takes (4 values a lane of a warp).
+#: The widest head the attention kernel takes.
 MAX_HEAD_DIM = 128
 
 _LIB = None
+#: (id of a loaded library, device index) whose attention kernel may take
+#: more than 48 KB of shared memory (``tfos_paged_attention_prepare``)
+_PREPARED: set = set()
+
+# the kernel's constants (csrc/paged_attention.cu)
+_THREADS = 128
+_WARPS = _THREADS // 32
+_SMEM_DEFAULT = 48 * 1024
+_SMEM_MAX = 232448  # 227 KB, with the attribute raised
+#: blocks that keep every SM of an H100 busy (132 SMs, 4 blocks each):
+#: the plan halves the query tile until the grid holds as many, or the
+#: tile is 4 queries
+_FILL_BLOCKS = 4 * 132
+#: the (score_rows, score_cols, out_rows) instantiations of
+#: ``TFOS_ATTN_SHAPES``
+_KERNEL_SHAPES = frozenset({
+    (1, 2, 1), (2, 2, 1), (4, 2, 1), (8, 2, 1), (8, 2, 2), (1, 1, 1),
+    (2, 1, 1), (2, 1, 2), (4, 1, 2), (4, 1, 4)})
+
+
+class Plan(NamedTuple):
+    """How one :func:`paged_attention` call runs: ``blocks`` blocks of
+    ``threads``, one a (row, head, tile of ``q_tile`` queries), each
+    staging ``pos_tile`` positions of K and V a stage, two stages deep, in
+    ``smem`` bytes of dynamic shared memory (``big_smem``: above the 48 KB
+    default, so the kernel's limit is raised once a device); a
+    warp scores ``score_rows`` queries at ``score_cols`` positions a lane
+    (a whole tile), a group of ``lanes`` lanes accumulates ``out_rows``
+    queries' outputs, and ``splits`` groups share one query's positions
+    (their partials summed in a fixed order)."""
+    q_tile: int
+    pos_tile: int
+    threads: int
+    smem: int
+    blocks: int
+    score_rows: int
+    score_cols: int
+    out_rows: int
+    lanes: int
+    splits: int
+    big_smem: bool
+
+
+def _smem(q_tile: int, pos_tile: int, head_dim: int, pages: int) -> int:
+    """Bytes of one block's shared memory, as ``attn_layout`` in
+    ``csrc/paged_attention.cu`` lays it out: two stages of K tiles
+    (``head_dim + 4`` floats a position) and of V tiles (``head_dim``),
+    the query tile, the weights (``pos_tile + 4`` floats a query), corr, l
+    and the bound a query, and ``pages`` table entries."""
+    return 4 * (2 * pos_tile * (2 * head_dim + 4) + q_tile * head_dim
+                + q_tile * (pos_tile + 4) + 3 * q_tile + pages)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(R: int, L: int, H: int, K: int, page_size: int,
+         max_len: int) -> Plan:
+    """The attention's launch plan for ``R`` rows of ``L`` queries, ``H``
+    heads of ``K``, pages of ``page_size`` and ``max_len`` positions, by
+    shape alone: a query tile of 1 for the decode step (``L == 1``: the
+    block's lane groups split the positions); else the least power of two
+    ≥ ``L``, at most 32 (``K`` ≤ 32) or 16, halved while the grid holds
+    fewer than :data:`_FILL_BLOCKS` blocks and the tile more than 4
+    queries (a staged tile serves every query of its block, but a grid
+    that leaves SMs idle walks its rows on fewer of them); a position tile
+    of 64 (``K`` ≤ 32) or 32.  Raises ``ValueError`` on what the kernel
+    cannot take (see :func:`tiled`)."""
+    q_tile = 1
+    if L > 1:
+        q_tile = min(32 if K <= 32 else 16, 1 << (L - 1).bit_length())
+        while q_tile > 4 and R * H * -(-L // q_tile) < _FILL_BLOCKS:
+            q_tile //= 2
+    return tiled(R, L, H, K, page_size, max_len, q_tile,
+                 64 if K <= 32 else 32)
+
+
+def tiled(R: int, L: int, H: int, K: int, page_size: int, max_len: int,
+          q_tile: int, pos_tile: int) -> Plan:
+    """The plan with a given query tile (a power of two up to 32) and
+    position tile (32 or 64): :func:`plan`'s choice, or another for a
+    probe.  Raises ``ValueError`` on what the kernel cannot take: ``K`` not
+    a multiple of 4 (its copies move 16 bytes) or above
+    :data:`MAX_HEAD_DIM`, tiles it has no instantiation for, more than 227
+    KB of shared memory, more than 2³¹ − 1 blocks."""
+    if min(R, L, H, page_size, max_len) < 1:
+        raise ValueError(f"paged_attention: empty geometry R={R} L={L} H={H}"
+                         f" page_size={page_size} max_len={max_len}")
+    if not (1 <= K <= MAX_HEAD_DIM and K % 4 == 0):
+        raise ValueError(f"paged_attention kernel takes head_dim <= "
+                         f"{MAX_HEAD_DIM} and a multiple of 4 (16-byte "
+                         f"copies), got {K}")
+    no_kernel = ValueError(f"paged_attention: no kernel for a tile of "
+                           f"{q_tile} queries by {pos_tile} positions at "
+                           f"head_dim {K}")
+    if pos_tile not in (32, 64) or q_tile not in (1, 2, 4, 8, 16, 32):
+        raise no_kernel
+    pages = -(-max_len // page_size)
+    smem = _smem(q_tile, pos_tile, K, pages)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"paged_attention: {smem} bytes of shared memory "
+                         f"(a table of {pages} pages) exceed {_SMEM_MAX}")
+    blocks = R * H * -(-L // q_tile)
+    if blocks > 2 ** 31 - 1:
+        raise ValueError(f"paged_attention: {blocks} blocks")
+    lanes = 1 << (K // 4 - 1).bit_length()
+    groups = _THREADS // lanes
+    p = Plan(q_tile, pos_tile, _THREADS, smem, blocks,
+             score_rows=-(-q_tile // _WARPS), score_cols=pos_tile // 32,
+             out_rows=max(1, q_tile // groups), lanes=lanes,
+             splits=max(1, min(groups // q_tile, pos_tile // 4)),
+             big_smem=smem > _SMEM_DEFAULT)
+    if (p.score_rows, p.score_cols, p.out_rows) not in _KERNEL_SHAPES:
+        raise no_kernel
+    return p
+
+
+def block_queries(p: Plan, R: int, L: int, H: int, block: int):
+    """``(r, h, t0, queries)``: the row, head and query range that block
+    ``block`` of plan ``p`` serves, as the kernel decodes ``blockIdx.x``."""
+    nqt = -(-L // p.q_tile)
+    qtile, rh = block % nqt, block // nqt
+    t0 = qtile * p.q_tile
+    return rh // H, rh % H, t0, min(p.q_tile, L - t0)
 
 
 def reset_launches() -> None:
@@ -62,7 +189,21 @@ def _lib():
     global _LIB
     if _LIB is None:
         _LIB = _bind(_build.load("paged_attention"))
+        _prepare(_LIB, torch.cuda.current_device())
     return _LIB
+
+
+def _prepare(lib, device: int) -> None:
+    """Raise ``lib``'s attention kernel's shared memory limit on card
+    ``device`` (current) to 227 KB, once: at load, or at the first plan
+    above 48 KB on another card."""
+    if (id(lib), device) in _PREPARED:
+        return
+    err = lib.tfos_paged_attention_prepare()
+    if err != 0:
+        raise RuntimeError(f"paged_attention: raising the shared memory "
+                           f"limit failed: CUDA error {err}")
+    _PREPARED.add((id(lib), device))
 
 
 def _bind(lib):
@@ -72,9 +213,11 @@ def _bind(lib):
     p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tfos_kv_append_f32.argtypes = [p, p, p, p, p, p, p] + [i32] * 10 + [p]
     lib.tfos_paged_attention_f32.argtypes = ([p] * 6 + [i32] * 10
-                                             + [f32, p])
-    lib.tfos_kv_append_f32.restype = i32
-    lib.tfos_paged_attention_f32.restype = i32
+                                             + [f32] + [i32] * 4 + [p])
+    lib.tfos_paged_attention_prepare.argtypes = []
+    for fn in (lib.tfos_kv_append_f32, lib.tfos_paged_attention_f32,
+               lib.tfos_paged_attention_prepare):
+        fn.restype = i32
     return lib
 
 
@@ -208,21 +351,35 @@ def paged_attention(q, k_pool, v_pool, layer: int, page_tables, start, *,
     if _on_cpu("paged_attention", q, k_pool, v_pool, page_tables, start):
         return paged_attention_plain(q, k_pool, v_pool, layer, page_tables,
                                      start, max_len=max_len, scale=scale)
-    layers, num_pages, page_size, r, L, P = _check(
+    _, _, page_size, r, L, _ = _check(
         "paged_attention", (k_pool, v_pool), q, page_tables, start, None,
         layer, max_len)
-    h, kd = q.shape[2:]
-    if kd > MAX_HEAD_DIM:
-        raise ValueError(f"paged_attention kernel takes head_dim <= "
-                         f"{MAX_HEAD_DIM}, got {kd}")
-    o = torch.empty_like(q)
     if r * L == 0:
-        return o
+        return torch.empty_like(q)
+    return _launch(q, k_pool, v_pool, layer, page_tables, start, max_len,
+                   scale, plan(r, L, *q.shape[2:], page_size, max_len))
+
+
+def _launch(q, k_pool, v_pool, layer: int, page_tables, start,
+            max_len: int, scale: float, p: Plan):
+    """One launch of the attention kernel under plan ``p`` (checked
+    tensors on one card): :func:`paged_attention`'s, or another plan of
+    :func:`tiled` in a probe.  Counts the launch; raises on any error."""
+    layers, num_pages, page_size = k_pool.shape[:3]
+    r, L, h, kd = q.shape
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged_attention kernel copies 16 bytes at a time:"
+                         " the pools must start 16-byte aligned")
+    o = torch.empty_like(q)
+    lib = _lib()
     with _build.raw_stream(q.device) as stream:
-        err = _lib().tfos_paged_attention_f32(
+        if p.big_smem:
+            _prepare(lib, q.device.index)
+        err = lib.tfos_paged_attention_f32(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), o.data_ptr(),
-            page_tables.data_ptr(), start.data_ptr(), r, L, h, kd, P,
-            page_size, num_pages, max_len, layer, layers, float(scale),
+            page_tables.data_ptr(), start.data_ptr(), r, L, h, kd,
+            page_tables.shape[1], page_size, num_pages, max_len, layer,
+            layers, float(scale), p.q_tile, p.pos_tile, p.threads, p.smem,
             stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "

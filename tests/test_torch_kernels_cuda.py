@@ -772,35 +772,55 @@ def test_compiled_step_replays_the_eager_step_on_card(case):
 # ---------------------------------------------------------------------------
 
 
+def _paged_card_case(label, L, seed):
+    """``(case, max_len)`` for a card case label: ``chip_smoke.py``'s
+    17(a) rows (``decode``, ``chunkN``, ``long``), with ``_kNN`` a head of
+    NN instead of 32."""
+    base, _, k = label.partition("_k")
+    head_dim = int(k) if k else 32
+    rows = chip_smoke.paged_case_rows(base, L)
+    if base == "long":
+        return chip_smoke.paged_case(
+            rows, L, 1 + chip_smoke.LONG_PAGES * len(rows), seed,
+            head_dim=head_dim, width=chip_smoke.LONG_PAGES), \
+            chip_smoke.LONG_MAX_LEN
+    return chip_smoke.paged_case(rows, L, 1 + 8 * len(rows), seed,
+                                 head_dim=head_dim), 128
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("label,L", [("decode", 1), ("chunk16", 16),
-                                     ("chunk32", 32)])
+@pytest.mark.parametrize("label,L", [
+    ("decode", 1), ("chunk16", 16), ("chunk32", 32), ("decode_k16", 1),
+    ("chunk16_k16", 16), ("decode_k64", 1), ("chunk32_k64", 32),
+    ("decode_k128", 1), ("chunk16_k128", 16), ("long", 1), ("chunk24", 24)])
 def test_paged_kernels_match_plain_twins_on_card(label, L):
     """At the decode engine's geometry (tinylm.Config(): 4 heads of 32,
-    pages of 16, 128 positions): rows inactive, crossing a page, sharing
-    another's pages, ending at max_len - 1.  The append bit for bit its
-    twin outside page 0, the attention within 1e-5 and the same bits
-    twice, one launch a call."""
+    pages of 16, 128 positions; heads of 16, 64 and 128 too): rows
+    inactive, crossing a page, sharing another's pages, ending at max_len
+    - 1; the long decode case (16 rows over up to 1,024 positions, 64
+    pages of 16 a row); a chunk of 24 whose valid queries end inside a
+    query tile.  The append bit for bit its twin outside page 0, the
+    attention within 1e-5 and the same bits twice, one launch a call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from tensorflowonspark_torch.kernels import paged_attention as pa
 
-    rows = chip_smoke.paged_case_rows(label, L)
-    case = chip_smoke.paged_case(rows, L, 1 + 8 * len(rows), 7)
+    case, max_len = _paged_card_case(label, L, 7)
     before = dict(pa.launches_by_kernel)
     for layer in (0, 1):
         kc, vc = case["k_pool"].clone(), case["v_pool"].clone()
         kt, vt = case["k_pool"].clone(), case["v_pool"].clone()
         idx = (case["tables"], case["start"], case["lens"])
-        pa.kv_append(kc, vc, layer, case["k"], case["v"], *idx, max_len=128)
+        pa.kv_append(kc, vc, layer, case["k"], case["v"], *idx,
+                     max_len=max_len)
         pa.kv_append_plain(kt, vt, layer, case["k"], case["v"], *idx,
-                           max_len=128)
+                           max_len=max_len)
         attn = [pa.paged_attention(case["q"], kc, vc, layer, case["tables"],
-                                   case["start"], max_len=128)
+                                   case["start"], max_len=max_len)
                 for _ in range(2)]
         plain = pa.paged_attention_plain(case["q"], kc, vc, layer,
                                          case["tables"], case["start"],
-                                         max_len=128)
+                                         max_len=max_len)
         torch.cuda.synchronize()
         assert torch.equal(kc[:, 1:], kt[:, 1:])
         assert torch.equal(vc[:, 1:], vt[:, 1:])
@@ -809,6 +829,40 @@ def test_paged_kernels_match_plain_twins_on_card(label, L):
     assert pa.launches_by_kernel == {"kv_append": before["kv_append"] + 2,
                                      "paged_attention":
                                          before["paged_attention"] + 4}
+
+
+#: one plan of every instantiation of the attention kernel: (query tile,
+#: position tile, head_dim)
+EVERY_TILE = [(1, 64, 32), (1, 32, 128), (4, 64, 32), (8, 64, 32),
+              (16, 64, 32), (32, 64, 32), (32, 64, 16), (4, 32, 64),
+              (8, 32, 32), (8, 32, 128), (16, 32, 64), (16, 32, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", EVERY_TILE,
+                         ids=["x".join(map(str, t)) for t in EVERY_TILE])
+def test_every_attention_tile_matches_the_twin_on_card(tiles):
+    """Each (query tile, position tile) the kernel has an instantiation
+    for, launched through ``_launch`` at the chunk-32 rows (the decode rows
+    for a tile of 1): within 1e-5 of the twin and the same bits twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from tensorflowonspark_torch.kernels import paged_attention as pa
+
+    q_tile, pos_tile, head_dim = tiles
+    L = 1 if q_tile == 1 else 32
+    label = ("decode" if L == 1 else "chunk32") + f"_k{head_dim}"
+    case, max_len = _paged_card_case(label, L, 11)
+    q, tables, start = case["q"], case["tables"], case["start"]
+    R, _, H, K = q.shape
+    p = pa.tiled(R, L, H, K, 16, max_len, q_tile, pos_tile)
+    got = [pa._launch(q, case["k_pool"], case["v_pool"], 1, tables, start,
+                      max_len, K ** -0.5, p) for _ in range(2)]
+    plain = pa.paged_attention_plain(q, case["k_pool"], case["v_pool"], 1,
+                                     tables, start, max_len=max_len)
+    torch.cuda.synchronize()
+    assert float((got[0] - plain).abs().max()) <= 1e-5
+    assert torch.equal(got[0], got[1])
 
 
 @pytest.mark.cuda
@@ -836,6 +890,50 @@ def test_paged_attention_reads_nothing_past_the_bound_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("label,L", [("decode", 1), ("chunk24", 24),
+                                     ("long", 1)])
+def test_paged_attention_ignores_nan_past_every_bound_on_card(label, L):
+    """Every pool place no query of the case sees (inside the last staged
+    tile of a block's walk or past it, on the rows' pages, on page 0 past
+    the inactive row's one position, on unused pages) turned NaN: every
+    output the same bits and finite.  For the chunk, the places only
+    padded queries (t >= lens[r]) see are poisoned too: the valid queries'
+    outputs are unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import numpy as np
+
+    from tensorflowonspark_torch.kernels import paged_attention as pa
+
+    case, max_len = _paged_card_case(label, L, 5)
+    q, tables, start = case["q"], case["tables"], case["start"]
+    kp, vp = case["k_pool"], case["v_pool"]
+    ps = kp.shape[2]
+    lens = (np.full(len(start), L) if case["lens_np"] is None
+            else case["lens_np"])
+    o = pa.paged_attention(q, kp, vp, 1, tables, start, max_len=max_len)
+    seen = np.zeros(kp.shape[1:3], bool)
+    for r, s in enumerate(case["start_np"]):
+        if lens[r] == 0:
+            continue
+        last = min(max(int(s) + int(lens[r]) - 1, 0), max_len - 1)
+        for j in range(last + 1):
+            seen[case["tables_np"][r, j // ps], j % ps] = True
+    if case["lens_np"] is not None:  # inactive rows still read position 0
+        for r in np.flatnonzero(lens == 0):
+            seen[case["tables_np"][r, 0], 0] = True
+    poison = torch.from_numpy(~seen).cuda()
+    kp, vp = kp.clone(), vp.clone()
+    kp[1][poison] = float("nan")
+    vp[1][poison] = float("nan")
+    again = pa.paged_attention(q, kp, vp, 1, tables, start, max_len=max_len)
+    torch.cuda.synchronize()
+    valid = torch.from_numpy(np.arange(L)[None, :] < lens[:, None]).cuda()
+    assert torch.isfinite(again[valid]).all()
+    assert torch.equal(o[valid], again[valid])
+
+
+@pytest.mark.cuda
 def test_paged_kernels_reject_what_they_do_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
@@ -860,6 +958,10 @@ def test_paged_kernels_reject_what_they_do_not_take():
         wide = torch.zeros(1, 5, 16, 1, 160, device="cuda")
         pa.paged_attention(torch.zeros(1, 1, 1, 160, device="cuda"), wide,
                            wide, 0, tables, start, max_len=64)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        odd = torch.zeros(1, 5, 16, 1, 18, device="cuda")
+        pa.paged_attention(torch.zeros(1, 1, 1, 18, device="cuda"), odd, odd,
+                           0, tables, start, max_len=64)
 
 
 @pytest.mark.cuda

@@ -11,6 +11,7 @@ module-scope cache).  The port's GroupNorm runs its plain twin here.
 helpers of this file.
 """
 
+import collections
 import dataclasses
 import functools
 import importlib
@@ -713,16 +714,109 @@ def _attend_reference(q, kp, vp, layer, tables, start, max_len, scale):
     return out
 
 
-@pytest.mark.parametrize("L", [1, 4])
-def test_paged_attention_plain_is_the_reference_softmax(L):
-    (kp, vp), q, _, _, tables, start, _ = _twin_case(2)
+def _long_twin_case(seed, R=3, L=4, H=2, K=16, width=64):
+    """Rows of ``width`` pages of ``PS`` (up to 512 positions): one mid
+    table, one ending at max_len - 1 (its queries clamped there), one
+    inactive; pages drawn without replacement."""
+    rng = np.random.RandomState(seed)
+    num_pages = 1 + 2 * width
+    pools = [rng.randn(2, num_pages, PS, H, K).astype(np.float32)
+             for _ in range(2)]
+    q = rng.randn(R, L, H, K).astype(np.float32)
+    tables = np.zeros((R, width), np.int32)
+    tables[:2] = rng.permutation(np.arange(1, num_pages)).reshape(2, width)
+    start = np.array([301, width * PS - 2, 0], np.int32)[:R]
+    return pools, q, tables, start
+
+
+@pytest.mark.parametrize("L,pages", [pytest.param(1, 4, id="1"),
+                                     pytest.param(4, 4, id="4"),
+                                     pytest.param(1, 64, id="long1"),
+                                     pytest.param(4, 64, id="long4")])
+def test_paged_attention_plain_is_the_reference_softmax(L, pages):
+    if pages == 4:
+        (kp, vp), q, _, _, tables, start, _ = _twin_case(2)
+    else:  # P = 64 pages of 8 a row
+        (kp, vp), q, tables, start = _long_twin_case(2)
     q = q[:, :L].copy()
     scale = 1 / np.sqrt(q.shape[-1])
-    want = _attend_reference(q, kp, vp, 1, tables, start, 4 * PS, scale)
+    want = _attend_reference(q, kp, vp, 1, tables, start, pages * PS, scale)
     got = pa.paged_attention(_t(q), _t(kp), _t(vp), 1, _t(tables),
-                             _t(start), max_len=4 * PS)
+                             _t(start), max_len=pages * PS)
     assert float(np.abs(got.numpy() - want).max()) <= LM_TOL
     assert got.shape == q.shape and got.dtype == torch.float32
+
+
+# -- the attention kernel's launch plan (pure Python) -------------------------
+
+
+@pytest.mark.parametrize("max_len", [64, 128, 1024])
+@pytest.mark.parametrize("K", [16, 32, 64, 128])
+@pytest.mark.parametrize("L", [1, 4, 16, 32, 128])
+def test_attention_plan_covers_every_query_once(L, K, max_len):
+    """At the engine's row count, 8, and at 1 and 256 rows (the plan
+    shrinks its query tile on small grids): the blocks, decoded as the
+    kernel decodes ``blockIdx.x``, serve every (row, query, head) exactly
+    once; the plan's shared memory is its layout's and fits 48 KB, or 227
+    KB with the attribute flagged; an instantiation exists for it."""
+    H, page_size = 4, 16
+    for R in (1, 8, 256):
+        p = pa.plan(R, L, H, K, page_size, max_len)
+        seen = collections.Counter()
+        for b in range(p.blocks):
+            r, h, t0, n = pa.block_queries(p, R, L, H, b)
+            assert 1 <= n <= p.q_tile
+            seen.update((r, t, h) for t in range(t0, t0 + n))
+        assert len(seen) == R * L * H and set(seen.values()) == {1}
+        assert min(seen) == (0, 0, 0) and max(seen) == (R - 1, L - 1, H - 1)
+        pages = -(-max_len // page_size)
+        assert p.smem == pa._smem(p.q_tile, p.pos_tile, K, pages)
+        assert p.smem <= (pa._SMEM_MAX if p.big_smem else pa._SMEM_DEFAULT)
+        assert p.big_smem == (p.smem > pa._SMEM_DEFAULT)
+        assert (p.score_rows, p.score_cols, p.out_rows) in pa._KERNEL_SHAPES
+        assert p.threads == 128
+        assert p.score_cols * 32 == p.pos_tile
+        assert (p.q_tile == 1) == (L == 1)
+        assert p.pos_tile % (4 * p.splits) == 0  # whole float4s a split
+        assert p.splits == 1 or p.out_rows == 1  # split groups hold 1 query
+
+
+def test_attention_plan_for_tinylm_needs_no_opt_in():
+    """``tinylm.Config()``'s shapes (4 heads of 32, pages of 16, 128
+    positions) plan under the 48 KB default: the decode step, every chunk
+    rung of the engine, and 256 rows of 128 causal positions; the engine's
+    steps get enough blocks to spread over the card."""
+    cfg = port_tinylm.Config()
+    H, K = cfg.n_heads, cfg.dim // cfg.n_heads
+    for R, L in ((8, 1), (8, 16), (8, 32), (256, 128), (1, 64)):
+        p = pa.plan(R, L, H, K, 16, cfg.max_len)
+        assert not p.big_smem, (R, L, p)
+    assert pa.plan(8, 1, H, K, 16, 128).q_tile == 1
+    assert pa.plan(8, 32, H, K, 16, 128).q_tile == 4
+    assert pa.plan(256, 128, H, K, 16, 128).q_tile == 32
+
+
+@pytest.mark.parametrize("shape,match", [
+    ((8, 1, 4, 18, 16, 128), "multiple of 4"),
+    ((8, 1, 4, 132, 16, 128), "head_dim"),
+    ((8, 1, 4, 0, 16, 128), "head_dim"),
+    ((0, 1, 4, 32, 16, 128), "empty"),
+    ((8, 1, 4, 32, 1, 70000), "shared memory"),
+    ((2 ** 20, 4096, 2 ** 10, 32, 16, 4096), "blocks"),
+])
+def test_attention_plan_refuses_what_the_kernel_cannot_take(shape, match):
+    with pytest.raises(ValueError, match=match):
+        pa.plan(*shape)
+
+
+@pytest.mark.parametrize("tiles", [(3, 64, 32), (16, 48, 32), (64, 64, 32),
+                                   (32, 32, 128), (16, 32, 32), (0, 64, 32)])
+def test_attention_tiles_without_a_kernel_are_refused(tiles):
+    """A tile the kernel has no instantiation or layout for raises before
+    any launch (the entry would refuse it too)."""
+    q_tile, pos_tile, head_dim = tiles
+    with pytest.raises(ValueError, match="no kernel"):
+        pa.tiled(4, 32, 4, head_dim, 16, 128, q_tile, pos_tile)
 
 
 def test_paged_attention_reads_nothing_past_the_causal_bound():
