@@ -239,7 +239,9 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    another's pages and ending at max_len - 1: the append bit for bit
    outside page 0, the attention within ``ATTN_TOL`` and the same bits
    twice; ms a call of each, its twin and the library yardstick
-   (``index_put_``; ``index_select`` gathers + SDPA) beside ``bound_ms``.
+   (``index_put_``; ``index_select`` gathers + SDPA) beside ``bound_ms``,
+   and the append's µs a launch under CUPTI (``cupti_ms`` in the kernels
+   line): at the engine's shapes the events time is the wrapper's host.
    (b) 32 greedy requests at once (a third extend registered prefixes,
    some diverging mid-page): every stream equals the same engine's one at
    a time, the full forward's greedy choice (``apply_tokens``, near-ties
@@ -249,8 +251,10 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    and serving captured and ran eagerly nothing after; the wrappers'
    launches are the warmup's; a planted off-by-one causal bound (a
    ``-DTFOS_PLANTED_CAUSAL_OFF_BY_ONE`` build) and replays on stale static
-   inputs must change the streams.  (c) Aggregate and one-at-a-time
-   tokens/s, TTFT and ITL p50/p99, and on an idle engine the decode and
+   inputs must change the streams, and an append writing the slot after p
+   (``-DTFOS_PLANTED_APPEND_OFF_BY_ONE``) must fail (a)'s append gate.
+   (c) Aggregate and one-at-a-time tokens/s, TTFT and ITL p50/p99, and
+   on an idle engine the decode and
    chunk steps captured against eager (host µs a step, busy ms, idle
    share) with their launches counted by the wrappers and by a traced
    replay.  (d) ``DecodeHTTPServer`` streams one generation over ``POST
@@ -742,6 +746,34 @@ def device_kernels(prof, calls: int):
                 or _ANNOTATION.match(e.name)):
             continue  # a host-side op, or an annotation's span
         yield e.name, e.time_range.elapsed_us() / 1e3 / calls
+
+
+def cupti_us(fn, calls: int, kernel: str,
+             sessions: int = 3) -> float | None:
+    """Mean µs a launch of the kernels whose name holds ``kernel`` over
+    ``calls`` back-to-back calls of ``fn`` under torch.profiler (CUPTI),
+    after three warm calls and ``TRACE_WARMUP_LAUNCHES`` spin kernels (a
+    session drops its first device records, now and then all of them: a
+    session that saw no such launch is run again, up to ``sessions``);
+    None when no session saw one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_WARMUP_LAUNCHES):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ms = [t for name, t in device_kernels(prof, 1) if kernel in name]
+        if ms:
+            return sum(ms) / len(ms) * 1e3
+    return None
 
 
 def profile_forward(model, batch, fwd_ms: float, forwards: int = 3,
@@ -5323,6 +5355,8 @@ DECODE_TIMED_CALLS = 50
 PAGED_KERNELS = {k: v for k, v in TRACED_KERNELS.items()
                  if k in ("tfos_kv_append", "tfos_paged_attention")}
 PLANTED_OFF_BY_ONE = ("TFOS_PLANTED_CAUSAL_OFF_BY_ONE",)
+#: a build whose append writes offset (p + 1) % page_size of p's page
+PLANTED_APPEND = ("TFOS_PLANTED_APPEND_OFF_BY_ONE",)
 
 
 def paged_case_rows(label: str, L: int) -> list:
@@ -5459,13 +5493,11 @@ def paged_library_call(case: dict, layer: int, max_len: int):
     return call
 
 
-def paged_kernel_case(label: str, case: dict, max_len: int = 128,
-                      layer: int = 1, calls: int = 50) -> dict:
-    """17(a) for one case: the append bit for bit its plain twin's outside
-    page 0 (run on the card), the attention within ``ATTN_TOL`` of its
-    twin on the same pools and the same bits twice; ms a call of each
-    kernel, its twin and the library yardstick (CUDA events), beside
-    ``bound_ms``."""
+def append_against_twin(case: dict, max_len: int, layer: int = 1):
+    """17(a)'s append gate: ``kv_append`` into copies of the case's pools
+    against ``kv_append_plain`` into others, compared outside page 0:
+    ``(the same bits, max |kernel - twin|, the kernel's pools, the
+    twin's)``."""
     import torch
 
     from tensorflowonspark_torch.kernels import paged_attention as pa
@@ -5477,6 +5509,29 @@ def paged_kernel_case(label: str, case: dict, max_len: int = 128,
                  max_len=max_len)
     pa.kv_append_plain(kt, vt, layer, case["k"], case["v"], *args,
                        max_len=max_len)
+    torch.cuda.synchronize()
+    bits = (torch.equal(kc[:, 1:], kt[:, 1:])
+            and torch.equal(vc[:, 1:], vt[:, 1:]))
+    err = max(float((kc[:, 1:] - kt[:, 1:]).abs().max()),
+              float((vc[:, 1:] - vt[:, 1:]).abs().max()))
+    return bits, err, (kc, vc), (kt, vt)
+
+
+def paged_kernel_case(label: str, case: dict, max_len: int = 128,
+                      layer: int = 1, calls: int = 50) -> dict:
+    """17(a) for one case: the append bit for bit its plain twin's outside
+    page 0 (run on the card), the attention within ``ATTN_TOL`` of its
+    twin on the same pools and the same bits twice; ms a call of each
+    kernel, its twin and the library yardstick (CUDA events), beside
+    ``bound_ms``, and the append's µs a launch under CUPTI (back to back:
+    at the engine's shapes the events time is the wrapper's host)."""
+    import torch
+
+    from tensorflowonspark_torch.kernels import paged_attention as pa
+
+    args = (case["tables"], case["start"], case["lens"])
+    append_bits, append_err, (kc, vc), (kt, vt) = append_against_twin(
+        case, max_len, layer)
     o = pa.paged_attention(case["q"], kc, vc, layer, case["tables"],
                            case["start"], max_len=max_len)
     o2 = pa.paged_attention(case["q"], kc, vc, layer, case["tables"],
@@ -5484,20 +5539,20 @@ def paged_kernel_case(label: str, case: dict, max_len: int = 128,
     ot = pa.paged_attention_plain(case["q"], kc, vc, layer, case["tables"],
                                   case["start"], max_len=max_len)
     torch.cuda.synchronize()
-    append_bits = (torch.equal(kc[:, 1:], kt[:, 1:])
-                   and torch.equal(vc[:, 1:], vt[:, 1:]))
-    append_err = max(float((kc[:, 1:] - kt[:, 1:]).abs().max()),
-                     float((vc[:, 1:] - vt[:, 1:]).abs().max()))
     attn_err = float((o - ot).abs().max())
     same = torch.equal(o, o2)
     case = dict(case, k_pool=kc, v_pool=vc)
     library = paged_library_call(case, layer, max_len)
     lib_err = float((library().transpose(1, 2) - ot).abs().max())
     plain_index = _append_indices(case, max_len)
+
+    def append():
+        pa.kv_append(kc, vc, layer, case["k"], case["v"], *args,
+                     max_len=max_len)
+
     times = {
         "kv_append": (
-            time_ms(lambda: pa.kv_append(kc, vc, layer, case["k"], case["v"],
-                                         *args, max_len=max_len), calls),
+            time_ms(append, calls),
             time_ms(lambda: pa.kv_append_plain(
                 kt, vt, layer, case["k"], case["v"], *args,
                 max_len=max_len), calls),
@@ -5512,24 +5567,30 @@ def paged_kernel_case(label: str, case: dict, max_len: int = 128,
                 case["q"], kc, vc, layer, case["tables"], case["start"],
                 max_len=max_len), calls),
             time_ms(library, calls))}
+    append_us = cupti_us(append, 20, "tfos_kv_append")
     bounds = paged_bounds(case, max_len)
     out = {
-        "kv_append": {"max_abs_err": append_err, "bits": append_bits},
+        "kv_append": {"max_abs_err": append_err, "bits": append_bits,
+                      "cupti_ms": (None if append_us is None
+                                   else append_us / 1e3)},
         "paged_attention": {"max_abs_err": attn_err, "bits": same,
                             "library_err": lib_err}}
     for name, (ms, plain_ms, library_ms) in times.items():
         out[name].update({"ms": ms, "plain_ms": plain_ms,
                           "library_ms": library_ms, **bounds[name]})
     R, L = case["q"].shape[:2]
+    us = "not measured" if append_us is None else f"{append_us:.3f}"
     print(f"paged kernels (a) {label} ({R} rows x {L} positions, "
           f"{case['k_pool'].shape[1]} pages): kv_append bit for bit its "
           f"twin outside page 0: {append_bits}; paged_attention max |kernel"
           f" - twin| {attn_err:.3e} (tol {ATTN_TOL}), the same bits twice: "
           f"{same}, the library's {lib_err:.3e}; ms a call (bound; plain; "
           f"library): " + "; ".join(
-              f"{n} {v['ms']:.4f} ({v['bound_ms']:.5f} by {v['bound_by']}; "
+              f"{n} {v['ms']:.4f} ({v['bound_ms']:.6f} by {v['bound_by']}; "
               f"{v['plain_ms']:.4f}; {v['library_ms']:.4f})"
-              for n, v in out.items()), flush=True)
+              for n, v in out.items())
+          + f"; kv_append {us} us a launch (CUPTI, back to back)",
+          flush=True)
     return out
 
 
@@ -5574,6 +5635,9 @@ def paged_kernel_phase(rungs) -> tuple[dict, list]:
     for label, res in results.items():
         if not res["kv_append"]["bits"]:
             failures.append(f"(a) {label}: kv_append differs from its twin")
+        if res["kv_append"]["cupti_ms"] is None:
+            failures.append(f"(a) {label}: no kv_append launch in the "
+                            f"trace")
         attn = res["paged_attention"]
         if not (attn["max_abs_err"] <= ATTN_TOL and attn["bits"]):
             failures.append(f"(a) {label}: paged_attention "
@@ -5838,9 +5902,10 @@ def decode_phase() -> dict:
 
     t17 = time.perf_counter()
     failures, seconds = [], {}
-    planted = (None if _build._cached("paged_attention", PLANTED_OFF_BY_ONE)
-               else _build._start("paged_attention", _build.find_nvcc(),
-                                  PLANTED_OFF_BY_ONE))
+    planted = {d: (None if _build._cached("paged_attention", d)
+                   else _build._start("paged_attention", _build.find_nvcc(),
+                                      d))
+               for d in (PLANTED_OFF_BY_ONE, PLANTED_APPEND)}
     config = tinylm.Config()
     params = tinylm.init_params(config, seed=DECODE_SEED)
     requests = decode_workload()
@@ -5923,11 +5988,19 @@ def decode_phase() -> dict:
     if main_launches != dict.fromkeys(PAGED_KERNELS.values(), planned):
         failures.append(f"(b) wrapper launches {main_launches}")
 
-    # (b) planted faults: an off-by-one causal bound, stale static inputs
+    # (b) planted faults: an off-by-one causal bound, stale static inputs;
+    # and (a)'s append gate on a build writing the slot after p
     saved = pa._LIB
     try:
-        if planted is not None:
-            _build._finish("paged_attention", planted)
+        for job in planted.values():
+            if job is not None:
+                _build._finish("paged_attention", job)
+        pa._LIB = pa._bind(_build.load("paged_attention", PLANTED_APPEND))
+        append_caught = not any(
+            append_against_twin(paged_case(paged_case_rows(label, L), L, 65,
+                                           180 + L), 128)[0]
+            for label, L in (("decode", 1), (f"chunk{rungs[-1]}",
+                                             rungs[-1])))
         pa._LIB = pa._bind(_build.load("paged_attention",
                                        PLANTED_OFF_BY_ONE))
         faulty = decode.DecodeEngine(config, params, **DECODE_ENGINE)
@@ -5947,9 +6020,10 @@ def decode_phase() -> dict:
     stale_engine.stop()
     want = conc[:DECODE_PLANTED_REQUESTS]
     caught = {"causal j < p": off_by_one != want,
-              "stale static inputs": stale != want}
-    print(f"decode (b) planted faults caught by the stream gate: {caught}",
-          flush=True)
+              "stale static inputs": stale != want,
+              "append at p + 1": append_caught}
+    print(f"decode (b) planted faults caught (the stream gate; the append's"
+          f" by (a)'s bit-for-bit gate): {caught}", flush=True)
     failures += [f"(b) planted {k} not caught" for k, v in caught.items()
                  if not v]
     seconds["b"] = time.perf_counter() - t0
@@ -6056,12 +6130,13 @@ def phase17_entries(decode_result: dict) -> list:
                      decode_result["replay_traced"][name],
                  **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
-                                         "library_ms", "device_ms")}}
+                                         "library_ms", "device_ms",
+                                         "cupti_ms") if k in main}}
         for label, res in kern.items():
             if label != "decode":
                 entry.update({f"{k}_{label}": res[k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms",
-                    "library_ms", "device_ms") if k in res})
+                    "library_ms", "device_ms", "cupti_ms") if k in res})
         out.append(entry)
     return out
 

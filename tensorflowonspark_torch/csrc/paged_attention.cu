@@ -26,7 +26,24 @@
 // launch; which write wins is undefined, as it is for XLA's scatter, so
 // page 0 holds garbage that nothing reads for a valid position.  A page id
 // outside [0, num_pages) is dropped (XLA's scatter drops an out-of-bounds
-// update).  One thread an element.
+// update).
+//
+// The append is a copy: 2 R L H K floats read and as many written (256
+// rows x 128 positions of tinylm.Config(): 67 MB, 0.020 ms at 3.35 TB/s),
+// so bytes in flight and instructions a byte set its speed.  Design: a
+// (row r, position t) is one work item, and a warp moves an item's row of
+// H K floats of k and of v as 16-byte (float4) copies, lane c the c-th
+// float4 (striding by 32 for rows wider than 128 floats).  The item's
+// k and v loads go out (read-only path) before its scalars come back, so
+// nothing is stored before every load of its first chunk is issued.  The
+// item's start[r], lens[r] and page-table entry are read once an item (a
+// broadcast: every lane the same address), with 32-bit index arithmetic
+// (r = item / L and the page p / page_size); the pool offset is formed once
+// an item in 64 bits (layers x pages x page_size x H K may pass 2^31).  The
+// grid, ceil(R L / warps a block) blocks, is fixed by the shapes alone
+// (kernels/paged_attention.py::append_plan), so a CUDA graph replays it
+// with new start values.  No atomics,
+// one launch a call: the same bits on every run, page 0 aside.
 //
 // tfos_paged_attention: query (r, t, h) attends over j = 0..p with the
 // scores q.k * `scale` and a softmax accumulated in f32, reading K and V in
@@ -83,11 +100,14 @@
 // staged tiles' copies, and two barriers a tile.
 //
 // TFOS_PLANTED_CAUSAL_OFF_BY_ONE builds a faulty twin whose causal bound
-// is j < p: chip_smoke.py phase 17 checks that its gates catch it.
+// is j < p, TFOS_PLANTED_APPEND_OFF_BY_ONE one whose append writes offset
+// (p + 1) % page_size of p's page: chip_smoke.py phase 17 checks that its
+// gates catch each.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace {
@@ -101,34 +121,71 @@ constexpr int kMinBlocks = 5;  // attention blocks an SM: <= 102 registers
                                // (4 where a thread holds 8 queries' scores)
 constexpr int kScoreUnroll = 2;  // head_dim / 4 steps of a score unrolled
 
-__global__ void tfos_kv_append(float* __restrict__ k_pool,
-                               float* __restrict__ v_pool,
-                               const float* __restrict__ k,
-                               const float* __restrict__ v,
-                               const int* __restrict__ page_tables,
-                               const int* __restrict__ start,
-                               const int* __restrict__ lens, int rows, int L,
-                               int hk, int P, int page_size, int num_pages,
-                               int max_len, long long layer_offset) {
-  const long long total = static_cast<long long>(rows) * L * hk;
-  for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
-                       threadIdx.x;
-       idx < total; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int e = static_cast<int>(idx % hk);
-    const long long rt = idx / hk;
-    const int t = static_cast<int>(rt % L);
-    const int r = static_cast<int>(rt / L);
-    const int p = min(max(start[r] + t, 0), max_len - 1);
-    const bool valid = lens == nullptr || t < lens[r];
-    const int page = valid ? page_tables[static_cast<long long>(r) * P +
-                                         p / page_size]
-                           : 0;
-    if (page < 0 || page >= num_pages) continue;
-    const long long dst =
-        layer_offset +
-        (static_cast<long long>(page) * page_size + p % page_size) * hk + e;
-    k_pool[dst] = k[idx];
-    v_pool[dst] = v[idx];
+// Floats a lane copies at once: a float4, 16 bytes (1 is the probe's
+// 4-byte variant, tools/torch_paged_attention_probe.py).
+constexpr int kAppendVec = 4;
+#ifdef TFOS_PLANTED_APPEND_OFF_BY_ONE
+constexpr int kAppendSlotShift = 1;  // planted: offset (p + 1) % page_size
+#else
+constexpr int kAppendSlotShift = 0;
+#endif
+
+template <int N>
+struct VecOf;
+template <>
+struct VecOf<4> {
+  using type = float4;
+};
+template <>
+struct VecOf<1> {
+  using type = float;
+};
+
+struct AppendArgs {
+  float* k_pool;
+  float* v_pool;
+  const float* k;
+  const float* v;
+  const int* page_tables;
+  const int* start;
+  const int* lens;  // null: every position valid
+  long long layer_offset;  // floats before layer `layer` of a pool
+  int items;  // R * L
+  int L, hk, P, page_size, num_pages, max_len;
+};
+
+// One warp a (row, position) item.
+__global__ void tfos_kv_append(const AppendArgs a) {
+  using Vec = VecOf<kAppendVec>::type;
+  const int item = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (item >= a.items) return;  // the last block's spare warps
+  const int c0 = (threadIdx.x & 31) * kAppendVec;
+  const long long src = static_cast<long long>(item) * a.hk;
+  Vec kv, vv;
+  if (c0 < a.hk) {  // the row's first chunk, in flight while the scalars come
+    kv = __ldg(reinterpret_cast<const Vec*>(a.k + src + c0));
+    vv = __ldg(reinterpret_cast<const Vec*>(a.v + src + c0));
+  }
+  const int r = item / a.L;
+  const int t = item - r * a.L;
+  const int p = min(max(__ldg(a.start + r) + t, 0), a.max_len - 1);
+  const bool valid = a.lens == nullptr || t < __ldg(a.lens + r);
+  const int pg = p / a.page_size;
+  const int page =
+      valid ? __ldg(a.page_tables + static_cast<long long>(r) * a.P + pg) : 0;
+  int slot = p - pg * a.page_size + kAppendSlotShift;
+  if (slot == a.page_size) slot = 0;
+  const long long dst =
+      a.layer_offset + (static_cast<long long>(page) * a.page_size + slot) *
+                           a.hk;
+  if (page < 0 || page >= a.num_pages) return;  // outside the pool
+  for (int c = c0; c < a.hk;) {
+    *reinterpret_cast<Vec*>(a.k_pool + dst + c) = kv;
+    *reinterpret_cast<Vec*>(a.v_pool + dst + c) = vv;
+    c += 32 * kAppendVec;
+    if (c >= a.hk) break;
+    kv = __ldg(reinterpret_cast<const Vec*>(a.k + src + c));  // wider rows
+    vv = __ldg(reinterpret_cast<const Vec*>(a.v + src + c));
   }
 }
 
@@ -496,30 +553,56 @@ bool geometry_ok(int rows, int L, int H, int K, int P, int page_size,
 
 // Write k and v (rows, L, H, K) into layer `layer` of the pools (layers,
 // num_pages, page_size, H, K); lens may be null (every position valid).
-// Returns a cudaError_t: an invalid geometry, or the launch's own error.
+// Launched as the plan (threads a block, blocks) says; the plan must be one
+// this file takes: threads whole warps, blocks ceil(rows L / (threads /
+// 32)); k, v and the pools 16-byte aligned and H K a multiple of 4.
+// Anything else returns cudaErrorInvalidValue, launching nothing.  Returns
+// a cudaError_t.
 extern "C" int tfos_kv_append_f32(void* k_pool, void* v_pool, const void* k,
                                   const void* v, const void* page_tables,
                                   const void* start, const void* lens,
                                   int rows, int L, int H, int K, int P,
                                   int page_size, int num_pages, int max_len,
-                                  int layer, int layers, void* stream) {
+                                  int layer, int layers, int threads,
+                                  int blocks, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (!geometry_ok(rows, L, H, K, P, page_size, num_pages, max_len, layer,
                    layers)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return bad;
   }
-  const int hk = H * K;
-  const long long total = static_cast<long long>(rows) * L * hk;
-  const int threads = 256;
-  const long long want = (total + threads - 1) / threads;
-  const int blocks = static_cast<int>(want < 132 * 32 ? want : 132 * 32);
-  const long long layer_offset =
-      static_cast<long long>(layer) * num_pages * page_size * hk;
+  const long long hk = static_cast<long long>(H) * K;
+  const long long total = static_cast<long long>(rows) * L;
+  const auto misaligned = [](const void* ptr) {
+    return reinterpret_cast<std::uintptr_t>(ptr) % 16 != 0;
+  };
+  if (hk % 4 != 0 || hk > INT_MAX || total > INT_MAX || threads < 32 ||
+      threads > 1024 || threads % 32 != 0 || misaligned(k) ||
+      misaligned(v) || misaligned(k_pool) || misaligned(v_pool)) {
+    return bad;
+  }
+  const long long per_block = threads / 32;  // items a block
+  if (blocks != (total + per_block - 1) / per_block ||
+      blocks * per_block > INT_MAX) {
+    return bad;
+  }
+  AppendArgs a;
+  a.k_pool = static_cast<float*>(k_pool);
+  a.v_pool = static_cast<float*>(v_pool);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.page_tables = static_cast<const int*>(page_tables);
+  a.start = static_cast<const int*>(start);
+  a.lens = static_cast<const int*>(lens);
+  a.layer_offset = static_cast<long long>(layer) * num_pages * page_size * hk;
+  a.items = static_cast<int>(total);
+  a.L = L;
+  a.hk = static_cast<int>(hk);
+  a.P = P;
+  a.page_size = page_size;
+  a.num_pages = num_pages;
+  a.max_len = max_len;
   tfos_kv_append<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(k_pool), static_cast<float*>(v_pool),
-      static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const int*>(page_tables), static_cast<const int*>(start),
-      static_cast<const int*>(lens), rows, L, hk, P, page_size, num_pages,
-      max_len, layer_offset);
+      a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,8 +5,9 @@ functions, each one ``ctypes`` call on the current stream with no host
 synchronisation, so a CUDA graph captures them:
 
 - :func:`kv_append` writes a layer's new K and V into the paged pools in
-  place (``tfos_kv_append``; reference ``k_pool.at[i, pages, offs].set(k)``
-  at ``tinylm.py:167``, ``:247``, ``:318``);
+  place (``tfos_kv_append``, a warp a (row, position) moving 16-byte
+  pieces of its K and V rows; reference ``k_pool.at[i, pages,
+  offs].set(k)`` at ``tinylm.py:167``, ``:247``, ``:318``);
 - :func:`paged_attention` attends every query over its row's positions,
   reading K and V in place through the row's page table
   (``tfos_paged_attention``; reference ``tinylm.py:249-255``, ``:320-322``
@@ -17,11 +18,13 @@ or raises, and counts the launch in :data:`launches` and
 :data:`launches_by_kernel`.  :func:`plan` is the attention's launch plan,
 pure Python: one block a (row, head, query tile), the tiles and the shared
 memory chosen from the shapes alone, so that a CUDA graph replays it with
-new ``start`` values.  On CPU tensors it runs the plain twin beside
-it (:func:`kv_append_plain`, :func:`paged_attention_plain`: an
-``index_select`` gather and an einsum softmax, the reference's math), which
-counts nothing: that is the caller's explicit request for the CPU, not a
-fallback.  Tensors on both devices raise.
+new ``start`` values; :func:`append_plan` is the append's (a warp a
+(row, position), the blocks from the shapes alone).  On CPU tensors each
+runs the plain twin beside it (:func:`kv_append_plain`,
+:func:`paged_attention_plain`: an ``index_select`` gather and an einsum
+softmax, the reference's math), which counts nothing: that is the
+caller's explicit request for the CPU, not a fallback.  Tensors on both
+devices raise.
 
 Positions: row ``r``'s query ``t`` sits at ``p = start[r] + t``, clamped
 into ``[0, max_len - 1]`` (the reference clips at ``max_len - 1``);
@@ -71,6 +74,9 @@ _FILL_BLOCKS = 4 * 132
 _KERNEL_SHAPES = frozenset({
     (1, 2, 1), (2, 2, 1), (4, 2, 1), (8, 2, 1), (8, 2, 2), (1, 1, 1),
     (2, 1, 1), (2, 1, 2), (4, 1, 2), (4, 1, 4)})
+
+#: threads a block of the append: four warps, each one (row, position)
+_APPEND_THREADS = 128
 
 
 class Plan(NamedTuple):
@@ -177,6 +183,42 @@ def block_queries(p: Plan, R: int, L: int, H: int, block: int):
     return rh // H, rh % H, t0, min(p.q_tile, L - t0)
 
 
+class AppendPlan(NamedTuple):
+    """How one :func:`kv_append` call runs: ``blocks`` blocks of
+    ``threads``, each warp moving the K and V rows of one (row, position)
+    item."""
+    threads: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=1024)
+def append_plan(R: int, L: int, H: int, K: int) -> AppendPlan:
+    """The append's launch plan for ``R`` rows of ``L`` positions, ``H``
+    heads of ``K``, by shape alone: a warp an item, four a block, the
+    least grid that holds them.  Raises ``ValueError`` on an empty
+    geometry, ``H * K`` not a multiple of 4 (the kernel copies 16 bytes at
+    a time), or more than 2³¹ − 1 items or floats a row."""
+    if min(R, L, H, K) < 1:
+        raise ValueError(f"kv_append: empty geometry R={R} L={L} H={H} "
+                         f"K={K}")
+    if H * K % 4:
+        raise ValueError(f"kv_append kernel copies 16 bytes at a time: "
+                         f"H * K = {H * K} must be a multiple of 4")
+    warps = _APPEND_THREADS // 32
+    blocks = -(-(R * L) // warps)
+    if max(H * K, blocks * warps) > 2 ** 31 - 1:
+        raise ValueError(f"kv_append: {R * L} items of {H * K} floats")
+    return AppendPlan(_APPEND_THREADS, blocks)
+
+
+def append_warp_item(p: AppendPlan, R: int, L: int, block: int,
+                     warp: int):
+    """The ``(r, t)`` item that warp ``warp`` of block ``block`` of plan
+    ``p`` moves, as the kernel decodes it; None for a spare warp."""
+    item = block * (p.threads // 32) + warp
+    return divmod(item, L) if item < R * L else None
+
+
 def reset_launches() -> None:
     """Zero :data:`launches` and :data:`launches_by_kernel`."""
     global launches
@@ -211,7 +253,7 @@ def _bind(lib):
     ``csrc/paged_attention.cu``, with or without ``-D`` macros); returns
     ``lib``."""
     p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.tfos_kv_append_f32.argtypes = [p, p, p, p, p, p, p] + [i32] * 10 + [p]
+    lib.tfos_kv_append_f32.argtypes = [p] * 7 + [i32] * 12 + [p]
     lib.tfos_paged_attention_f32.argtypes = ([p] * 6 + [i32] * 10
                                              + [f32] + [i32] * 4 + [p])
     lib.tfos_paged_attention_prepare.argtypes = []
@@ -298,7 +340,7 @@ def kv_append(k_pool, v_pool, layer: int, k, v, page_tables, start,
         kv_append_plain(k_pool, v_pool, layer, k, v, page_tables, start,
                         lens, max_len=max_len)
         return
-    layers, num_pages, page_size, r, L, P = _check(
+    _, _, _, r, L, _ = _check(
         "kv_append", (k_pool, v_pool), k, page_tables, start, lens, layer,
         max_len)
     if v.shape != k.shape or v.dtype != k.dtype or not v.is_contiguous():
@@ -306,13 +348,29 @@ def kv_append(k_pool, v_pool, layer: int, k, v, page_tables, start,
                          f"match k {tuple(k.shape)} {k.dtype}")
     if r * L == 0:
         return
-    h, kd = k_pool.shape[3:]
+    _append_launch(k_pool, v_pool, layer, k, v, page_tables, start, lens,
+                   max_len, append_plan(r, L, *k.shape[2:]))
+
+
+def _append_launch(k_pool, v_pool, layer: int, k, v, page_tables, start,
+                   lens, max_len: int, p: AppendPlan) -> None:
+    """One launch of the append under plan ``p`` (checked tensors on one
+    card): :func:`kv_append`'s plan, or another in a test.  Counts the
+    launch; raises on any error."""
+    layers, num_pages, page_size = k_pool.shape[:3]
+    r, L, h, kd = k.shape
+    for label, t in (("k", k), ("v", v), ("k_pool", k_pool),
+                     ("v_pool", v_pool)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"kv_append kernel copies 16 bytes at a time: "
+                             f"{label} must start 16-byte aligned")
     with _build.raw_stream(k.device) as stream:
         err = _lib().tfos_kv_append_f32(
             k_pool.data_ptr(), v_pool.data_ptr(), k.data_ptr(), v.data_ptr(),
             page_tables.data_ptr(), start.data_ptr(),
-            lens.data_ptr() if lens is not None else None, r, L, h, kd, P,
-            page_size, num_pages, max_len, layer, layers, stream)
+            lens.data_ptr() if lens is not None else None, r, L, h, kd,
+            page_tables.shape[1], page_size, num_pages, max_len, layer,
+            layers, p.threads, p.blocks, stream)
     if err != 0:
         raise RuntimeError(f"kv_append kernel launch failed: CUDA error "
                            f"{err}")

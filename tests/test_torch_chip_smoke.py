@@ -1142,10 +1142,12 @@ def test_phase17_idle_batches_take_free_pages_only():
 
 def test_phase17_traces_count_the_paged_kernels_by_name():
     names = ["void (anonymous namespace)::tfos_kv_append(float*, float*)",
+             "void (anonymous namespace)::tfos_kv_append((anonymous "
+             "namespace)::AppendArgs)",
              "void (anonymous namespace)::tfos_paged_attention(float const*)",
              "void (anonymous namespace)::tfos_paged_attention(float const*)",
              "void at::native::index_elementwise_kernel<128, 4>(int)"]
-    assert chip_smoke.traced_launches(names) == {"kv_append": 1,
+    assert chip_smoke.traced_launches(names) == {"kv_append": 2,
                                                  "paged_attention": 2}
     assert set(chip_smoke.PAGED_KERNELS.values()) == {"kv_append",
                                                       "paged_attention"}
@@ -1160,11 +1162,14 @@ def test_phase17_gates_budget_and_the_kernels_line():
                  '"(b) wrapper launches', "planted {k} not caught",
                  '"(c) {kind} step launches', "engine_contract(",
                  '"(d) the HTTP stream differs', "PHASE17_BUDGET_S",
-                 'raise SystemExit("decode phase 17 failed: "'):
+                 'raise SystemExit("decode phase 17 failed: "',
+                 '"append at p + 1": append_caught', "PLANTED_APPEND"):
         assert gate in src, gate
     src = inspect.getsource(chip_smoke.paged_kernel_phase)
     assert "kv_append differs from its twin" in src
+    assert "no kv_append launch in the" in src
     assert "ATTN_TOL" in src
+    assert chip_smoke.PLANTED_APPEND == ("TFOS_PLANTED_APPEND_OFF_BY_ONE",)
     assert chip_smoke.PHASE17_BUDGET_S == 60
     main = inspect.getsource(chip_smoke.main)
     assert main.index("decode_phase()") > main.index("sc.stop()")
@@ -1179,6 +1184,8 @@ def test_phase17_gates_budget_and_the_kernels_line():
                     for label in ("decode", "chunk16", "synthetic")},
         "launches": {"kv_append": 12, "paged_attention": 12},
         "replay_traced": {"kv_append": 4, "paged_attention": 4}}
+    for res in result["kernels"].values():
+        res["kv_append"]["cupti_ms"] = 0.002
     entries = chip_smoke.phase17_entries(result)
     keys = {"name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1191,6 +1198,8 @@ def test_phase17_gates_budget_and_the_kernels_line():
             os.path.dirname(chip_smoke.__file__), e["source"]))
         assert "ms_synthetic" in e and "ms_chunk16" in e
         assert e["device_ms"] == 0.25
+        append = e["name"] == "tfos_kv_append"
+        assert ("cupti_ms" in e) == ("cupti_ms_synthetic" in e) == append
     assert [e["launches"] for e in entries] == [12, 12]
 
 

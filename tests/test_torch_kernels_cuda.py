@@ -933,6 +933,111 @@ def test_paged_attention_ignores_nan_past_every_bound_on_card(label, L):
     assert torch.equal(o[valid], again[valid])
 
 
+def _append_card_case(kind):
+    """``(case, max_len)`` of one append case: ``synthetic`` (256 rows x
+    128 positions over 2,049 pages), ``odd`` (37 rows x 39 positions,
+    1,443 items: three spare warps in the last block), ``decode_k128``
+    and ``chunk16_k128`` (4 heads of 128: H K = 512, four float4s a lane),
+    ``outside`` (chunk 16 with page ids past the pool and below 0)."""
+    if kind == "synthetic":
+        rows = [(0, chip_smoke.SYNTH_POSITIONS,
+                 [("own", j) for j in range(8)])
+                for _ in range(chip_smoke.SYNTH_ROWS)]
+        return chip_smoke.paged_case(rows, chip_smoke.SYNTH_POSITIONS,
+                                     1 + 8 * len(rows), 23), 128
+    if kind == "odd":
+        rows = [(8 * (r % 11), 39 - r % 5, [] if r % 9 == 4 else
+                 [("own", j) for j in range(8)]) for r in range(37)]
+        return chip_smoke.paged_case(rows, 39, 1 + 8 * len(rows), 29), 128
+    if kind == "outside":
+        case, max_len = _paged_card_case("chunk16", 16, 31)
+        case["tables"][0, 0] = case["k_pool"].shape[1] + 7
+        case["tables"][1, 1] = -3
+        return case, max_len
+    base = kind.split("_")[0]
+    return _paged_card_case(kind, 1 if base == "decode" else 16, 37)
+
+
+#: the append's card cases
+APPEND_CASES = ("synthetic", "odd", "decode_k128", "chunk16_k128",
+                "outside")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", APPEND_CASES)
+def test_kv_append_plans_match_the_twin_on_card(kind):
+    """256 x 128, a grid leaving spare warps in its last block, rows of
+    512 floats, lens given and null, page ids outside the pool (dropped):
+    the kernel bit for bit its twin outside page 0 in both layers, another
+    layer untouched; one launch a call."""
+    _needs_card()
+    from tensorflowonspark_torch.kernels import paged_attention as pa
+
+    case, max_len = _append_card_case(kind)
+    idx = (case["tables"], case["start"], case["lens"])
+    before = pa.launches_by_kernel["kv_append"]
+    for layer in (0, 1):
+        kt, vt = case["k_pool"].clone(), case["v_pool"].clone()
+        pa.kv_append_plain(kt, vt, layer, case["k"], case["v"], *idx,
+                           max_len=max_len)
+        kc, vc = case["k_pool"].clone(), case["v_pool"].clone()
+        pa.kv_append(kc, vc, layer, case["k"], case["v"], *idx,
+                     max_len=max_len)
+        torch.cuda.synchronize()
+        assert torch.equal(kc[:, 1:], kt[:, 1:]), layer
+        assert torch.equal(vc[:, 1:], vt[:, 1:]), layer
+        assert torch.equal(kc[1 - layer], case["k_pool"][1 - layer])
+    assert pa.launches_by_kernel["kv_append"] == before + 2
+
+
+@pytest.mark.cuda
+def test_kv_append_refuses_a_misaligned_view_and_a_foreign_plan_on_card():
+    """A ``k`` view 4 bytes off 16-byte alignment raises ``ValueError``
+    naming it and launches nothing; a plan whose grid is not the shapes',
+    or whose block is not whole warps, is refused by the C entry (the
+    wrapper raises) and counts nothing."""
+    _needs_card()
+    from tensorflowonspark_torch.kernels import paged_attention as pa
+
+    case, max_len = _paged_card_case("chunk16", 16, 41)
+    idx = (case["tables"], case["start"], case["lens"])
+    k = case["k"]
+    flat = torch.empty(k.numel() + 4, device="cuda")
+    view = flat[1:1 + k.numel()].view(k.shape)
+    view.copy_(k)
+    before = pa.launches_by_kernel["kv_append"]
+    with pytest.raises(ValueError, match="k must start 16-byte aligned"):
+        pa.kv_append(case["k_pool"], case["v_pool"], 0, view, case["v"],
+                     *idx, max_len=max_len)
+    R, L, H, K = k.shape
+    p = pa.append_plan(R, L, H, K)
+    for foreign in (p._replace(blocks=p.blocks + 1),
+                    p._replace(threads=48)):
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            pa._append_launch(case["k_pool"], case["v_pool"], 0, k,
+                              case["v"], *idx, max_len, foreign)
+    assert pa.launches_by_kernel["kv_append"] == before
+
+
+@pytest.mark.cuda
+def test_planted_append_fault_fails_the_gate_on_card():
+    """A build whose append writes offset (p + 1) % page_size differs from
+    the twin outside page 0 at the decode and chunk cases."""
+    _needs_card()
+    from tensorflowonspark_torch.kernels import _build
+    from tensorflowonspark_torch.kernels import paged_attention as pa
+
+    saved = pa._LIB
+    try:
+        pa._LIB = pa._bind(_build.load("paged_attention",
+                                       chip_smoke.PLANTED_APPEND))
+        for label, L in (("decode", 1), ("chunk32", 32)):
+            case, max_len = _paged_card_case(label, L, 43)
+            assert not chip_smoke.append_against_twin(case, max_len)[0]
+    finally:
+        pa._LIB = saved
+
+
 @pytest.mark.cuda
 def test_paged_kernels_reject_what_they_do_not_take():
     if not torch.cuda.is_available():

@@ -781,6 +781,67 @@ def test_attention_plan_covers_every_query_once(L, K, max_len):
         assert p.splits == 1 or p.out_rows == 1  # split groups hold 1 query
 
 
+@pytest.mark.parametrize("L", [1, 5, 16, 39, 128])
+@pytest.mark.parametrize("R", [1, 3, 8, 37, 256])
+def test_append_plan_covers_every_item_once(R, L):
+    """The append's warps, decoded as the kernel decodes them, move every
+    (row, position) exactly once, odd ``R * L`` (spare warps in the last
+    block) included; the grid is the least that holds them."""
+    p = pa.append_plan(R, L, 4, 32)
+    warps = p.threads // 32
+    seen = collections.Counter(
+        pa.append_warp_item(p, R, L, b, w)
+        for b in range(p.blocks) for w in range(warps))
+    spare = seen.pop(None, 0)
+    assert set(seen.values()) == {1}
+    assert set(seen) == {(r, t) for r in range(R) for t in range(L)}
+    assert spare == p.blocks * warps - R * L < warps  # no idle block
+
+
+def test_append_grid_depends_on_the_shapes_alone():
+    """``append_plan`` takes the shapes and nothing else (so a CUDA graph
+    replays its grid with new ``start`` values), the same plan every call,
+    and the blocks follow ``R * L``."""
+    import inspect
+
+    assert list(inspect.signature(pa.append_plan).parameters) == [
+        "R", "L", "H", "K"]
+    for R, L in ((8, 1), (8, 32), (256, 128), (1024, 128)):
+        p = pa.append_plan(R, L, 4, 32)
+        assert p == pa.append_plan(R, L, 4, 32)
+        assert p.blocks == -(-(R * L) // (p.threads // 32))
+    # the head split does not move the grid, only the row width
+    assert pa.append_plan(8, 16, 4, 32) == pa.append_plan(8, 16, 1, 128)
+
+
+def test_append_plan_for_tinylm_moves_an_item_a_warp():
+    """``tinylm.Config()``'s shapes (4 heads of 32: a float4 of K and of V a
+    lane): the decode step, the chunk rungs and 256 x 128 take a warp an
+    item in blocks of 128 threads."""
+    cfg = port_tinylm.Config()
+    H, K = cfg.n_heads, cfg.dim // cfg.n_heads
+    assert H * K == 128
+    for R, L, blocks in ((8, 1, 2), (8, 16, 32), (8, 32, 64),
+                         (256, 128, 8192), (1024, 128, 32768)):
+        assert pa.append_plan(R, L, H, K) == pa.AppendPlan(128, blocks)
+
+
+@pytest.mark.parametrize("args,match", [
+    ((8, 1, 3, 5), "multiple of 4"),
+    ((8, 1, 1, 18), "multiple of 4"),
+    ((8, 1, 1, 2), "multiple of 4"),
+    ((0, 1, 4, 32), "empty"),
+    ((8, 0, 4, 32), "empty"),
+    ((8, 1, 0, 32), "empty"),
+    ((8, 1, 4, 0), "empty"),
+    ((2 ** 16, 2 ** 15, 4, 32), "items"),
+    ((1, 1, 2 ** 16, 2 ** 15), "items"),
+])
+def test_append_plan_refuses_what_the_kernel_cannot_take(args, match):
+    with pytest.raises(ValueError, match=match):
+        pa.append_plan(*args)
+
+
 def test_attention_plan_for_tinylm_needs_no_opt_in():
     """``tinylm.Config()``'s shapes (4 heads of 32, pages of 16, 128
     positions) plan under the 48 KB default: the decode step, every chunk

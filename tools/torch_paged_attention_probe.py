@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""The paged attention kernel's launch plans against each other, on one card.
+"""The paged kernels' launch plans and source variants, on one card.
 
 Run from the repository root on a machine with an NVIDIA H100 and nvcc:
-``python3 tools/torch_paged_attention_probe.py [--calls N]``.  It prints
-the card's name and power limit, builds ``csrc/paged_attention.cu`` once
-more with ``-Xptxas -v`` and prints each instantiation's registers, stack
-and spills, then takes ``chip_smoke.py``'s 17(a) cases (the decode step,
-chunk 16 and 32, the long decode case, 256 rows x 128 causal positions)
-and, for each, launches the kernel under ``paged_attention.plan``'s plan
-and under the other tiles ``paged_attention.tiled`` takes there.  Every
+``python3 tools/torch_paged_attention_probe.py [--calls N] [--only
+attention|append]``.  It prints the card's name and power limit, builds
+``csrc/paged_attention.cu`` once more with ``-Xptxas -v`` and prints each
+instantiation's registers, stack and spills.
+
+The attention (``--only attention``) takes ``chip_smoke.py``'s 17(a)
+cases (the decode step, chunk 16 and 32, the long decode case, 256 rows
+x 128 causal positions) and, for each, launches the kernel under
+``paged_attention.plan``'s plan and under the other tiles
+``paged_attention.tiled`` takes there.  Every
 plan's output must lie within ``chip_smoke.ATTN_TOL`` of the plain twin
 and give the same bits twice, or the probe stops.  For each plan it
 prints the ms a call (CUDA events over ``N`` back-to-back launches, the
@@ -19,8 +22,22 @@ launch bound, a phase left out) and times each beside the shipped build
 under the default plan, in turns, at the decode, chunk 32 and 256 x 128
 cases: where a phase's time goes, without a profiler that reads inside a
 kernel.  A variant that leaves a phase out computes garbage, so only the
-launch-bound variants are checked against the twin.  The shipped sources
-are not changed.
+launch-bound variants are checked against the twin.
+
+The K/V append (``--only append``) takes the same five cases and a wider
+one (:data:`WIDE_ROWS` rows of 128 positions), holds ``kv_append`` bit for
+bit to the plain twin outside page 0, and prints ms a call (CUDA events,
+which at the small cases read the wrapper's host time) and µs a launch
+(CUPTI) beside the bound.  Then :data:`APPEND_VARIANTS`, timed the same
+way in turns with the shipped build: ``no_copies`` (the scalars read and
+the page found, nothing copied: the launch floor), ``copies4`` (4-byte
+copies, a lane a float), ``load_cs`` and ``store_cs`` (evict-first loads
+or stores); and the device time (CUPTI, every kernel of a call summed) of
+two PyTorch yardsticks: ``chip_smoke.py``'s library call, ``index_put_``
+of k and v at their (page, offset) made beforehand, and ``copy_`` of the
+same k and v bytes into two buffers.  With the floor and the shipped
+kernel's time, a launch's time splits into launch, scalars and bytes.
+The shipped sources are not changed.
 """
 
 from __future__ import annotations
@@ -52,14 +69,36 @@ VARIANTS = {
                    "    if (applies && a.L < 0) {  // acc")], False),
 }
 
+#: edits of the append in ``csrc/paged_attention.cu`` (``(old, new)``
+#: text replacements); ``no_copies`` stores only where the offset is
+#: negative, which it never is, so the loads and scalars stay
+APPEND_VARIANTS = {
+    "no_copies": [("  if (page < 0 || page >= a.num_pages) return;",
+                   "  if (page < 0 || page >= a.num_pages || dst >= 0) "
+                   "return;")],
+    "copies4": [("constexpr int kAppendVec = 4;",
+                 "constexpr int kAppendVec = 1;")],
+    "load_cs": [  # k and v loaded evict-first (ld.global.cs)
+        ("__ldg(reinterpret_cast<const Vec*>",
+         "__ldcs(reinterpret_cast<const Vec*>")],
+    "store_cs": [  # the pools stored evict-first (st.global.cs)
+        ("    *reinterpret_cast<Vec*>(a.k_pool + dst + c) = kv;\n"
+         "    *reinterpret_cast<Vec*>(a.v_pool + dst + c) = vv;",
+         "    __stcs(reinterpret_cast<Vec*>(a.k_pool + dst + c), kv);\n"
+         "    __stcs(reinterpret_cast<Vec*>(a.v_pool + dst + c), vv);")],
+}
+
+#: rows of 128 positions in the append's widest case: 131,072 items
+WIDE_ROWS = 1024
+
 #: (query tile, position tile) tried beside the default plan
 TILES = ((1, 32), (1, 64), (2, 64), (4, 64), (8, 64), (16, 64), (32, 64),
          (8, 32), (16, 32))
 
 
-def ptxas_report() -> list[str]:
-    """``-Xptxas -v``'s lines for the attention kernel's instantiations:
-    ``<QA, JB, QPT>: registers, stack, spills``."""
+def ptxas_report(kernel: str = "tfos_paged_attention") -> list[str]:
+    """``-Xptxas -v``'s lines for ``kernel``'s instantiations: ``<template
+    arguments>: registers, stack, spills``."""
     from tensorflowonspark_torch.kernels import _build
 
     src = os.path.join(_build.CSRC_DIR, "paged_attention.cu")
@@ -74,27 +113,30 @@ def ptxas_report() -> list[str]:
         if m:
             name = m.group(1)
             continue
-        if name and "tfos_paged_attention" in name and "Used" in line:
-            shape = re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)E", name)
-            label = (f"<{', '.join(shape.groups())}>" if shape else name)
+        if name and kernel in name and "Used" in line:
+            shape = re.findall(r"Li(\d+)E", name)
+            label = f"{kernel}<{', '.join(shape)}>" if shape else name
             lines.append(f"{label}: {line.split(':', 1)[-1].strip()}")
-        elif name and "tfos_paged_attention" in name and (
+        elif name and kernel in name and (
                 "spill" in line or "stack" in line):
             lines.append(f"    {line.split(':', 1)[-1].strip()}")
     return lines
 
 
-def variant_libs(tmp: str) -> dict:
-    """``{name: bound library}`` of :data:`VARIANTS`, built in ``tmp``
-    with ``kernels/_build.py``'s flags, all ``nvcc`` processes at once."""
+def variant_libs(tmp: str, variants: dict | None = None) -> dict:
+    """``{name: bound library}`` of ``variants`` (``{name: edits}``;
+    :data:`VARIANTS` by default), built in ``tmp`` with
+    ``kernels/_build.py``'s flags, all ``nvcc`` processes at once."""
     import ctypes
 
     from tensorflowonspark_torch.kernels import _build
     from tensorflowonspark_torch.kernels import paged_attention as pa
 
     shipped = open(os.path.join(_build.CSRC_DIR, "paged_attention.cu")).read()
+    if variants is None:
+        variants = {name: edits for name, (edits, _) in VARIANTS.items()}
     procs = {}
-    for name, (edits, _) in VARIANTS.items():
+    for name, edits in variants.items():
         src = shipped
         for old, new in edits:
             if old not in src:
@@ -137,43 +179,57 @@ def cases() -> list:
     return out
 
 
-def cupti_us(fn, calls: int) -> float:
-    """Mean µs a launch of the attention kernel over ``calls`` calls of
-    ``fn`` under torch.profiler (after spin kernels: a session drops its
-    first device records)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+def wide_case():
+    """``(label, case, max_len)`` of the append's widest case:
+    :data:`WIDE_ROWS` rows of 128 positions (268 MB moved)."""
     import chip_smoke as cs
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(cs.TRACE_WARMUP_LAUNCHES):
-            torch.cuda._sleep(100)
-        torch.cuda.synchronize()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    ms = [t for name, t in cs.device_kernels(prof, 1)
-          if "tfos_paged_attention" in name]
-    if not ms:
-        raise SystemExit("probe: the trace holds no attention launch")
-    return sum(ms) / len(ms) * 1e3
+    rows = [(0, cs.SYNTH_POSITIONS, [("own", j) for j in range(8)])
+            for _ in range(WIDE_ROWS)]
+    return ("wide", cs.paged_case(rows, cs.SYNTH_POSITIONS,
+                                  1 + 8 * WIDE_ROWS, 181), 128)
+
+
+def cupti_us(fn, calls: int, kernel: str = "tfos_paged_attention") -> float:
+    """Mean µs a launch of ``kernel`` over ``calls`` calls of ``fn``
+    (``chip_smoke.cupti_us``); stops the probe when the trace holds
+    none."""
+    import chip_smoke as cs
+
+    us = cs.cupti_us(fn, calls, kernel)
+    if us is None:
+        raise SystemExit(f"probe: the trace holds no {kernel} launch")
+    return us
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--calls", type=int, default=50)
+    ap.add_argument("--only", choices=("attention", "append"),
+                    help="probe one kernel (both by default)")
     args = ap.parse_args(argv)
 
     import torch
 
     import chip_smoke as cs
-    from tensorflowonspark_torch.kernels import paged_attention as pa
 
     if not torch.cuda.is_available():
         raise SystemExit("probe: no CUDA card")
     print(cs.card_line(), flush=True)
+    if args.only != "append":
+        attention_probe(args.calls)
+    if args.only != "attention":
+        append_probe(args.calls)
+    return 0
+
+
+def attention_probe(calls_n: int) -> None:
+    """The attention's plans and :data:`VARIANTS` (the module docstring)."""
+    import torch
+
+    import chip_smoke as cs
+    from tensorflowonspark_torch.kernels import paged_attention as pa
+
     for line in ptxas_report():
         print("ptxas", line, flush=True)
     layer = 1
@@ -208,7 +264,7 @@ def main(argv=None) -> int:
         ms = dict.fromkeys(order, 0.0)
         for turn in (order, order[::-1]):
             for key in turn:
-                ms[key] += cs.time_ms(calls[key], args.calls) / 2
+                ms[key] += cs.time_ms(calls[key], calls_n) / 2
         bound = cs.paged_bounds(case, max_len)["paged_attention"]
         print(f"{label} ({R} rows x {L} queries, {H} heads of {K}, "
               f"max_len {max_len}): bound {bound['bound_ms']:.5f} ms by "
@@ -225,8 +281,7 @@ def main(argv=None) -> int:
         del case, twin, calls
         torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        compare_variants(variant_libs(tmp), args.calls)
-    return 0
+        compare_variants(variant_libs(tmp), calls_n)
 
 
 def compare_variants(libs: dict, calls: int) -> None:
@@ -277,6 +332,92 @@ def compare_variants(libs: dict, calls: int) -> None:
               + "; ".join(
                   f"{name} {v:.4f} ms" for name, v in ms.items()),
               flush=True)
+
+
+def device_us(fn, calls: int) -> float:
+    """Mean device µs a call of ``fn`` under torch.profiler: every kernel
+    and copy of the trace but the spin kernels, summed, over ``calls``
+    calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+
+    for _ in range(3):
+        fn()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(cs.TRACE_WARMUP_LAUNCHES):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ms for name, ms in cs.device_kernels(prof, calls)
+               if "sleep" not in name.lower()
+               and "spin" not in name.lower()) * 1e3
+
+
+def append_probe(calls_n: int) -> None:
+    """The append against its twin, :data:`APPEND_VARIANTS` and the
+    PyTorch yardsticks (the module docstring)."""
+    import torch
+
+    import chip_smoke as cs
+    from tensorflowonspark_torch.kernels import paged_attention as pa
+
+    for line in ptxas_report("tfos_kv_append"):
+        print("ptxas", line, flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = variant_libs(tmp, APPEND_VARIANTS)
+        shipped = pa._lib()
+        layer = 1
+        for label, case, max_len in cases() + [wide_case()]:
+            k, v = case["k"], case["v"]
+            R, L, H, K = k.shape
+            idx = (case["tables"], case["start"], case["lens"])
+            kt, vt = case["k_pool"].clone(), case["v_pool"].clone()
+            pa.kv_append_plain(kt, vt, layer, k, v, *idx, max_len=max_len)
+            kc, vc = case["k_pool"].clone(), case["v_pool"].clone()
+
+            def call():
+                pa.kv_append(kc, vc, layer, k, v, *idx, max_len=max_len)
+
+            call()
+            torch.cuda.synchronize()
+            if not (torch.equal(kc[:, 1:], kt[:, 1:])
+                    and torch.equal(vc[:, 1:], vt[:, 1:])):
+                raise SystemExit(f"probe: append {label} differs from the "
+                                 f"twin outside page 0")
+            bound = cs.paged_bounds(case, max_len)["kv_append"]
+            print(f"append {label} ({R} rows x {L} positions, {H} heads of "
+                  f"{K}, {pa.append_plan(R, L, H, K).blocks} blocks): bound "
+                  f"{bound['bound_ms']:.6f} ms by {bound['bound_by']}",
+                  flush=True)
+            named = {"shipped": shipped, **libs}
+            ms = dict.fromkeys(named, 0.0)
+            us = dict.fromkeys(named, 0.0)
+            try:
+                for turn in (list(named), list(named)[::-1]):
+                    for name in turn:
+                        pa._LIB = named[name]
+                        ms[name] += cs.time_ms(call, calls_n) / 2
+                        us[name] += cupti_us(call, 20, "tfos_kv_append") / 2
+            finally:
+                pa._LIB = shipped
+            print(f"append variants at {label}: " + "; ".join(
+                f"{name} {us[name]:.3f} us a launch (CUPTI), {ms[name]:.4f} "
+                f"ms a call (events)" for name in named), flush=True)
+            where = cs._append_indices(case, max_len)
+            kb, vb = torch.empty_like(k), torch.empty_like(v)
+            put = device_us(lambda: (kt[layer].index_put_(where, k),
+                                     vt[layer].index_put_(where, v)), 20)
+            copy = device_us(lambda: (kb.copy_(k), vb.copy_(v)), 20)
+            print(f"append {label}: PyTorch yardsticks, us a call (CUPTI, "
+                  f"every kernel summed): index_put_ x2 {put:.3f}; copy_ of "
+                  f"the same bytes x2 {copy:.3f}", flush=True)
+            del case, kc, vc, kt, vt
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
