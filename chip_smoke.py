@@ -233,7 +233,10 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    slots, pages of 16, 128 positions, prompts up to 64).  (a) The paged
    kernels (``tfos_kv_append``, ``tfos_paged_attention``) against their
    plain twins run on the card, at the engine's decode step (8 rows, one
-   position), at each chunk rung (16 and 32 positions), at 16 decode rows
+   position), at each chunk rung (16 and 32 positions), at the verify
+   steps of speculation (8 rows of k + 1 = 2, 3 and 5 positions), at the
+   draft model's geometry (``Config.draft_for``: 1 layer, 2 heads of 16;
+   8 rows of 1 and of 32 positions), at 16 decode rows
    over up to 1,024 positions (64 pages of 16 a row) and at 256 rows of
    128 positions over 2,049 pages; rows inactive, crossing a page, sharing
    another's pages and ending at max_len - 1: the append bit for bit
@@ -258,8 +261,26 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    chunk steps captured against eager (host µs a step, busy ms, idle
    share) with their launches counted by the wrappers and by a traced
    replay.  (d) ``DecodeHTTPServer`` streams one generation over ``POST
-   /v1/generate``, equal to the engine's.  Phase 17 prints its seconds
-   beside its budget; ``python3 chip_smoke.py --phase 17`` runs the build
+   /v1/generate``, equal to the engine's.  (e) Speculation
+   (``spec_tokens=4``, the ladder 1, 2, 4) on (b)'s 32 requests: the
+   n-gram drafter, a model drafter with the target's own config and
+   weights ("perfect") and one with ``Config.draft_for`` and seeded
+   weights at ten times the init's scale (``COLD_DRAFT_SCALE``: "cold"):
+   each engine's streams equal (b)'s greedy ones, a
+   difference allowed only where its first position is a near-tie within
+   ``DECODE_TIE_GAP`` (counted), and every token is the full forward's
+   greedy choice by (b)'s rule; ``warmup()`` captured one graph a
+   signature (the verify rungs and the drafter's ``draft_`` set) and
+   serving captured and ran eagerly nothing; replays; the perfect
+   drafter's acceptance 1.0, the cold one's controller shifted; the
+   wrappers' launches the warmup's (both models' layers); two fresh
+   engines serve a seeded sampled workload (temperature 0.8, top-p 0.9)
+   to equal streams and ``top_k=1`` gives the greedy streams; the planted
+   off-by-one causal bound on the verify path and a token choice that
+   accepts every draft must change the streams; tokens/s, acceptance and
+   final k, and the captured verify step at k = 4 on an idle engine (host
+   µs, busy ms by family).  Phase 17 prints its seconds beside its budget,
+   and (e) its own; ``python3 chip_smoke.py --phase 17`` runs the build
    and this phase alone.
 
 The last lines are the card line, one JSON line listing each kernel (the
@@ -274,7 +295,8 @@ path, ``launches_phase15`` phase 15's and ``launches_phase16`` phase 16's
 (a)-(d), ``replay_launches_phase16`` the kernels its traced replays ran;
 then the two paged kernels, times of the decode step's case and the others
 suffixed, ``launches_phase17`` the main path's (the warmup's eager calls
-and captures) and ``replay_launches_phase17`` a traced decode and chunk
+and captures), ``launches_phase17e`` those of 17(e)'s three speculating
+engines and ``replay_launches_phase17`` a traced decode and chunk
 replay's).
 Every count is a wrapper's where it launches, a CUDA graph's capture
 included; a replay calls no wrapper, so the gates of phases 6-15 plan
@@ -5357,6 +5379,17 @@ PAGED_KERNELS = {k: v for k, v in TRACED_KERNELS.items()
 PLANTED_OFF_BY_ONE = ("TFOS_PLANTED_CAUSAL_OFF_BY_ONE",)
 #: a build whose append writes offset (p + 1) % page_size of p's page
 PLANTED_APPEND = ("TFOS_PLANTED_APPEND_OFF_BY_ONE",)
+#: 17(e): the speculating engines' draft length (the ladder 1, 2, 4), its
+#: budget (printed, not enforced), the sampled workload's policy
+SPEC_TOKENS = 4
+SPEC_BUDGET_S = 30
+SPEC_SAMPLING = {"temperature": 0.8, "top_p": 0.9}
+#: the cold drafter's weights: ``init_params``' draw times this (N(0, 0.2)
+#: for the kernels and embeddings).  At the init's own scale both models
+#: mostly repeat the last token (each one's logits are led by its own
+#: embedding's self-similarity), and such a drafter agreed with the target
+#: 71% of the time on the card: not cold
+COLD_DRAFT_SCALE = 10.0
 
 
 def paged_case_rows(label: str, L: int) -> list:
@@ -5378,6 +5411,10 @@ def paged_case_rows(label: str, L: int) -> list:
                 for r, s in enumerate(starts[:LONG_ROWS])]
     own = [("own", i) for i in range(8)]
     shared = [("of", 3, 0), ("of", 3, 1)] + own[2:]
+    if label.startswith("verify"):  # L = k + 1 and step lengths 0..L
+        return [(36, L, own), (16, 1, own), (0, 0, []), (128 - L, L, own),
+                (40, L, shared), (63, L, own), (100, max(1, L - 1), own),
+                (15, L, own)]
     if label == "decode":  # L = 1: every position valid (lens None)
         return [(36, None, own), (16, None, own), (0, None, []),
                 (127, None, own), (40, None, shared), (63, None, own),
@@ -5610,18 +5647,30 @@ def _append_indices(case: dict, max_len: int):
     return pages, pos % ps
 
 
-def paged_kernel_phase(rungs) -> tuple[dict, list]:
-    """17(a): the cases at the engine's geometry (decode, each chunk rung),
-    the long decode case and the larger synthetic one; returns ``({case:
-    result}, failures)``."""
+def paged_kernel_phase(rungs, ladder=(), draft=None) -> tuple[dict, list]:
+    """17(a): the cases at the engine's geometry (decode, each chunk rung,
+    each verify rung of ``ladder``), the draft model's (``draft``, a
+    ``tinylm.Config``: its decode step and top chunk rung over its own
+    one-layer pools), the long decode case and the larger synthetic one;
+    returns ``({case: result}, failures)``."""
     import torch
 
     results, failures = {}, []
-    cases = [("decode", 1)] + [(f"chunk{L}", L) for L in rungs]
+    cases = ([("decode", 1)] + [(f"chunk{L}", L) for L in rungs]
+             + [(f"verify{k + 1}", k + 1) for k in ladder])
     for i, (label, L) in enumerate(cases):
         rows = paged_case_rows(label, L)
         results[label] = paged_kernel_case(
             label, paged_case(rows, L, 1 + 8 * len(rows), 170 + i))
+    if draft is not None:
+        for i, (label, L) in enumerate((("decode", 1),
+                                        (f"chunk{rungs[-1]}", rungs[-1]))):
+            rows = paged_case_rows(label, L)
+            results[f"draft_{label}"] = paged_kernel_case(
+                f"draft_{label}", paged_case(
+                    rows, L, 1 + 8 * len(rows), 190 + i,
+                    heads=draft.n_heads, head_dim=draft.head_dim,
+                    layers=draft.n_layers), layer=draft.n_layers - 1)
     rows = paged_case_rows("long", 1)
     results["long"] = paged_kernel_case(
         "long", paged_case(rows, 1, 1 + LONG_PAGES * len(rows), 178,
@@ -5671,17 +5720,21 @@ def decode_workload(seed: int = DECODE_SEED, vocab: int = 256,
     return out
 
 
-def serve_all(engine, requests, concurrent: bool) -> tuple[list, float]:
+def serve_all(engine, requests, concurrent: bool,
+              sampling=None) -> tuple[list, float]:
     """Every request's token stream from ``engine`` (started), submitted
     all at once from as many threads or one after another, and the wall
-    seconds."""
+    seconds; ``sampling``: request i's ``SamplingParams`` or None."""
     import threading
 
     out = [None] * len(requests)
 
     def run(i):
         prompt, n = requests[i]
-        out[i] = engine.submit(prompt, max_new_tokens=n).result(timeout=300)
+        out[i] = engine.submit(
+            prompt, max_new_tokens=n,
+            sampling=None if sampling is None else sampling[i]).result(
+                timeout=300)
 
     t0 = time.perf_counter()
     if concurrent:
@@ -5890,6 +5943,258 @@ def http_generation(engine, prompt, max_new: int) -> list:
     return streamed
 
 
+def first_differences(params, config, requests, want, got) -> list:
+    """Where a stream ``got[i]`` differs from ``want[i]``: ``(request,
+    first position, gap)``, the gap between the full forward's logits
+    (``tinylm.apply_tokens`` on the prompt and the common prefix) of the
+    two tokens there; a stream of another length has gap inf."""
+    import torch
+
+    from tensorflowonspark_torch.models import tinylm
+
+    out = []
+    device = next(iter(params.values())).device
+    with torch.no_grad():
+        for i, ((prompt, _), a, b) in enumerate(zip(requests, want, got)):
+            if a == b:
+                continue
+            j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+            if j is None:
+                out.append((i, min(len(a), len(b)), float("inf")))
+                continue
+            seq = torch.tensor([list(prompt) + list(a[:j])], device=device)
+            row = tinylm.apply_tokens(params, seq, config)[0, -1]
+            out.append((i, j, abs(float(row[a[j]] - row[b[j]]))))
+    return out
+
+
+def spec_engine_run(label: str, config, params, requests, greedy,
+                    rungs, **spec) -> tuple[dict, list, object]:
+    """One 17(e) engine, counted from construction: built with ``spec``
+    (``spec_tokens``, ``spec_drafter``, the draft's config and weights),
+    warmed up, serving ``requests`` at once; its streams held to the
+    greedy ones (``greedy``: (b)'s) and to the full forward, its captures,
+    replays and the wrappers' launches to the plan of the warmup's
+    signatures (one eager call and one capture each, every layer of the
+    model that runs them).  Returns ``(numbers, failures, engine)`` with
+    the engine still serving."""
+    from tensorflowonspark_torch import decode
+    from tensorflowonspark_torch.kernels import paged_attention as pa
+
+    failures = []
+    pa.reset_launches()
+    engine = decode.DecodeEngine(config, params, spec_tokens=SPEC_TOKENS,
+                                 **spec, **DECODE_ENGINE)
+    contract = (engine.kv_pool_bytes,
+                (engine._kp.data_ptr(), engine._vp.data_ptr()))
+    engine.warmup()
+    sigs = len(engine.enumerate_signatures())
+    warm = (engine.captures, engine.eager_calls)
+    engine.start()
+    p0 = int(engine._spec_proposed_total.value)
+    a0 = int(engine._spec_accepted_total.value)
+    streams, wall = serve_all(engine, requests, concurrent=True)
+    launches = dict(pa.launches_by_kernel)
+    after = (engine.captures, engine.eager_calls)
+    proposed = int(engine._spec_proposed_total.value) - p0
+    accepted = int(engine._spec_accepted_total.value) - a0
+    sp = engine.stats()["engine"]["spec"]
+    diffs = first_differences(engine._params, config, requests, greedy,
+                              streams)
+    off, ties = greedy_gaps(engine._params, config, requests, streams)
+    tied = [d for d in diffs if d[2] <= DECODE_TIE_GAP]
+    drafter = engine._drafter
+    planned = (len(rungs) + len(engine.spec_ladder)) * config.n_layers * 2
+    if isinstance(drafter, decode._ModelDrafter):
+        planned += (len(rungs) + 1) * drafter.config.n_layers * 2
+    tokens = sum(len(t) for t in streams)
+    out = {"streams": streams, "tokens_per_s": tokens / wall, "wall": wall,
+           "proposed": proposed, "accepted": accepted,
+           "acceptance": accepted / proposed if proposed else None,
+           "k": sp["k"], "shifts": sp["shifts"], "launches": launches,
+           "planned": planned, "signatures": sigs, "warm": warm,
+           "after": after, "replays": engine.replays, "diffs": diffs,
+           "draft_steps": getattr(drafter, "steps", 0),
+           "contract": contract}
+    acc = ("none" if out["acceptance"] is None
+           else f"{out['acceptance']:.4f}")
+    print(f"decode (e) {label}: {len(requests)} requests at once "
+          f"{out['tokens_per_s']:.1f} tokens/s ({wall:.3f} s); streams "
+          f"== (b)'s greedy: {streams == greedy} (first differences "
+          f"(request, position, |logit gap|): {diffs}; near-ties within "
+          f"{DECODE_TIE_GAP}: {len(tied)}); tokens not the full forward's "
+          f"argmax {off} (near-ties {ties}); acceptance {acc} ({accepted} "
+          f"of {proposed} drafts), final k {sp['k']} after {sp['shifts']} "
+          f"shifts, {out['draft_steps']} draft steps; warmup captured "
+          f"{warm[0]} of {sigs} signatures ({warm[1]} eager calls), after "
+          f"serving {after[0]} and {after[1]}, {engine.replays} replays; "
+          f"wrapper launches {launches} (planned {planned} each)",
+          flush=True)
+    if len(tied) != len(diffs):
+        failures.append(f"(e) {label}: streams differ from the greedy "
+                        f"engine's beyond a near-tie: {diffs}")
+    if off != ties:
+        failures.append(f"(e) {label}: {off - ties} tokens are not the "
+                        f"full forward's greedy choice")
+    if not (warm == (sigs, sigs) and after == warm and engine.replays > 0):
+        failures.append(f"(e) {label}: captures {warm} -> {after}, "
+                        f"signatures {sigs}, replays {engine.replays}")
+    if launches != dict.fromkeys(PAGED_KERNELS.values(), planned):
+        failures.append(f"(e) {label}: wrapper launches {launches}, "
+                        f"planned {planned}")
+    return out, failures, engine
+
+
+def speculation_phase(config, params, requests, greedy, greedy_tps,
+                      rungs) -> dict:
+    """17(e) (see the module docstring): ``greedy`` and ``greedy_tps``
+    are (b)'s streams and tokens/s.  Returns its numbers and failures."""
+    import numpy as np
+
+    from tensorflowonspark_torch import decode
+    from tensorflowonspark_torch.kernels import _build
+    from tensorflowonspark_torch.kernels import paged_attention as pa
+    from tensorflowonspark_torch.models import tinylm
+
+    t0 = time.perf_counter()
+    failures, runs = [], {}
+    draft_cfg = tinylm.Config.draft_for(config)
+    engines = {
+        "ngram": {"spec_drafter": "ngram"},
+        "perfect model drafter": {"spec_drafter": "model",
+                                  "draft_config": config,
+                                  "draft_params": params},
+        "cold model drafter": {
+            "spec_drafter": "model", "draft_config": draft_cfg,
+            "draft_params": {
+                name: w if name.startswith("ln") else w * COLD_DRAFT_SCALE
+                for name, w in tinylm.init_params(
+                    draft_cfg, seed=DECODE_SEED + 1).items()}}}
+    for label, spec in engines.items():
+        out, fails, engine = spec_engine_run(label, config, params,
+                                             requests, greedy, rungs,
+                                             **spec)
+        failures += fails
+        runs[label] = out
+        if label == "ngram":
+            ngram = engine
+            continue
+        engine.stop()
+        failures += [f"(e) {label}: {f}"
+                     for f in engine_contract(engine, *out["contract"])]
+    perfect, cold = runs["perfect model drafter"], runs["cold model drafter"]
+    if not (perfect["proposed"] > 0 and perfect["acceptance"] == 1.0):
+        failures.append(f"(e) the perfect drafter's acceptance "
+                        f"{perfect['acceptance']} ({perfect['accepted']} of "
+                        f"{perfect['proposed']})")
+    if cold["shifts"] < 1:
+        failures.append("(e) the cold drafter never moved the controller")
+
+    # on the n-gram engine: top_k=1 (a point mass) is its greedy stream;
+    # the verify step at k = 4 on the idle engine; a token choice that
+    # accepts every draft must change the streams
+    n_plant = DECODE_PLANTED_REQUESTS
+    top1, _ = serve_all(ngram, requests, concurrent=True, sampling=[
+        decode.SamplingParams(temperature=0.8, top_k=1, seed=i)
+        for i in range(len(requests))])
+    ngram._registry.clear()
+    batches, pages = idle_step_batches(ngram, DECODE_SEED)
+    rng = np.random.RandomState(DECODE_SEED)
+    S, k = ngram.max_seqs, SPEC_TOKENS
+    verify_batch = {
+        "tokens": rng.randint(0, config.vocab_size,
+                              size=(S, k + 1)).astype(np.int32),
+        "seq_lens": rng.randint(16, ngram.max_len - k - 1,
+                                size=(S,)).astype(np.int32),
+        "step_lens": np.full((S,), k + 1, np.int32),
+        "page_tables": batches["decode"]["page_tables"]}
+    step = decode_step_numbers(ngram, "verify", verify_batch, ("captured",))
+    ngram.pool.free(pages)
+    per_kernel = dict.fromkeys(PAGED_KERNELS.values(), config.n_layers)
+    if not (step["wrapper_launches"] == step["traced_launches"]
+            == per_kernel):
+        failures.append(f"(e) verify step launches: wrappers "
+                        f"{step['wrapper_launches']}, traced replay "
+                        f"{step['traced_launches']}")
+    p0 = int(ngram._spec_proposed_total.value)
+    ngram._choose_token = (lambda req, row, pos, draft=None: int(
+        np.argmax(row)) if draft is None else int(draft))
+    accept_all = serve_all(ngram, requests[:n_plant], concurrent=False)[0]
+    planted_proposed = int(ngram._spec_proposed_total.value) - p0
+    ngram.stop()
+    failures += [f"(e) ngram: {f}"
+                 for f in engine_contract(ngram, *runs["ngram"]["contract"])]
+
+    # seeded sampling: two fresh engines, one sampled workload
+    sampled = []
+    policy = [decode.SamplingParams(seed=i, **SPEC_SAMPLING)
+              for i in range(len(requests))]
+    for _ in range(2):
+        engine = decode.DecodeEngine(config, params, spec_tokens=SPEC_TOKENS,
+                                     spec_drafter="ngram", **DECODE_ENGINE)
+        engine.warmup()
+        engine.start()
+        sampled.append(serve_all(engine, requests, concurrent=True,
+                                 sampling=policy)[0])
+        engine.stop()
+
+    # the planted off-by-one causal bound, on the verify path
+    saved = pa._LIB
+    try:
+        pa._LIB = pa._bind(_build.load("paged_attention",
+                                       PLANTED_OFF_BY_ONE))
+        faulty = decode.DecodeEngine(config, params, spec_tokens=SPEC_TOKENS,
+                                     spec_drafter="ngram", **DECODE_ENGINE)
+        faulty.warmup()
+        faulty.start()
+        off_by_one = serve_all(faulty, requests[:n_plant],
+                               concurrent=False)[0]
+        faulty.stop()
+    finally:
+        pa._LIB = saved
+    want = greedy[:n_plant]
+    ngram_streams = runs["ngram"]["streams"]
+    checks = {
+        "seeded sampling the same on two engines":
+            sampled[0] == sampled[1],
+        "sampling not greedy": sampled[0] != ngram_streams,
+        "top_k=1 the greedy streams": top1 == ngram_streams}
+    caught = {"causal j < p on the verify path": off_by_one != want,
+              "every draft accepted": (accept_all != want
+                                       and planted_proposed > 0)}
+    seconds = time.perf_counter() - t0
+    print(f"decode (e) sampling (temperature 0.8, top-p 0.9, seed = "
+          f"request): {checks}; planted faults caught: {caught}",
+          flush=True)
+    busy = step["captured"]["busy_ms"]
+    busy = "not measured" if busy is None else format(busy, ".4f")
+    print(f"decode (e) verify step, k = {k} ({S} x {k + 1} positions), "
+          f"{S} live slots on an idle engine: launches a step by the "
+          f"wrappers {step['wrapper_launches']}, by a traced replay "
+          f"{step['traced_launches']}; captured "
+          f"{step['captured']['host_us']:.1f} us a step (copy in, step, "
+          f"copy out), busy {busy} ms (" + ", ".join(
+              f"{n} {v:.4f}" for n, v in sorted(
+                  step["captured"]["families_ms"].items(),
+                  key=lambda kv: -kv[1])) + ")", flush=True)
+    print(f"decode (e) tokens/s, 32 requests at once: (b) greedy "
+          f"{greedy_tps:.1f}; " + "; ".join(
+              f"{label} {r['tokens_per_s']:.1f} (acceptance "
+              f"{r['acceptance']}, final k {r['k']})"
+              for label, r in runs.items())
+          + f"; (e) {seconds:.1f} s (budget {SPEC_BUDGET_S} s)", flush=True)
+    failures += [f"(e) not: {name}" for name, ok in checks.items()
+                 if not ok]
+    failures += [f"(e) planted {name} not caught"
+                 for name, ok in caught.items() if not ok]
+    return {"runs": runs, "verify_step": step, "seconds": seconds,
+            "failures": failures,
+            "launches": {name: sum(r["launches"][name]
+                                   for r in runs.values())
+                         for name in PAGED_KERNELS.values()}}
+
+
 def decode_phase() -> dict:
     """Phase 17 (see the module docstring)."""
     import numpy as np
@@ -5917,7 +6222,9 @@ def decode_phase() -> dict:
         DECODE_ENGINE["max_prompt_len"], DECODE_ENGINE["page_size"],
         max_chunk=decode.DEFAULT_PREFILL_CHUNK_PAGES
         * DECODE_ENGINE["page_size"])
-    kern, kern_failures = paged_kernel_phase(rungs)
+    kern, kern_failures = paged_kernel_phase(
+        rungs, shapes.spec_ladder(SPEC_TOKENS),
+        tinylm.Config.draft_for(config))
     failures += kern_failures
     seconds["a"] = time.perf_counter() - t0
 
@@ -6089,10 +6396,17 @@ def decode_phase() -> dict:
     engine.stop()
     failures += engine_contract(engine, *contract)
     seconds["d"] = time.perf_counter() - t0
+
+    # (e) speculation and seeded sampling on (b)'s requests
+    spec = speculation_phase(config, params, requests, conc,
+                             tokens_out / conc_s, rungs)
+    failures += spec["failures"]
+    seconds["e"] = spec["seconds"]
     total = time.perf_counter() - t17
     print(f"decode phase 17 seconds: (a) {seconds['a']:.1f}, (b) "
           f"{seconds['b']:.1f}, (c) {seconds['c']:.1f}, (d) "
-          f"{seconds['d']:.1f}; phase 17 {total:.1f} (budget "
+          f"{seconds['d']:.1f}, (e) {seconds['e']:.1f} (budget "
+          f"{SPEC_BUDGET_S} s); phase 17 {total:.1f} (budget "
           f"{PHASE17_BUDGET_S} s)", flush=True)
     if failures:
         raise SystemExit("decode phase 17 failed: " + "; ".join(failures))
@@ -6107,6 +6421,7 @@ def decode_phase() -> dict:
                               + steps["chunk"]["traced_launches"].get(k, 0)
                               for k in PAGED_KERNELS.values()},
             "steps": steps, "replays": replays, "seconds": total,
+            "spec_launches": spec["launches"],
             "tokens_per_s": tokens_out / conc_s,
             "sequential_tokens_per_s": tokens_out / seq_s}
 
@@ -6126,6 +6441,8 @@ def phase17_entries(decode_result: dict) -> list:
                  "replaces": replaces[name],
                  "launches": decode_result["launches"][name],
                  "launches_phase17": decode_result["launches"][name],
+                 "launches_phase17e":
+                     decode_result.get("spec_launches", {}).get(name),
                  "replay_launches_phase17":
                      decode_result["replay_traced"][name],
                  **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",

@@ -1,10 +1,10 @@
 """Token-level continuous batching for generative decode, over a paged
 KV-cache pool, on the card.
 
-Reference anchor: ``tensorflowonspark_tpu/decode.py``, less speculation.
-The engine schedules at TOKEN granularity (the Orca/vLLM discipline): it
-runs one batched decode step at a time over its active slots and admits
-and retires requests *between steps*.
+Reference anchor: ``tensorflowonspark_tpu/decode.py``.  The engine
+schedules at TOKEN granularity (the Orca/vLLM discipline): it runs one
+batched decode step at a time over its active slots and admits and
+retires requests *between steps*.
 
 **Paged KV cache.**  Every sequence's K/V live in fixed-size PAGES
 allocated from one pre-sized device pool (``(layers, num_pages,
@@ -36,11 +36,34 @@ A prefix that diverges mid-page maps the boundary page too; the first
 divergent write copies it into a private page first
 (``tinylm.copy_page_fn``).
 
+**Speculative multi-token decoding** (reference ``decode.py:47-69``).
+With ``spec_tokens >= 1`` (or ``TFOS_SPEC_TOKENS``) the single-token step
+is replaced by propose/verify: a DRAFTER (``spec_drafter`` or
+``TFOS_SPEC_DRAFTER``: ``ngram``, host-side prompt lookup, the default;
+``model``, a smaller ``tinylm`` shadow-caching into its own pools through
+the SAME page tables; ``none``, no drafts) proposes up to ``k`` tokens a
+sequence, then ONE verify step (``tinylm.verify_fn``) scores the ``k+1``
+positions of every slot and the longest agreeing draft prefix is kept plus
+one token of the target's own.  Greedy streams are token for token the
+single-token engine's.  A rejected draft rolls back by the write cursor
+(``seq_lens``) alone: its K/V stays where the causal mask keeps it unread.
+An adaptive controller (:class:`_SpecController`) moves ``k`` down and up
+a pre-captured ``shapes.spec_ladder``.
+
+**Seeded sampling** (reference ``decode.py:70-83``).  A request may carry
+:class:`SamplingParams`; the host samples from the verify step's logits
+(and the prompt's last-position logits for the first token) with
+``np.random.default_rng([seed, position])``, so a stream is a pure function
+of prompt, parameters and seed.  A draft token is accepted with
+probability ``p(draft)``, else the token is resampled from ``p`` without
+it: the law of the stream is the target's whatever the drafter.
+
 **One capture per shape.**  Every step's shapes are fixed by the (slot,
 page) geometry, so sequence growth moves an integer, never a shape.  The
 model's K/V writes and attention run through the hand-written kernels of
 ``kernels/paged_attention.py``.  On the card each signature (a chunk rung
-or prefill bucket, the decode step, the COW copy) runs once eagerly and is
+or prefill bucket, the decode step or a verify rung, the COW copy, and the
+model drafter's own under ``draft_`` keys) runs once eagerly and is
 captured into one CUDA graph (``parallel.train.CudaGraphs``);
 :meth:`DecodeEngine.warmup` does this for every signature up front, after
 which serving copies each step's host arrays into the graph's static
@@ -52,15 +75,12 @@ through ``serving.note_compile`` as the reference counts them.  On the CPU
 backend is given.
 
 **Phases are separate flight stages** (``prefill_chunk`` or ``prefill``,
-and ``decode``, on the ``"decode"`` plane), tokens stream to callers as
-they are produced (:class:`DecodeStream`; chunked HTTP via
-:class:`DecodeHTTPServer`), and TTFT/ITL are SLO histograms
+and ``decode``, or ``speculate`` and ``verify`` with speculation on, on
+the ``"decode"`` plane), tokens stream to callers as they are produced
+(:class:`DecodeStream`; chunked HTTP via :class:`DecodeHTTPServer`), and
+TTFT/ITL are SLO histograms
 (``decode_ttft_seconds`` / ``decode_itl_seconds``) plus the tumbling
 windows of the ``/healthz`` ``slo`` block.
-
-Speculative decoding (``spec_tokens >= 1`` or ``TFOS_SPEC_TOKENS >= 1``)
-and with it non-greedy sampling are not ported yet (ROADMAP Queue 1
-item 8): both raise.
 """
 
 from __future__ import annotations
@@ -110,6 +130,15 @@ DEFAULT_PREFILL_CHUNK_PAGES = 2
 #: each entry pins its prefix pages until evicted, so the bound is a
 #: KV-memory bound too
 DEFAULT_PREFIX_REGISTRY_MAX = 32
+#: adaptive speculation controller: windowed acceptance below LOW halves
+#: ``k`` (one ladder rung down), above HIGH restores one rung; the gap
+#: keeps a borderline drafter from thrashing the rung
+SPEC_ACCEPT_LOW = 0.35
+SPEC_ACCEPT_HIGH = 0.70
+#: acceptance window (seconds) and the proposals it must hold before the
+#: controller acts: a cold start is not a cold drafter
+SPEC_WINDOW_S = 30.0
+SPEC_WINDOW_MIN_PROPOSED = 16
 
 _DONE = object()
 _ENGINE_SEQ = itertools.count(1)
@@ -153,8 +182,8 @@ class SamplingParams:
     across engine restarts, independent of slot placement, batch
     composition, and scheduling.  Sampling rides the speculative verify
     path (it needs logits, which the argmax-only decode step never
-    materializes host-side), which the port does not have yet: a
-    non-greedy request raises at :meth:`DecodeEngine.submit`.
+    brings to the host), so it requires ``spec_tokens >= 1``;
+    ``spec_drafter="none"`` gives sampling without speculation.
     """
 
     __slots__ = ("temperature", "top_k", "top_p", "seed")
@@ -429,6 +458,266 @@ class _PrefixRegistry:
             self._pool.free(pages)
 
 
+class _SpecController:
+    """Windowed-acceptance adaptive controller over the speculation ladder
+    (``shapes.spec_ladder``; reference ``decode.py:512``): halves ``k``
+    when the drafter goes cold, restores it one rung at a time when it
+    recovers.
+
+    Every rung is captured at warmup, so moving between rungs never meets
+    a new signature.  The window clears on every shift (fresh evidence at
+    the new rung) and the controller refuses to act on fewer than
+    ``SPEC_WINDOW_MIN_PROPOSED`` windowed proposals.  Callers hold the
+    engine lock.
+    """
+
+    __slots__ = ("ladder", "rung", "window_s", "shifts", "_samples")
+
+    def __init__(self, ladder: Sequence[int],
+                 window_s: float = SPEC_WINDOW_S):
+        self.ladder = tuple(int(k) for k in ladder)
+        if not self.ladder:
+            raise ValueError("empty speculation ladder")
+        self.rung = len(self.ladder) - 1  # start at the configured k
+        self.window_s = float(window_s)
+        self.shifts = 0
+        self._samples: list[tuple[float, int, int]] = []
+
+    @property
+    def k(self) -> int:
+        return self.ladder[self.rung]
+
+    def _trim(self, now: float) -> None:
+        cut = now - self.window_s
+        i = 0
+        for i, (ts, _, _) in enumerate(self._samples):
+            if ts >= cut:
+                break
+        else:
+            i = len(self._samples)
+        if i:
+            del self._samples[:i]
+
+    def acceptance(self, now: float | None = None) -> float | None:
+        """Windowed acceptance rate (accepted / proposed), ``None`` until
+        anything was proposed in the window."""
+        self._trim(time.time() if now is None else now)
+        proposed = sum(p for _, p, _ in self._samples)
+        if not proposed:
+            return None
+        return round(sum(a for _, _, a in self._samples) / proposed, 4)
+
+    def note(self, proposed: int, accepted: int,
+             now: float | None = None) -> None:
+        now = time.time() if now is None else now
+        self._samples.append((now, int(proposed), int(accepted)))
+        self._trim(now)
+        total = sum(p for _, p, _ in self._samples)
+        if total < SPEC_WINDOW_MIN_PROPOSED:
+            return
+        rate = sum(a for _, _, a in self._samples) / total
+        if rate < SPEC_ACCEPT_LOW and self.rung > 0:
+            self.rung -= 1
+            self.shifts += 1
+            self._samples.clear()
+        elif rate > SPEC_ACCEPT_HIGH and self.rung < len(self.ladder) - 1:
+            self.rung += 1
+            self.shifts += 1
+            self._samples.clear()
+
+
+class _NullDrafter:
+    """The ``none`` drafter (reference ``decode.py:581``): proposes
+    nothing, every step verifies one position: the sampling-capable
+    single-token engine."""
+
+    kind = "none"
+
+    def warmup(self, engine: "DecodeEngine") -> None:
+        pass
+
+    def on_prefill_chunk(self, engine, tokens, starts, lens,
+                         tables) -> None:
+        pass
+
+    def on_cow(self, engine, src: int, dst: int) -> None:
+        pass
+
+    def propose_all(self, engine: "DecodeEngine",
+                    rows: "list[_DecodeRequest]",
+                    k: int) -> dict[int, list[int]]:
+        return {}
+
+
+class _NgramDrafter(_NullDrafter):
+    """Prompt-lookup drafter (reference ``decode.py:604``): no second
+    model, no device work.  For each sequence, the most recent earlier
+    occurrence of its trailing n-gram (longest first, down to one token)
+    in its own history (prompt and generated tokens) proposes the ``k``
+    tokens that followed it; novel text proposes nothing."""
+
+    kind = "ngram"
+    #: longest trailing n-gram tried first
+    max_ngram = 3
+
+    def propose_all(self, engine: "DecodeEngine",
+                    rows: "list[_DecodeRequest]",
+                    k: int) -> dict[int, list[int]]:
+        return {req.slot: self._propose_one(req.history, k)
+                for req in rows}
+
+    @classmethod
+    def _propose_one(cls, hist: list[int], k: int) -> list[int]:
+        L = len(hist)
+        for n in range(min(cls.max_ngram, L - 1), 0, -1):
+            pat = hist[-n:]
+            # most recent occurrence ENDING strictly before the last
+            # position (the trailing n-gram itself)
+            for i in range(L - 2, n - 2, -1):
+                if hist[i - n + 1: i + 1] == pat:
+                    return hist[i + 1: i + 1 + k]
+        return []
+
+
+class _ModelDrafter(_NullDrafter):
+    """Draft-model drafter (reference ``decode.py:640-798``): a smaller
+    ``tinylm`` sharing the target's vocab proposes ``k`` tokens through
+    ``k`` fixed-shape draft decode steps.
+
+    The draft model shadow-caches into its OWN pools (sized by its own
+    head geometry) through the target engine's page tables, so the target
+    pool's refcounts cover both caches.  Its chunk step, decode step and
+    page copy are the engine's programs (``DecodeEngine._run``) under
+    ``draft_``-prefixed keys, so on the card each is one captured CUDA
+    graph and its signatures stay apart from the target's in
+    ``serving.note_compile``.
+
+    One departure from the reference: there, a step that accepts all ``k``
+    drafts leaves the draft cache one position short (its ``k`` steps
+    write the last token and the first ``k - 1`` drafts, not the
+    ``k``-th), and later proposals attend over that stale position.  Here
+    each row first writes the positions its draft cache lacks, in as many
+    more steps (one at most), which the rows not behind spend proposing a
+    token they drop.  The draft cache then holds every position the
+    target's holds, so a drafter with the target's weights proposes the
+    target's tokens."""
+
+    kind = "model"
+
+    def __init__(self, engine: "DecodeEngine", config=None, params=None,
+                 seed: int = 0):
+        from tensorflowonspark_torch.models import tinylm
+
+        self.config = config or tinylm.Config.draft_for(engine.config)
+        if self.config.vocab_size != engine.config.vocab_size:
+            raise ValueError(
+                f"draft vocab {self.config.vocab_size} != target vocab "
+                f"{engine.config.vocab_size} — proposals must be target "
+                "tokens")
+        if self.config.max_len < engine.max_len:
+            raise ValueError(
+                f"draft max_len {self.config.max_len} < engine max_len "
+                f"{engine.max_len} — the shadow cache mirrors the "
+                "target's positions")
+        if params is None:
+            params = tinylm.init_params(self.config, seed=seed)
+        self._params = {k: torch.as_tensor(v).detach().to(engine.device)
+                        for k, v in params.items()}
+        shape = tinylm.kv_pool_shape(self.config, engine.num_pages,
+                                     engine.page_size)
+        self._kp = torch.zeros(shape, dtype=torch.float32,
+                               device=engine.device)
+        self._vp = torch.zeros(shape, dtype=torch.float32,
+                               device=engine.device)
+        #: slot -> (request, the last position its draft cache holds)
+        self._frontier: dict[int, tuple] = {}
+        #: draft decode steps run, catch-up steps included
+        self.steps = 0
+
+    def warmup(self, engine: "DecodeEngine") -> None:
+        S, P = engine.max_seqs, engine.pages_per_seq
+        for rung in engine.prefill_chunks:
+            engine._run("draft_chunk", {
+                "draft_tokens": np.zeros((S, rung), np.int32),
+                "draft_start_lens": np.zeros((S,), np.int32),
+                "draft_chunk_lens": np.zeros((S,), np.int32),
+                "draft_page_tables": np.zeros((S, P), np.int32)})
+        engine._run("draft_decode", {
+            "draft_tokens": np.zeros((S,), np.int32),
+            "draft_seq_lens": np.zeros((S,), np.int32),
+            "draft_page_tables": np.zeros((S, P), np.int32)})
+        if engine.share_prefixes:
+            z = np.asarray(0, np.int32)
+            engine._run("draft_cow", {"draft_src": z, "draft_dst": z})
+
+    def on_prefill_chunk(self, engine, tokens, starts, lens,
+                         tables) -> None:
+        """Mirror the target's prefill chunk into the shadow cache."""
+        engine._run("draft_chunk", {
+            "draft_tokens": tokens, "draft_start_lens": starts,
+            "draft_chunk_lens": lens, "draft_page_tables": tables})
+
+    def on_cow(self, engine, src: int, dst: int) -> None:
+        """Mirror a COW page copy: the shadow cache shares the target's
+        page tables."""
+        engine._run("draft_cow", {"draft_src": np.asarray(src, np.int32),
+                                  "draft_dst": np.asarray(dst, np.int32)})
+
+    def propose_all(self, engine: "DecodeEngine",
+                    rows: "list[_DecodeRequest]",
+                    k: int) -> dict[int, list[int]]:
+        """Sequential fixed-shape draft decode steps over ALL slots at
+        once, each proposing one more token a sequence: ``k``, and one
+        more when a row's draft cache lacks the position its last step
+        accepted in full.  Idle and prefilling slots ride along writing to
+        the trash page (zero table rows), as in the target's decode
+        step."""
+        toks = engine._tokens.copy()
+        seqs = engine._seq_lens.copy()
+        feed: dict[int, list[int]] = {}
+        for req in rows:
+            s = req.slot
+            n = int(seqs[s])
+            last = self._frontier.get(s)
+            start = (min(n, last[1] + 1) if last is not None
+                     and last[0] is req else n)
+            # position p holds history[p]; n is the last emitted token's
+            feed[s] = req.history[start:n + 1]
+            seqs[s] = start
+        steps = k + max(len(f) for f in feed.values()) - 1
+        out: dict[int, list[int]] = {s: [] for s in feed}
+        for j in range(steps):
+            for s, f in feed.items():
+                toks[s] = f[j] if j < len(f) else out[s][-1]
+            nts, _ = engine._run("draft_decode", {
+                "draft_tokens": toks, "draft_seq_lens": seqs,
+                "draft_page_tables": engine._ptables})
+            self.steps += 1
+            for s, f in feed.items():
+                if j >= len(f) - 1:
+                    out[s].append(int(nts[s]))
+            seqs = seqs + 1
+        for req in rows:
+            self._frontier[req.slot] = (req, int(seqs[req.slot]) - 1)
+        return {s: v[:k] for s, v in out.items()}
+
+
+def make_drafter(engine: "DecodeEngine", kind: str, *, draft_config=None,
+                 draft_params=None, seed: int = 0) -> _NullDrafter:
+    """Drafter factory behind the one interface the engine speaks
+    (reference ``decode.py:800``): ``warmup`` / ``on_prefill_chunk`` /
+    ``on_cow`` / ``propose_all``."""
+    if kind == "ngram":
+        return _NgramDrafter()
+    if kind == "model":
+        return _ModelDrafter(engine, config=draft_config,
+                             params=draft_params, seed=seed)
+    if kind == "none":
+        return _NullDrafter()
+    raise ValueError(f"unknown drafter kind {kind!r} "
+                     "(expected 'ngram', 'model', or 'none')")
+
+
 class _DecodeRequest:
     """One caller's generation: prompt in, streamed tokens out."""
 
@@ -437,7 +726,7 @@ class _DecodeRequest:
                  "t_submit_wall", "t_admit", "t_last", "ttft_s",
                  "max_itl_s", "error", "rt", "slot", "pages", "done",
                  "tenant", "prefill_pos", "start_pos", "shared_pages",
-                 "cow_index", "table", "sampling")
+                 "cow_index", "table", "sampling", "history")
 
     def __init__(self, prompt: np.ndarray, max_new_tokens: int,
                  rt: "_trace.RequestTrace | None",
@@ -471,6 +760,9 @@ class _DecodeRequest:
         self.cow_index: int | None = None  # table index pending COW
         self.table: np.ndarray | None = None  # this slot's page table
         self.sampling = sampling  # None = greedy
+        # full token history (prompt + emitted): the prompt-lookup
+        # drafter's corpus and the model drafter's catch-up tokens
+        self.history: list[int] = [int(t) for t in prompt]
 
 
 class DecodeStream:
@@ -657,17 +949,14 @@ class DecodeEngine:
                  share_prefixes: bool | None = None,
                  prefix_registry_max: int | None = None,
                  spec_tokens: int | None = None,
+                 spec_drafter: str | None = None,
+                 draft_config=None, draft_params=None,
                  seed: int = 0, device=None, graphs=None):
+        import os
+
         from tensorflowonspark_torch import obs, shapes, util
         from tensorflowonspark_torch.models import tinylm
 
-        if spec_tokens is None:
-            spec_tokens = _env_int("TFOS_SPEC_TOKENS", 0)
-        if int(spec_tokens) >= 1:
-            raise NotImplementedError(
-                "speculative decoding (spec_tokens >= 1, TFOS_SPEC_TOKENS) "
-                "is not yet ported to tensorflowonspark_torch (ROADMAP "
-                "Queue 1 item 8)")
         self.device = util.select_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -728,12 +1017,34 @@ class DecodeEngine:
                                            DEFAULT_PREFIX_REGISTRY_MAX)
         self.prefix_registry_max = int(prefix_registry_max)
 
+        # speculative decoding geometry: the configured draft length
+        # (TFOS_SPEC_TOKENS; 0 = the single-token step) and the drafter
+        # (TFOS_SPEC_DRAFTER: ngram | model | none).  Speculation rides
+        # the chunk scheduler's phase discipline (prefill-phase slots
+        # carry zero table rows, so the verify step's writes for them
+        # land in trash), so it requires chunked prefill
+        if spec_tokens is None:
+            spec_tokens = _env_int("TFOS_SPEC_TOKENS", 0)
+        self.spec_tokens = max(0, int(spec_tokens))
+        if self.spec_tokens and not self.chunked_prefill:
+            raise ValueError(
+                "speculative decoding requires chunked prefill "
+                "(spec_tokens >= 1 with prefill_chunk == 0)")
+        self.spec_ladder = (shapes.spec_ladder(self.spec_tokens)
+                            if self.spec_tokens else ())
+        if spec_drafter is None:
+            spec_drafter = os.environ.get(
+                "TFOS_SPEC_DRAFTER", "ngram").strip().lower() or "ngram"
+        self.spec_drafter = (str(spec_drafter)
+                             if self.spec_tokens else "off")
+
         # the note_compile identity: one per engine INSTANCE — each engine
         # captures its own graphs
         self.cache_key = ("decode", model_name, self.max_seqs,
                           self.page_size, self.pages_per_seq,
                           self.prefill_buckets, self.prefill_chunks,
-                          self.share_prefixes, next(_ENGINE_SEQ))
+                          self.share_prefixes, self.spec_ladder,
+                          self.spec_drafter, next(_ENGINE_SEQ))
 
         pool_shape = tinylm.kv_pool_shape(self.config, self.num_pages,
                                           self.page_size)
@@ -762,6 +1073,15 @@ class DecodeEngine:
         self.captures = 0
         self.replays = 0
         self.eager_calls = 0
+
+        # the drafter and the adaptive-k controller (speculation only);
+        # the model drafter allocates its shadow pools here, once
+        self._drafter = (make_drafter(self, self.spec_drafter,
+                                      draft_config=draft_config,
+                                      draft_params=draft_params, seed=seed)
+                         if self.spec_tokens else None)
+        self._spec_ctl = (_SpecController(self.spec_ladder)
+                          if self.spec_tokens else None)
 
         # host-side slot state, mutated between steps (fixed shapes: the
         # arrays are reused, never reallocated)
@@ -852,28 +1172,55 @@ class DecodeEngine:
         self._shared_pages_g = obs.gauge(
             "decode_kv_pages_shared",
             "physical pages currently mapped by more than one holder")
+        self._spec_proposed_total = obs.counter(
+            "decode_spec_proposed_total",
+            "draft tokens proposed to the speculative verify step")
+        self._spec_accepted_total = obs.counter(
+            "decode_spec_accepted_total",
+            "draft tokens accepted by the verify step (the longest "
+            "agreeing prefix; acceptance/proposed is the drafter's "
+            "hit rate)")
+        self._spec_steps_total = obs.counter(
+            "decode_spec_steps_total",
+            "speculative verify steps run (each emits >= 1 token per "
+            "live sequence)")
+        self._spec_emitted_total = obs.counter(
+            "decode_spec_emitted_total",
+            "tokens emitted by speculative verify steps (accepted "
+            "drafts plus the bonus token each sequence mints per step)")
+        self._spec_k_g = obs.gauge(
+            "decode_spec_k",
+            "current adaptive draft length k (0 = speculation off)")
+        self._spec_k_g.set(self._spec_ctl.k if self._spec_ctl else 0)
 
     # -- shape policy --------------------------------------------------------
 
     def enumerate_signatures(self) -> list[tuple]:
         """The complete signature set this engine's runtime requests:
         one per chunk-ladder rung (or prefill bucket in legacy mode),
-        exactly ONE for the decode step, and one for the COW page copy
-        when prefix sharing is on.  What :meth:`warmup` runs and
-        captures, and what steady-state serving must not grow."""
+        exactly ONE for the decode step (or, with speculation on, one
+        verify step per ``spec_ladder`` rung instead, plus the model
+        drafter's own chunk, decode and COW set), and one for the COW
+        page copy when prefix sharing is on.  What :meth:`warmup` runs
+        and captures, and what steady-state serving must not grow."""
         return enumerate_signatures(
             max_seqs=self.max_seqs, pages_per_seq=self.pages_per_seq,
             prefill_buckets=(None if self.chunked_prefill
                              else self.prefill_buckets),
             prefill_chunks=(self.prefill_chunks
                             if self.chunked_prefill else None),
-            share_prefixes=self.share_prefixes)
+            share_prefixes=self.share_prefixes,
+            spec_ladder=self.spec_ladder or None,
+            spec_drafter=self.spec_drafter)
 
     def warmup(self) -> None:
         """Run and capture every ladder shape now: each chunk rung (or
         prefill bucket in legacy mode; zero tokens through the trash page
         — no allocation), the COW page copy when sharing is on (the trash
-        page onto itself), and the decode step.  Each signature counts
+        page onto itself), and the decode step; a speculating engine
+        captures one verify step a ladder rung instead of the decode step
+        (it never issues it), then the drafter's own set.  Each signature
+        counts
         through ``serving.note_compile`` and its first call's wall (the
         eager call and the capture) through
         ``serving.observe_compile_seconds``."""
@@ -895,16 +1242,27 @@ class DecodeEngine:
                     "tokens": np.zeros((b,), np.int32),
                     "prompt_len": np.asarray(1, np.int32)},
                     {"page_table": np.zeros((P,), np.int32)})
-        self._run("decode", {"tokens": self._tokens,
-                             "seq_lens": self._seq_lens,
-                             "page_tables": self._ptables})
+        if self.spec_tokens:
+            for k in self.spec_ladder:
+                self._run("verify", {
+                    "tokens": np.zeros((S, k + 1), np.int32),
+                    "seq_lens": np.zeros((S,), np.int32),
+                    "step_lens": np.zeros((S,), np.int32),
+                    "page_tables": np.zeros((S, P), np.int32)})
+            self._drafter.warmup(self)
+        else:
+            self._run("decode", {"tokens": self._tokens,
+                                 "seq_lens": self._seq_lens,
+                                 "page_tables": self._ptables})
         self._warmed = True
 
     def _run(self, kind: str, batch: dict[str, np.ndarray],
              extra: dict[str, np.ndarray] | None = None):
         """One step of ``kind`` (``chunk``, ``prefill``, ``decode``,
-        ``cow``) on ``batch`` (signed) plus ``extra`` (inputs that do not
-        sign, as the reference's jit takes the legacy page table):
+        ``verify``, ``cow``, or the model drafter's ``draft_chunk``,
+        ``draft_decode``, ``draft_cow``) on ``batch`` (signed) plus
+        ``extra`` (inputs that do not sign, as the reference's jit takes
+        the legacy page table):
         ``(host output or None, fresh)``.  A signature's first sighting
         runs the step eagerly (its output is this call's) and, with graphs,
         captures it; later sightings copy the arrays into the static
@@ -944,26 +1302,40 @@ class DecodeEngine:
 
     def _call(self, kind: str, v: dict[str, torch.Tensor]):
         """The model function of ``kind`` on the static inputs ``v``,
-        writing the pools in place; its output tensor (None for
-        ``cow``)."""
+        writing the pools in place; its output tensor (None for ``cow``).
+        A ``draft_`` kind runs the model drafter's weights over its own
+        pools, its inputs under ``draft_`` keys; its chunk step returns
+        None (nothing reads the draft's prompt logits)."""
         from tensorflowonspark_torch.models import tinylm
 
-        geo = {"config": self.config, "page_size": self.page_size}
+        params, kp, vp, config = (self._params, self._kp, self._vp,
+                                  self.config)
+        draft = kind.startswith("draft_")
+        if draft:
+            d = self._drafter
+            params, kp, vp, config = d._params, d._kp, d._vp, d.config
+            kind = kind[len("draft_"):]
+            v = {name[len("draft_"):]: t for name, t in v.items()}
+        geo = {"config": config, "page_size": self.page_size}
         with torch.no_grad():
             if kind == "chunk":
-                return tinylm.prefill_chunk_fn(
-                    self._params, v["tokens"], v["start_lens"],
-                    v["chunk_lens"], self._kp, self._vp, v["page_tables"],
-                    **geo)[0]
+                out = tinylm.prefill_chunk_fn(
+                    params, v["tokens"], v["start_lens"], v["chunk_lens"],
+                    kp, vp, v["page_tables"], **geo)[0]
+                return None if draft else out
             if kind == "prefill":
                 return tinylm.prefill_fn(
-                    self._params, v["tokens"], v["prompt_len"], self._kp,
-                    self._vp, v["page_table"], **geo)[0]
+                    params, v["tokens"], v["prompt_len"], kp, vp,
+                    v["page_table"], **geo)[0]
             if kind == "decode":
                 return tinylm.decode_fn(
-                    self._params, v["tokens"], v["seq_lens"], self._kp,
-                    self._vp, v["page_tables"], **geo)[0]
-            tinylm.copy_page_fn(self._kp, self._vp, v["src"], v["dst"])
+                    params, v["tokens"], v["seq_lens"], kp, vp,
+                    v["page_tables"], **geo)[0]
+            if kind == "verify":
+                return tinylm.verify_fn(
+                    params, v["tokens"], v["seq_lens"], v["step_lens"], kp,
+                    vp, v["page_tables"], **geo)[0]
+            tinylm.copy_page_fn(kp, vp, v["src"], v["dst"])
             return None
 
     # -- lifecycle -----------------------------------------------------------
@@ -1027,8 +1399,11 @@ class DecodeEngine:
         """Queue one generation; returns a :class:`DecodeStream` whose
         tokens arrive as the engine produces them.
 
-        ``sampling`` other than greedy (temperature 0) needs the verify
-        path's logits, which the port does not have yet: it raises.
+        ``sampling`` selects seeded sampling for this request
+        (:class:`SamplingParams`); ``None`` and temperature 0 mean greedy.
+        Non-greedy sampling needs the verify path's per-position logits,
+        so it requires a speculating engine (``spec_tokens >= 1``; the
+        ``"none"`` drafter gives sampling without speculation).
 
         Raises ``ValueError`` for malformed prompts (empty, over the
         ladder, out-of-vocab ids, no room to generate) and
@@ -1071,11 +1446,12 @@ class DecodeEngine:
             raise ValueError(
                 f"prompt token ids must be in [0, "
                 f"{self.config.vocab_size})")
-        if sampling is not None and not sampling.greedy:
+        if (sampling is not None and not sampling.greedy
+                and not self.spec_tokens):
             raise ValueError(
-                "sampling needs the verify path's per-position logits, "
-                "which tensorflowonspark_torch does not have yet "
-                "(speculation is not ported): submit greedy requests")
+                "sampling needs the verify path's per-position logits: "
+                "construct the engine with spec_tokens >= 1 (the "
+                "'none' drafter gives sampling without speculation)")
 
         rt = None
         if _trace.requests_enabled():
@@ -1166,17 +1542,23 @@ class DecodeEngine:
                         self._prefill_one(req)
                 t1 = perf()
                 prefill_s = t1 - t0
-                decode_s = 0.0
+                spec_s = verify_s = decode_s = 0.0
                 if self._active - self._prefilling > 0:
-                    self._decode_step()
-                    decode_s = perf() - t1
+                    if self.spec_tokens:
+                        spec_s, verify_s = self._spec_step()
+                    else:
+                        self._decode_step()
+                        decode_s = perf() - t1
             except Exception as e:  # a broken step must not wedge callers
                 self._errors_total.inc()
                 logger.warning("decode engine step failed: %r", e)
                 self._fail_all(e)
                 continue
-            if prefill_s or decode_s:
-                if chunked:
+            if prefill_s or decode_s or spec_s or verify_s:
+                if self.spec_tokens:
+                    rec.add(prefill_chunk=prefill_s, speculate=spec_s,
+                            verify=verify_s)
+                elif chunked:
                     rec.add(prefill_chunk=prefill_s, decode=decode_s)
                 else:
                     rec.add(prefill=prefill_s, decode=decode_s)
@@ -1288,6 +1670,10 @@ class DecodeEngine:
         self._run("cow", {"src": np.asarray(old, np.int32),
                           "dst": np.asarray(new, np.int32)})
         self.pool.free([old])
+        if self._drafter is not None:
+            # the drafter's shadow cache shares this page table, so its
+            # copy of the page must move too (no-op for host drafters)
+            self._drafter.on_cow(self, old, new)
         req.pages[idx] = new
         req.table[idx] = new
         self._cow_copies_total.inc()
@@ -1336,6 +1722,11 @@ class DecodeEngine:
             "chunk", {"tokens": tokens, "start_lens": starts,
                       "chunk_lens": lens, "page_tables": tables})
         dt = perf() - t0
+        if self._drafter is not None:
+            # mirror the chunk into the drafter's shadow cache (no-op for
+            # host-side drafters) so its proposals see the prompt
+            self._drafter.on_prefill_chunk(self, tokens, starts, lens,
+                                           tables)
         from tensorflowonspark_torch.obs import ledger as _ledger_mod
 
         _ledger_mod.get_ledger().charge_decode(
@@ -1470,21 +1861,135 @@ class DecodeEngine:
                     self.eos_id is not None and tok == self.eos_id):
                 self._retire(s, "ok", None)
 
+    def _spec_step(self) -> tuple[float, float]:
+        """One speculative engine step (reference ``decode.py:1913``): the
+        drafter proposes up to ``k`` tokens a decode-phase slot (the
+        *speculate* flight stage), then ONE verify replay scores the
+        ``k+1`` positions of every slot and each slot keeps its longest
+        agreeing prefix plus one token of the target's (the *verify*
+        stage).
+
+        Rollback is host bookkeeping: the write cursor (``_seq_lens``)
+        advances only over accepted positions, so a rejected draft's K/V
+        sits beyond every later read mask until a later step overwrites
+        it.  Draft writes land only in the slot's private pages (shared
+        prefix pages were COW-resolved first).  Greedy streams are token
+        for token the single-token engine's; sampled ones resample a
+        rejected draft from the rest of the target distribution.
+
+        Returns ``(speculate_s, verify_s)`` for the flight recorder."""
+        perf = time.perf_counter
+        t0 = perf()
+        rows = [r for r in self._slots
+                if r is not None and r.prefill_pos >= r.prompt_len]
+        if not rows:
+            return 0.0, 0.0
+        k = self._spec_ctl.k
+        for req in rows:  # a no-op after prefill, kept for the COW law
+            self._cow_resolve(req)
+        proposals = self._drafter.propose_all(self, rows, k)
+        S = self.max_seqs
+        tokens = np.zeros((S, k + 1), np.int32)
+        step_lens = np.zeros((S,), np.int32)
+        drafts: dict[int, list[int]] = {}
+        proposed = 0
+        for req in rows:
+            s = req.slot
+            # clamp so full acceptance (d+1 emitted) never exceeds the
+            # request's max_new budget: the last write position stays
+            # inside the admitted page reservation
+            room = max(0, req.max_new_tokens - req.generated - 1)
+            d = [int(t) for t in proposals.get(s, [])][:min(k, room)]
+            drafts[s] = d
+            tokens[s, 0] = self._tokens[s]
+            tokens[s, 1:1 + len(d)] = d
+            step_lens[s] = 1 + len(d)
+            proposed += len(d)
+        t1 = perf()
+        logits, fresh = self._run(
+            "verify", {"tokens": tokens, "seq_lens": self._seq_lens,
+                       "step_lens": step_lens,
+                       "page_tables": self._ptables})
+        run_s = perf() - t1
+        self._spec_steps_total.inc()
+        # prefill-phase slots rode the call with zero step_lens and a zero
+        # table row (trash writes); only decode-phase rows emit
+        accepted_total = 0
+        emissions: list[tuple[_DecodeRequest, list[int]]] = []
+        for req in rows:
+            s = req.slot
+            d = drafts[s]
+            n0 = int(self._seq_lens[s])
+            emitted: list[int] = []
+            for j in range(len(d) + 1):
+                tok = self._choose_token(req, logits[s, j], n0 + j + 1,
+                                         d[j] if j < len(d) else None)
+                emitted.append(tok)
+                if j < len(d) and tok == d[j]:
+                    continue
+                break
+            if self.eos_id is not None and self.eos_id in emitted:
+                # the single-token engine stops at EOS: tokens past it
+                # were never generated there, so they don't count
+                emitted = emitted[:emitted.index(self.eos_id) + 1]
+            accepted_total += len(emitted) - 1
+            self._seq_lens[s] = n0 + len(emitted)
+            self._tokens[s] = emitted[-1]
+            emissions.append((req, emitted))
+        from tensorflowonspark_torch.obs import ledger as _ledger_mod
+
+        _ledger_mod.get_ledger().charge_decode(
+            [(req.tenant, len(em)) for req, em in emissions], run_s,
+            compile_s=run_s if fresh else 0.0)
+        n_emitted = 0
+        for req, emitted in emissions:
+            for tok in emitted:
+                self._emit(req, tok)
+                n_emitted += 1
+                if req.generated >= req.max_new_tokens or (
+                        self.eos_id is not None and tok == self.eos_id):
+                    self._retire(req.slot, "ok", None)
+                    break
+        self._spec_proposed_total.inc(proposed)
+        self._spec_accepted_total.inc(accepted_total)
+        self._spec_emitted_total.inc(n_emitted)
+        if proposed:
+            # under the stats lock: acceptance() readers come from the
+            # stats/healthz threads
+            with self._lock:
+                self._spec_ctl.note(proposed, accepted_total)
+            self._spec_k_g.set(self._spec_ctl.k)
+        return t1 - t0, perf() - t1
+
     def _choose_token(self, req: _DecodeRequest,
-                      logits_row: np.ndarray, position: int) -> int:
-        """Pick the next token from one position's logits.
+                      logits_row: np.ndarray, position: int,
+                      draft_tok: int | None = None) -> int:
+        """Pick the next token from one position's logits (reference
+        ``decode.py:2029``).
 
         Greedy (no sampling params, or temperature 0) is a plain host
         argmax (the first maximum, as the device's).  Sampling derives its
         RNG from ``(seed, position)``, the token's ABSOLUTE position, so a
-        stream replays identically; :meth:`submit` refuses it until the
-        verify path is ported, and the speculation slice brings the rest
-        of the reference's choice (draft acceptance)."""
+        stream replays identically however generation was split into
+        speculative steps.  A draft token goes through speculative
+        rejection sampling: accepted with probability ``p(draft)``, else
+        the token is drawn from ``p`` with the draft excluded and
+        renormalized, which composes to exactly ``p`` for any
+        deterministic proposal."""
         sp = req.sampling
         if sp is None or sp.greedy:
             return int(np.argmax(logits_row))
         p = _sampling_dist(logits_row, sp)
         rng = np.random.default_rng([sp.seed, int(position)])
+        if draft_tok is not None:
+            if rng.random() < p[draft_tok]:
+                return int(draft_tok)
+            q = p.copy()
+            q[draft_tok] = 0.0
+            tot = q.sum()
+            if tot <= 0.0:
+                return int(draft_tok)  # p was a point mass on the draft
+            return int(rng.choice(len(q), p=q / tot))
         return int(rng.choice(len(p), p=p))
 
     def _emit(self, req: _DecodeRequest, tok: int) -> None:
@@ -1516,6 +2021,7 @@ class DecodeEngine:
                            itl_ms=round(itl * 1000, 3))
         req.t_last = now
         self._tokens_total.inc()
+        req.history.append(int(tok))
         if not req.cancelled:
             req.queue.put(tok)
 
@@ -1601,8 +2107,12 @@ class DecodeEngine:
                 "window_s": SLO_WINDOW_S,
                 "samples": self._ttft_window.count(now),
                 "itl_samples": self._itl_window.count(now),
-                # speculation is not ported: no draft acceptance
-                "spec_acceptance_rate": None,
+                # windowed draft acceptance (None when speculation is off
+                # or nothing was proposed lately): the fleet's signal of a
+                # drafter gone cold on the live workload
+                "spec_acceptance_rate": (
+                    self._spec_ctl.acceptance(now)
+                    if self._spec_ctl is not None else None),
             }
 
     def stats(self) -> dict[str, Any]:
@@ -1660,8 +2170,15 @@ class DecodeEngine:
                 "max_len": self.max_len,
                 "max_prompt_len": self.max_prompt_len,
                 "warmed": self._warmed,
-                "spec": {"spec_tokens": 0, "drafter": "off", "ladder": [],
-                         "k": 0, "shifts": 0},
+                "spec": {
+                    "spec_tokens": self.spec_tokens,
+                    "drafter": self.spec_drafter,
+                    "ladder": list(self.spec_ladder),
+                    "k": (self._spec_ctl.k
+                          if self._spec_ctl is not None else 0),
+                    "shifts": (self._spec_ctl.shifts
+                               if self._spec_ctl is not None else 0),
+                },
             },
             "slo": slo,
             "admission": {
@@ -1695,10 +2212,13 @@ class DecodeEngine:
                         self._cow_copies_total.value),
                     "pages_allocated_total": self.pool.alloc_total,
                     "invariant": invariant,
-                    "spec_proposed_total": 0,
-                    "spec_accepted_total": 0,
-                    "spec_acceptance_rate": None,
-                    "spec_k": 0,
+                    "spec_proposed_total": int(
+                        self._spec_proposed_total.value),
+                    "spec_accepted_total": int(
+                        self._spec_accepted_total.value),
+                    "spec_acceptance_rate": slo["spec_acceptance_rate"],
+                    "spec_k": (self._spec_ctl.k
+                               if self._spec_ctl is not None else 0),
                 },
             },
             "requests_total": int(self._requests_total.value),
@@ -1718,12 +2238,18 @@ def _fetch(out):
 def enumerate_signatures(*, max_seqs: int, pages_per_seq: int,
                          prefill_buckets: Sequence[int] | None = None,
                          prefill_chunks: Sequence[int] | None = None,
-                         share_prefixes: bool = False) -> list[tuple]:
+                         share_prefixes: bool = False,
+                         spec_ladder: Sequence[int] | None = None,
+                         spec_drafter: str | None = None) -> list[tuple]:
     """The decode tier's complete signature set, from geometry alone (no
-    engine, no weights): one prefill signature per chunk-ladder rung
-    (``prefill_chunks``; or per prompt bucket via ``prefill_buckets`` in
-    legacy mode), exactly one decode-step signature, and one COW
-    page-copy signature when ``share_prefixes``.  Signed through
+    engine, no weights; reference ``decode.py:2312``): one prefill
+    signature per chunk-ladder rung (``prefill_chunks``; or per prompt
+    bucket via ``prefill_buckets`` in legacy mode), exactly one
+    decode-step signature — or, with ``spec_ladder``, one VERIFY
+    signature per rung in its place — and one COW page-copy signature
+    when ``share_prefixes``.  A ``spec_drafter`` of ``"model"`` adds the
+    draft model's chunk rungs, decode step and COW copy under
+    ``draft_``-prefixed keys.  Signed through
     ``shapes.signature`` on ``TensorSpec`` s — identical to what the
     engine hands ``serving.note_compile``."""
     from tensorflowonspark_torch import shapes
@@ -1744,10 +2270,29 @@ def enumerate_signatures(*, max_seqs: int, pages_per_seq: int,
         for b in prefill_buckets or ():
             sigs.append(shapes.signature({"tokens": spec(b),
                                           "prompt_len": spec()}))
-    sigs.append(shapes.signature({"tokens": spec(S), "seq_lens": spec(S),
-                                  "page_tables": spec(S, P)}))
+    if spec_ladder:
+        for k in spec_ladder:
+            sigs.append(shapes.signature({
+                "tokens": spec(S, int(k) + 1), "seq_lens": spec(S),
+                "step_lens": spec(S), "page_tables": spec(S, P)}))
+    else:
+        sigs.append(shapes.signature({"tokens": spec(S),
+                                      "seq_lens": spec(S),
+                                      "page_tables": spec(S, P)}))
     if share_prefixes:
         sigs.append(shapes.signature({"src": spec(), "dst": spec()}))
+    if spec_ladder and spec_drafter == "model":
+        for rung in prefill_chunks or ():
+            sigs.append(shapes.signature({
+                "draft_tokens": spec(S, rung), "draft_start_lens": spec(S),
+                "draft_chunk_lens": spec(S),
+                "draft_page_tables": spec(S, P)}))
+        sigs.append(shapes.signature({
+            "draft_tokens": spec(S), "draft_seq_lens": spec(S),
+            "draft_page_tables": spec(S, P)}))
+        if share_prefixes:
+            sigs.append(shapes.signature({"draft_src": spec(),
+                                          "draft_dst": spec()}))
     return sigs
 
 
@@ -1763,8 +2308,8 @@ class DecodeHTTPServer:
       "max_new_tokens": n, "stream": bool?, "timeout_s": float?,
       "temperature": float?, "top_k": int?, "top_p": float?,
       "seed": int?}`` (the sampling quartet maps to
-      :class:`SamplingParams`; omitted → greedy; non-greedy is refused
-      with 400 until speculation is ported).
+      :class:`SamplingParams`, reference ``decode.py:2447-2480``; omitted
+      → greedy; non-greedy on an engine without speculation → 400).
       With ``stream`` (the default) the reply is newline-delimited JSON
       over ``Transfer-Encoding: chunked`` — one ``{"token": id,
       "index": i}`` line per generated token as it is produced, then a

@@ -9,7 +9,8 @@ Two surfaces over ONE set of weights, as in the reference:
   / :func:`example_batch`, the teacher-forced forward (``(B, T)`` tokens →
   ``(B, T, V)`` logits) of :func:`apply_tokens`;
 - the incremental decode surface (:func:`prefill_fn`,
-  :func:`prefill_chunk_fn`, :func:`decode_fn`, :func:`copy_page_fn`):
+  :func:`prefill_chunk_fn`, :func:`decode_fn`, :func:`verify_fn`,
+  :func:`copy_page_fn`):
   functions over the name → tensor dict (``dict(model.named_parameters())``
   or :func:`init_params`), the int32 index tensors and a PAGED KV cache —
   pools ``(layers, num_pages, page_size, heads, head_dim)`` f32
@@ -31,7 +32,9 @@ sequence growth moves an int in ``seq_lens``, never a shape: the decode
 engine captures each function once per shape into a CUDA graph
 (``decode.py``), as the reference jits each once.
 
-``verify_fn`` (speculation) is not ported yet (ROADMAP Queue 1 item 8).
+:func:`verify_fn` is speculation's verify step (reference
+``models/tinylm.py:330-400``): ``k+1`` positions a slot through the same
+kernels, the logits of every position returned.
 """
 
 from __future__ import annotations
@@ -172,6 +175,19 @@ def _paged_layers(params, x, start, lens, k_pool, v_pool, page_tables,
     return x
 
 
+def _rows_forward(params, tokens, start, lens, k_pool, v_pool, page_tables,
+                  config: Config):
+    """``tokens (R, L)`` embedded at positions ``start[r] + t`` (clipped at
+    ``max_len - 1``, as the reference clips) and run through every layer
+    by :func:`_paged_layers`: the final hidden states ``(R, L, D)``."""
+    t_idx = torch.arange(tokens.shape[1], device=tokens.device)
+    pos_c = (start.long()[:, None] + t_idx[None, :]).clamp(
+        max=config.max_len - 1)
+    x = params["embed"][tokens.long()] + params["pos"][pos_c]
+    return _paged_layers(params, x, start, lens, k_pool, v_pool,
+                         page_tables, config)
+
+
 def _logits(params, x):
     return _rms(x, params["lnf"]) @ params["embed"].T
 
@@ -196,10 +212,8 @@ def prefill_fn(params, tokens, prompt_len, k_pool, v_pool, page_table,
     Returns ``(next_token (), k_pool, v_pool)``, the token int32.
     """
     del page_size  # the pools carry it
-    B = tokens.shape[0]
     start = torch.zeros((1,), dtype=torch.int32, device=tokens.device)
-    x = (params["embed"][tokens.long()] + params["pos"][:B])[None]
-    x = _paged_layers(params, x, start, None, k_pool, v_pool,
+    x = _rows_forward(params, tokens[None], start, None, k_pool, v_pool,
                       page_table.reshape(1, -1), config)
     last = (prompt_len.reshape(1).long() - 1).clamp(min=0)
     logits = _logits(params, x[0].index_select(0, last))[0]
@@ -231,13 +245,9 @@ def prefill_chunk_fn(params, tokens, start_lens, chunk_lens, k_pool,
     at ``j <= start + t``.
     """
     del page_size
-    C, L = tokens.shape
-    t_idx = torch.arange(L, device=tokens.device)
-    pos_c = (start_lens.long()[:, None] + t_idx[None, :]).clamp(
-        max=config.max_len - 1)
-    x = params["embed"][tokens.long()] + params["pos"][pos_c]
-    x = _paged_layers(params, x, start_lens, chunk_lens, k_pool, v_pool,
-                      page_tables, config)
+    C = tokens.shape[0]
+    x = _rows_forward(params, tokens, start_lens, chunk_lens, k_pool,
+                      v_pool, page_tables, config)
     last = (chunk_lens.long() - 1).clamp(min=0)
     xl = torch.gather(x, 1, last[:, None, None].expand(C, 1, x.shape[-1]))
     return _logits(params, xl[:, 0]).float(), k_pool, v_pool
@@ -271,12 +281,39 @@ def decode_fn(params, tokens, seq_lens, k_pool, v_pool, page_tables,
     and sequential decode token-identical.
     """
     del page_size
-    sl = seq_lens.long().clamp(max=config.max_len - 1)
-    x = (params["embed"][tokens.long()] + params["pos"][sl])[:, None]
-    x = _paged_layers(params, x, seq_lens, None, k_pool, v_pool,
-                      page_tables, config)
+    x = _rows_forward(params, tokens[:, None], seq_lens, None, k_pool,
+                      v_pool, page_tables, config)
     logits = _logits(params, x[:, 0])
     return torch.argmax(logits, dim=-1).to(torch.int32), k_pool, v_pool
+
+
+def verify_fn(params, tokens, seq_lens, step_lens, k_pool, v_pool,
+              page_tables, *, config: Config, page_size: int):
+    """Score ``k+1`` positions a slot in ONE fixed-shape call, the
+    speculative-decoding VERIFY step (`S` slots × `L = k+1` positions).
+
+    - ``tokens``: ``(S, L)`` int32, column 0 each slot's last emitted token
+      (entering the cache at position ``seq_lens[s]``, as :func:`decode_fn`
+      writes it), columns ``1..d`` the drafter's tokens, zero-padded;
+    - ``seq_lens``: ``(S,)`` int32, cache length BEFORE this step;
+    - ``step_lens``: ``(S,)`` int32, valid positions a slot (``d + 1`` for
+      ``d`` drafts, 0 for idle and prefilling slots): positions ``t >=
+      step_lens[s]`` write to the trash page;
+    - ``page_tables``: ``(S, P)`` int32; a position beyond the slot's
+      allocated pages reads entry 0, the trash page, so a near-finished
+      slot's speculative tail lands nowhere it does not own.
+
+    Returns ``(logits (S, L, V) float32, k_pool, v_pool)``: the next-token
+    logits at EVERY position, from which the host accepts the longest
+    agreeing draft prefix (or rejection-samples).  The K/V of rejected
+    positions stays in the pool; the causal mask ``j <= start + t`` keeps
+    it unread until a later step overwrites it, so rollback is host
+    bookkeeping alone.
+    """
+    del page_size
+    x = _rows_forward(params, tokens, seq_lens, step_lens, k_pool, v_pool,
+                      page_tables, config)
+    return _logits(params, x).float(), k_pool, v_pool
 
 
 def kv_pool_shape(config: Config, num_pages: int,

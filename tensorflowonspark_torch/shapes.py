@@ -17,7 +17,9 @@ hands a forward (``serving.note_compile``) to show that it does.
 - :func:`pow2_bucket` / :func:`prefill_buckets` / :func:`prefill_chunks` —
   the decode tier's prompt ladders (``decode.py``): on the card each rung
   is one captured CUDA graph, as each is one jit signature in the
-  reference.  ``spec_ladder`` waits for speculation.
+  reference;
+- :func:`spec_ladder` — the speculation ladder, one captured verify step a
+  rung (reference ``shapes.py:289``).
 """
 
 from __future__ import annotations
@@ -283,3 +285,28 @@ def prefill_chunks(max_prompt_len: int, page_size: int, *,
         rung <<= 1
     out.append(top)
     return tuple(out)
+
+
+def spec_ladder(spec_tokens: int) -> tuple[int, ...]:
+    """The SPECULATION ladder: the draft lengths ``k`` the decode tier
+    captures its verify step at, ascending, ending at the configured
+    ``spec_tokens``.
+
+    The verify step scores ``k+1`` positions per slot in one fixed-shape
+    call, so each rung is one signature of ``(max_seqs, k+1)`` geometry.
+    The adaptive controller moves BETWEEN rungs (halving on a cold
+    drafter, restoring on a hot one) and every rung is captured at warmup,
+    so the controller changes ``k`` mid-flight without meeting a new
+    signature.  Rungs halve from the top: ``spec_tokens, spec_tokens //
+    2, ..., 1``.  Pure arithmetic, as the reference's.
+    """
+    spec_tokens = int(spec_tokens)
+    if spec_tokens < 1:
+        raise ValueError(f"spec_tokens must be >= 1, got {spec_tokens}")
+    out: list[int] = []
+    rung = spec_tokens
+    while rung > 1:
+        out.append(rung)
+        rung //= 2
+    out.append(1)
+    return tuple(reversed(out))

@@ -1213,3 +1213,101 @@ def test_phase17_families_name_the_paged_kernels_apart():
         "GEMMs"
     assert fam("Memcpy HtoD (Pinned -> Device)") == "copies"
     assert fam("void at::native::reduce_kernel<512, 1>(int)") == "other"
+
+
+@pytest.mark.parametrize("L", [2, 3, 5])
+def test_phase17_verify_rows_take_every_step_length(L):
+    """17(a)'s verify rows: 8 rows of k + 1 = L queries with step lengths
+    from 0 (inactive, an all-zero table) to L, one ending at max_len - 1,
+    the sharing row writing its own pages only."""
+    rows = chip_smoke.paged_case_rows(f"verify{L}", L)
+    assert len(rows) == 8
+    lens = [n for _, n, _ in rows]
+    assert min(lens) == 0 and max(lens) == L and 1 in lens
+    assert all(0 <= n <= L for n in lens)
+    s3, n3, _ = rows[3]
+    assert s3 + n3 - 1 == 127
+    start, _, entries = rows[4]
+    assert entries[:2] == [("of", 3, 0), ("of", 3, 1)]
+    assert start // 16 >= 2 and s3 // 16 >= 2
+    assert rows[2][2] == []
+
+
+def test_phase17e_engines_gate_on_the_cpu(monkeypatch):
+    """17(e)'s engine run on CPU engines: the n-gram and the perfect model
+    drafter serve the greedy engine's streams (no difference, every token
+    the full forward's argmax), the perfect drafter's acceptance is 1.0,
+    and the only gates that fail are the card's (no graphs captured, no
+    kernel launched on the CPU)."""
+    from tensorflowonspark_torch import decode
+    from tensorflowonspark_torch.models import tinylm
+
+    cfg = tinylm.Config.tiny()
+    params = tinylm.init_params(cfg, seed=3)
+    monkeypatch.setattr(chip_smoke, "DECODE_ENGINE", dict(
+        max_seqs=4, page_size=8, max_len=64, max_prompt_len=24,
+        device="cpu"))
+    rng = np.random.RandomState(0)
+    reqs = [(rng.randint(0, 64, size=(n,)).astype(np.int32), 10)
+            for n in (3, 9, 17, 24, 5, 12)]
+    base = _cpu_engine(**{"params": params})
+    base.start()
+    greedy, _ = chip_smoke.serve_all(base, reqs, concurrent=True)
+    base.stop()
+    for label, spec in (("ngram", {"spec_drafter": "ngram"}),
+                        ("perfect", {"spec_drafter": "model",
+                                     "draft_config": cfg,
+                                     "draft_params": params})):
+        out, fails, eng = chip_smoke.spec_engine_run(
+            label, cfg, params, reqs, greedy, (8, 16), **spec)
+        eng.stop()
+        assert out["streams"] == greedy and out["diffs"] == []
+        assert out["proposed"] > 0
+        assert all("captures" in f or "wrapper launches" in f
+                   for f in fails), fails
+        assert chip_smoke.engine_contract(eng, *out["contract"]) == []
+    assert out["acceptance"] == 1.0 and out["draft_steps"] > 0
+    assert out["planned"] == (2 + 3) * cfg.n_layers * 2 + (2 + 1) * 2 * 2
+
+
+def test_phase17e_first_differences_name_the_position_and_gap():
+    from tensorflowonspark_torch.models import tinylm
+
+    cfg = tinylm.Config.tiny()
+    params = tinylm.init_params(cfg, seed=3)
+    reqs = [(np.arange(1, 6, dtype=np.int32), 4),
+            (np.arange(7, 10, dtype=np.int32), 4)]
+    want = [[1, 2, 3, 4], [5, 6, 7, 8]]
+    got = [[1, 2, 9, 4], [5, 6, 7]]
+    diffs = chip_smoke.first_differences(params, cfg, reqs, want, got)
+    assert [d[:2] for d in diffs] == [(0, 2), (1, 3)]
+    assert 0 < diffs[0][2] < float("inf") and diffs[1][2] == float("inf")
+    assert chip_smoke.first_differences(params, cfg, reqs, want, want) == []
+
+
+def test_phase17e_gates_budget_and_the_kernels_line():
+    import inspect
+
+    src = inspect.getsource(chip_smoke.spec_engine_run)
+    for gate in ("beyond a near-tie", "tokens are not the",
+                 "captures {warm} -> {after}", "wrapper launches {launches}",
+                 "pa.reset_launches()", "drafter.config.n_layers"):
+        assert gate in src, gate
+    src = inspect.getsource(chip_smoke.speculation_phase)
+    for gate in ("the perfect drafter's acceptance",
+                 "never moved the controller",
+                 "seeded sampling the same on two engines",
+                 "top_k=1 the greedy streams",
+                 "causal j < p on the verify path", "every draft accepted",
+                 "verify step launches", "SPEC_BUDGET_S",
+                 "PLANTED_OFF_BY_ONE", "engine_contract("):
+        assert gate in src, gate
+    assert chip_smoke.SPEC_BUDGET_S == 30 and chip_smoke.SPEC_TOKENS == 4
+    assert "speculation_phase(" in inspect.getsource(chip_smoke.decode_phase)
+    result = {"kernels": {"decode": {k: {"ms": 1.0} for k in (
+                  "kv_append", "paged_attention")}},
+              "launches": {"kv_append": 12, "paged_attention": 12},
+              "spec_launches": {"kv_append": 76, "paged_attention": 76},
+              "replay_traced": {"kv_append": 4, "paged_attention": 4}}
+    for e in chip_smoke.phase17_entries(result):
+        assert e["launches_phase17e"] == 76 and e["launches"] == 12

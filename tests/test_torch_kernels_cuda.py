@@ -831,6 +831,47 @@ def test_paged_kernels_match_plain_twins_on_card(label, L):
                                          before["paged_attention"] + 4}
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,L", [
+    ("verify2", 2), ("verify3", 3), ("verify5", 5), ("draft_decode", 1),
+    ("draft_chunk32", 32)])
+def test_spec_shapes_match_plain_twins_on_card(label, L):
+    """Speculation's shapes (``chip_smoke.py`` 17(a)): the verify steps at
+    k + 1 = 2, 3, 5 positions over 8 rows with step lengths 0..L (4 heads
+    of 32), and the draft model's (``Config.draft_for``: one layer, 2
+    heads of 16) decode step and top chunk rung.  The append bit for bit
+    its twin outside page 0, the attention within 1e-5 and the same bits
+    twice, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from tensorflowonspark_torch.kernels import paged_attention as pa
+    from tensorflowonspark_torch.models import tinylm
+
+    draft = tinylm.Config.draft_for(tinylm.Config())
+    base = label.partition("draft_")[2] or label
+    rows = chip_smoke.paged_case_rows(base, L)
+    geo = ({"heads": draft.n_heads, "head_dim": draft.head_dim,
+            "layers": draft.n_layers} if label.startswith("draft_") else {})
+    case = chip_smoke.paged_case(rows, L, 1 + 8 * len(rows), 13, **geo)
+    layer = case["k_pool"].shape[0] - 1
+    before = dict(pa.launches_by_kernel)
+    bits, err, (kc, vc), _ = chip_smoke.append_against_twin(case, 128,
+                                                            layer)
+    attn = [pa.paged_attention(case["q"], kc, vc, layer, case["tables"],
+                               case["start"], max_len=128)
+            for _ in range(2)]
+    plain = pa.paged_attention_plain(case["q"], kc, vc, layer,
+                                     case["tables"], case["start"],
+                                     max_len=128)
+    torch.cuda.synchronize()
+    assert bits, err
+    assert float((attn[0] - plain).abs().max()) <= 1e-5
+    assert torch.equal(attn[0], attn[1])
+    assert pa.launches_by_kernel == {"kv_append": before["kv_append"] + 1,
+                                     "paged_attention":
+                                         before["paged_attention"] + 2}
+
+
 #: one plan of every instantiation of the attention kernel: (query tile,
 #: position tile, head_dim)
 EVERY_TILE = [(1, 64, 32), (1, 32, 128), (4, 64, 32), (8, 64, 32),
@@ -1126,3 +1167,58 @@ def test_decode_engine_on_card_equals_the_cpu_engine(chunk):
     assert eng.pool.used_pages == 0 and eng.pool.invariant()["ok"]
     assert (eng._kp.data_ptr(), eng._vp.data_ptr(),
             eng.kv_pool_bytes) == ptrs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drafter", ["ngram", "model"])
+def test_spec_engine_on_card_equals_the_cpu_engine(drafter):
+    """A speculating engine on the card (spec_tokens=4) serves the CPU
+    single-token engine's greedy streams on the same weights, at once,
+    with prefix sharing and a mid-page COW; warmup() captured one graph a
+    signature (the verify rungs and, for the model drafter, its
+    ``draft_`` set) and serving captured and ran eagerly nothing after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import threading
+
+    import numpy as np
+
+    from tensorflowonspark_torch import decode
+    from tensorflowonspark_torch.models import tinylm
+
+    config = tinylm.Config()
+    params = tinylm.init_params(config, seed=5)
+    geometry = dict(max_seqs=8, page_size=16, max_len=128,
+                    max_prompt_len=64)
+    rng = np.random.RandomState(6)
+    base = rng.randint(0, 256, size=(48,))
+    prompts = [base] + [rng.randint(0, 256, size=(n,)) for n in (4, 17, 64)]
+    prompts += [np.concatenate([base[:24], rng.randint(0, 256, size=(9,))]),
+                np.concatenate([base[:32], rng.randint(0, 256, size=(5,))])]
+    cpu = decode.DecodeEngine(config, params, device="cpu", **geometry)
+    cpu.start()
+    want = [cpu.submit(p, max_new_tokens=24).result() for p in prompts]
+    cpu.stop()
+    eng = decode.DecodeEngine(config, params, spec_tokens=4,
+                              spec_drafter=drafter, **geometry)
+    assert eng.device.type == "cuda"
+    eng.warmup()
+    sigs = len(eng.enumerate_signatures())
+    assert eng.captures == eng.eager_calls == sigs
+    eng.start()
+    out = [None] * len(prompts)
+
+    def run(i):
+        out[i] = eng.submit(prompts[i], max_new_tokens=24).result()
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert out == want
+    assert eng.captures == eng.eager_calls == sigs and eng.replays > 0
+    assert eng.stats()["admission"]["kv"]["cow_copies_total"] >= 1
+    eng.stop()
+    assert eng.pool.used_pages == 0 and eng.pool.invariant()["ok"]

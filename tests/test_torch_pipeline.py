@@ -403,7 +403,8 @@ def test_ladders_refuse_what_the_reference_refuses():
     for call in (lambda s: s.prefill_buckets(0),
                  lambda s: s.prefill_buckets(100, cap=64),
                  lambda s: s.prefill_chunks(0, 8),
-                 lambda s: s.prefill_chunks(8, 0)):
+                 lambda s: s.prefill_chunks(8, 0),
+                 lambda s: s.spec_ladder(0)):
         for mod in (shapes, ref_shapes):
             with pytest.raises(ValueError):
                 call(mod)
@@ -444,7 +445,13 @@ def test_module_signatures_count_the_references():
     step and the COW copy: as many as the reference's."""
     for kw in ({"prefill_chunks": (8, 16), "share_prefixes": True},
                {"prefill_chunks": (16,), "share_prefixes": False},
-               {"prefill_buckets": (8, 16, 32)}):
+               {"prefill_buckets": (8, 16, 32)},
+               {"prefill_chunks": (8, 16), "share_prefixes": True,
+                "spec_ladder": (1, 2, 4), "spec_drafter": "ngram"},
+               {"prefill_chunks": (8, 16), "share_prefixes": True,
+                "spec_ladder": (1, 2), "spec_drafter": "model"},
+               {"prefill_chunks": (16,), "share_prefixes": False,
+                "spec_ladder": (1,), "spec_drafter": "model"}):
         ours = decode.enumerate_signatures(max_seqs=4, pages_per_seq=8, **kw)
         theirs = ref_decode.enumerate_signatures(max_seqs=4,
                                                  pages_per_seq=8, **kw)
@@ -476,20 +483,47 @@ def test_engine_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
     eng.stop()
 
 
-def test_speculation_is_not_ported_yet(monkeypatch):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        decode.DecodeEngine(DECODE_CFG, device="cpu", spec_tokens=2)
+def test_spec_requires_chunked_prefill():
+    with pytest.raises(ValueError, match="chunked prefill"):
+        decode.DecodeEngine(DECODE_CFG, max_seqs=2, page_size=8, max_len=64,
+                            max_prompt_len=24, prefill_chunk=0,
+                            spec_tokens=4, device="cpu")
+
+
+def test_spec_engine_from_the_environment(monkeypatch, make_engine):
+    """``TFOS_SPEC_TOKENS`` / ``TFOS_SPEC_DRAFTER`` build a speculating
+    engine, as the reference reads them; 0 is the single-token engine."""
     monkeypatch.setenv("TFOS_SPEC_TOKENS", "4")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        decode.DecodeEngine(DECODE_CFG, device="cpu")
+    monkeypatch.setenv("TFOS_SPEC_DRAFTER", "model")
+    eng = make_engine()
+    assert (eng.spec_tokens, eng.spec_ladder, eng.spec_drafter) == (
+        4, (1, 2, 4), "model")
+    assert isinstance(eng._drafter, decode._ModelDrafter)
+    assert eng._drafter.config == tinylm.Config.draft_for(DECODE_CFG)
+    monkeypatch.delenv("TFOS_SPEC_DRAFTER")
+    assert make_engine().spec_drafter == "ngram"
     monkeypatch.setenv("TFOS_SPEC_TOKENS", "0")
-    decode.DecodeEngine(DECODE_CFG, device="cpu").stop()
+    off = make_engine()
+    assert (off.spec_tokens, off.spec_drafter, off._drafter) == (
+        0, "off", None)
+    with pytest.raises(ValueError, match="drafter kind"):
+        make_engine(spec_tokens=2, spec_drafter="oracle")
+    with pytest.raises(ValueError, match="vocab"):
+        make_engine(spec_tokens=2, spec_drafter="model",
+                    draft_config=tinylm.Config(vocab_size=32))
+    with pytest.raises(ValueError, match="max_len"):
+        make_engine(spec_tokens=2, spec_drafter="model",
+                    draft_config=tinylm.Config(
+                        vocab_size=64, dim=32, n_layers=1, n_heads=2,
+                        head_dim=16, mlp_dim=64, max_len=32))
 
 
 def test_non_greedy_sampling_is_refused(make_engine):
+    """A greedy engine refuses sampling with the reference's message,
+    which names ``spec_tokens``."""
     eng = make_engine()
     eng.start()
-    with pytest.raises(ValueError, match="sampling"):
+    with pytest.raises(ValueError, match="spec_tokens"):
         eng.submit([1, 2, 3], max_new_tokens=2,
                    sampling=decode.SamplingParams(temperature=0.8))
     greedy = decode.SamplingParams(temperature=0.0)
@@ -866,6 +900,464 @@ def test_streams_equal_the_jax_engine(make_engine, chunk):
     if chunk:
         kv = eng.stats()["admission"]["kv"]
         assert kv["prefix_hits_total"] >= 2 and kv["cow_copies_total"] >= 1
+
+
+# -- speculation and seeded sampling ------------------------------------------
+#
+# The reference's ``tests/test_decode_spec.py`` at its sizes and bounds, and
+# the port held to the reference where the two can run the same inputs: the
+# ladder, the controller, the n-gram drafter and the token choice on equal
+# logits exactly, the speculating engines' greedy streams token for token.
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 6, 8, 13])
+def test_spec_ladder_is_the_references(k):
+    assert shapes.spec_ladder(k) == ref_shapes.spec_ladder(k)
+    assert shapes.spec_ladder(k)[-1] == k
+
+
+def test_spec_controller_is_the_references():
+    """The adaptive-k law on the reference's own sequence of windows
+    (``tests/test_decode_spec.py:82-116``): the port's controller and the
+    reference's agree on k, shifts and acceptance after every note."""
+    lo = decode.SPEC_WINDOW_MIN_PROPOSED
+    assert (lo, decode.SPEC_ACCEPT_LOW, decode.SPEC_ACCEPT_HIGH,
+            decode.SPEC_WINDOW_S) == (
+        ref_decode.SPEC_WINDOW_MIN_PROPOSED, ref_decode.SPEC_ACCEPT_LOW,
+        ref_decode.SPEC_ACCEPT_HIGH, ref_decode.SPEC_WINDOW_S)
+    ours = decode._SpecController((1, 2, 4), window_s=30.0)
+    theirs = ref_decode._SpecController((1, 2, 4), window_s=30.0)
+    notes = [(lo, 0, 100.0), (lo - 1, 0, 101.0), (1, 0, 102.0),
+             (lo, 0, 103.0), (lo, lo, 104.0), (lo, lo, 140.0),
+             (100, 50, 141.0), (lo - 1, 0, 200.0)]
+    want_k = [2, 2, 1, 1, 1, 2, 2, 2]
+    for (p, a, now), k in zip(notes, want_k):
+        ours.note(p, a, now=now)
+        theirs.note(p, a, now=now)
+        assert (ours.k, ours.shifts, ours.acceptance(now=now)) == (
+            theirs.k, theirs.shifts, theirs.acceptance(now=now))
+        assert ours.k == k
+    assert ours.shifts == 3
+    assert ours.acceptance(now=200.0) == 0.0
+    assert ours.acceptance(now=300.0) is None  # window drained
+    with pytest.raises(ValueError):
+        decode._SpecController(())
+
+
+def test_ngram_proposals_are_the_references():
+    """``_NgramDrafter._propose_one`` on seeded histories (short random
+    ones, ones with planted repeats, a single token) equals the
+    reference's for every k."""
+    rng = np.random.RandomState(5)
+    hists = [[7], [3, 3], [1, 2, 1]]
+    for n in range(60):
+        h = list(rng.randint(0, 6 if n % 2 else 64, size=(2 + n,)))
+        if n % 3 == 0:
+            h += h[: 1 + n % 5]  # a repeat the lookup can find
+        hists.append([int(t) for t in h])
+    hit = 0
+    for h in hists:
+        for k in (1, 2, 4, 8):
+            got = decode._NgramDrafter._propose_one(h, k)
+            assert got == ref_decode._NgramDrafter._propose_one(h, k)
+            hit += bool(got)
+    assert hit > 100  # not vacuous
+
+
+def test_choose_token_draws_the_references():
+    """On the same float32 logits the port's token choice is the
+    reference's, draw for draw, over 1,000 (seed, position, draft)
+    triples: greedy, temperature with top-k and top-p, drafts of high and
+    low mass and none (the same ``default_rng([seed, position])``)."""
+    rng = np.random.RandomState(11)
+    V = DECODE_CFG.vocab_size
+    n_same = 0
+    for i in range(1000):
+        logits = (rng.randn(V) * (0.5 + 2 * rng.rand())).astype(np.float32)
+        kw = [{}, {"temperature": 0.8, "top_p": 0.9},
+              {"temperature": 1.2, "top_k": 5},
+              {"temperature": 0.5, "top_k": 1}][i % 4]
+        seed, pos = int(rng.randint(0, 2 ** 31)), int(rng.randint(0, 4096))
+        draft = [None, int(np.argmax(logits)), int(rng.randint(V))][i % 3]
+        ours = decode._DecodeRequest(np.asarray([1], np.int32), 4, None,
+                                     sampling=decode.SamplingParams(
+                                         seed=seed, **kw))
+        theirs = ref_decode._DecodeRequest(
+            np.asarray([1], np.int32), 4, None,
+            sampling=ref_decode.SamplingParams(seed=seed, **kw))
+        got = decode.DecodeEngine._choose_token(None, ours, logits, pos,
+                                                draft)
+        want = ref_decode.DecodeEngine._choose_token(None, theirs, logits,
+                                                     pos, draft)
+        assert got == want, (i, kw, seed, pos, draft)
+        n_same += got == draft
+    assert 0 < n_same < 1000
+
+
+def test_rejection_sampling_preserves_target_distribution():
+    """The speculative-sampling law at the token choice: for a high-mass
+    draft, a low-mass draft and none, 20,000 position-keyed draws match
+    ``_sampling_dist`` within total variation 0.03, and a draft is kept
+    with its own probability within 0.02 (the reference's bounds)."""
+    sp = decode.SamplingParams(temperature=0.8, top_p=0.9, seed=71)
+    rng = np.random.RandomState(73)
+    logits = (rng.randn(DECODE_CFG.vocab_size) * 2.0).astype(np.float32)
+    p = decode._sampling_dist(logits, sp)
+    req = decode._DecodeRequest(np.asarray([1], np.int32), 4, None,
+                                sampling=sp)
+    kept = np.flatnonzero(p)
+    for draft in (int(p.argmax()), int(kept[p[kept].argmin()]), None):
+        counts = np.zeros(DECODE_CFG.vocab_size)
+        n = 20000
+        for pos in range(n):
+            counts[decode.DecodeEngine._choose_token(None, req, logits, pos,
+                                                     draft)] += 1
+        tv = 0.5 * np.abs(counts / n - p).sum()
+        assert tv < 0.03, (draft, tv)
+        if draft is not None:
+            assert counts[draft] / n == pytest.approx(p[draft], abs=0.02)
+
+
+@pytest.mark.parametrize("drafter", ["ngram", "model"])
+def test_spec_streams_equal_the_jax_spec_engine(make_engine, drafter):
+    """Greedy speculation at spec_tokens=4 over the mixed workload (prefix
+    hits, a mid-page COW), on the reference's weights and, for the model
+    drafter, the reference drafter's weights: the port's streams equal the
+    JAX speculating engine's and the port's single-token engine's, token
+    for token, and the verify steps took drafts."""
+    ref_params = ref_tinylm.init_params(ref_tinylm.Config.tiny(), seed=5)
+    params = tinylm.params_from_flax(jax.tree_util.tree_map(
+        np.asarray, dict(ref_params)))
+    geometry = dict(max_seqs=4, page_size=8, max_len=64, max_prompt_len=24)
+    prompts = _mixed_workload()
+    ref_eng = ref_decode.DecodeEngine(ref_tinylm.Config.tiny(), ref_params,
+                                      spec_tokens=4, spec_drafter=drafter,
+                                      **geometry)
+    draft = {}
+    if drafter == "model":
+        draft = {"draft_params": tinylm.params_from_flax(
+            jax.tree_util.tree_map(np.asarray, dict(
+                ref_eng._drafter._params)))}
+    ref_eng.start()
+    try:
+        want = _run_all(ref_eng, prompts, 10)
+    finally:
+        ref_eng.stop()
+    base = make_engine(params=params, **geometry)
+    base.start()
+    assert _run_all(base, prompts, 10) == want
+    eng = make_engine(params=params, spec_tokens=4, spec_drafter=drafter,
+                      **geometry, **draft)
+    p0 = int(eng._spec_proposed_total.value)  # process-wide: a delta
+    eng.start()
+    assert _run_all(eng, prompts, 10) == want
+    kv = eng.stats()["admission"]["kv"]
+    assert kv["prefix_hits_total"] >= 2 and kv["cow_copies_total"] >= 1
+    assert int(eng._spec_proposed_total.value) > p0
+
+
+def test_greedy_ngram_spec_emits_more_than_a_token_a_step(make_engine):
+    """The reference's headline mechanism: the n-gram engine's greedy
+    streams equal the single-token engine's while its verify steps emit
+    more than one token each on average."""
+    base = make_engine()
+    spec = make_engine(spec_tokens=4, spec_drafter="ngram")
+    assert spec.spec_ladder == (1, 2, 4)
+    base.start()
+    spec.start()
+    s0 = int(spec._spec_steps_total.value)
+    e0 = int(spec._spec_emitted_total.value)
+    a0 = int(spec._spec_accepted_total.value)
+    prompts = _prompts(8, lo=3, hi=24)
+    assert _run_all(spec, prompts, 20) == _run_all(base, prompts, 20)
+    assert int(spec._spec_accepted_total.value) > a0
+    assert 0.0 <= spec.stats()["admission"]["kv"]["spec_acceptance_rate"] \
+        <= 1.0
+    steps = int(spec._spec_steps_total.value) - s0
+    assert (int(spec._spec_emitted_total.value) - e0) / steps > 1.0
+
+
+def test_model_drafter_perfect_and_cold_stay_token_exact(make_engine):
+    """With the target's own weights the model drafter predicts the
+    verify outcome (acceptance >= 0.95, the reference's bound); with other
+    weights the streams stay exact anyway, and the controller moves k."""
+    params = tinylm.init_params(DECODE_CFG, seed=0)
+    base = make_engine(params=params)
+    base.start()
+    prompts = _prompts(6, lo=3, hi=20, seed=17)
+    want = _run_all(base, prompts, 16)
+    perfect = make_engine(params=params, spec_tokens=4,
+                          spec_drafter="model", draft_config=DECODE_CFG,
+                          draft_params=params)
+    perfect.start()
+    assert _run_all(perfect, prompts, 16, concurrent=True) == want
+    assert perfect.stats()["admission"]["kv"]["spec_acceptance_rate"] \
+        >= 0.95
+    cold = make_engine(params=params, spec_tokens=4, spec_drafter="model",
+                       draft_params=tinylm.init_params(
+                           tinylm.Config.draft_for(DECODE_CFG), seed=99))
+    cold.start()
+    assert _run_all(cold, prompts, 16) == want
+    assert cold.stats()["engine"]["spec"]["shifts"] >= 1
+
+
+def test_none_drafter_is_the_single_token_engine(make_engine):
+    base = make_engine()
+    spec = make_engine(spec_tokens=1, spec_drafter="none")
+    base.start()
+    spec.start()
+    p0 = int(spec._spec_proposed_total.value)
+    prompts = _prompts(4, seed=37)
+    assert _run_all(spec, prompts, 10) == _run_all(base, prompts, 10)
+    assert int(spec._spec_proposed_total.value) == p0
+    assert spec.stats()["admission"]["kv"]["spec_acceptance_rate"] is None
+
+
+def test_adaptive_controller_drops_k_on_cold_drafter(make_engine):
+    """Drafts that are always wrong drive acceptance to zero: k walks down
+    the captured ladder to its floor, meeting no new signature, and the
+    streams stay exact."""
+    base = make_engine()
+    spec = make_engine(spec_tokens=4, spec_drafter="ngram",
+                       graphs=StandInGraphs())
+    base.start()
+    spec.warmup()
+    enumerated = set(spec.enumerate_signatures())
+
+    def garbage(engine, rows, k):
+        return {r.slot: [(int(engine._tokens[r.slot]) + 1)
+                         % DECODE_CFG.vocab_size] * k for r in rows}
+
+    spec._drafter.propose_all = garbage
+    spec.start()
+    prompts = _prompts(6, lo=5, hi=20, seed=41)
+    assert _run_all(spec, prompts, 16) == _run_all(base, prompts, 16)
+    sp = spec.stats()["engine"]["spec"]
+    assert sp["k"] == 1 and sp["shifts"] >= 2
+    assert spec.stats()["admission"]["kv"]["spec_acceptance_rate"] == 0.0
+    assert serving._SEEN_SHAPES[spec.cache_key] == enumerated
+
+
+@pytest.mark.parametrize("drafter", ["ngram", "model"])
+def test_zero_new_signatures_with_spec_on(make_engine, drafter):
+    """warmup() captures one verify step a ladder rung (no single-token
+    decode step) and, for the model drafter, its chunk rungs, decode step
+    and COW copy under ``draft_`` keys; serving (mixed lengths, shared
+    prefixes, a mirrored COW) meets nothing new and only replays."""
+    graphs = StandInGraphs()
+    eng = make_engine(spec_tokens=4, spec_drafter=drafter, graphs=graphs)
+    eng.warmup()
+    enumerated = set(eng.enumerate_signatures())
+    share = int(eng.share_prefixes)
+    expected = len(eng.prefill_chunks) + len(eng.spec_ladder) + share
+    if drafter == "model":
+        expected += len(eng.prefill_chunks) + 1 + share
+    assert len(enumerated) == expected
+    assert serving._SEEN_SHAPES[eng.cache_key] == enumerated
+    assert eng.captures == graphs.captured == eng.eager_calls == expected
+    eng.start()
+    for p in _prompts(5, lo=1, hi=24, seed=53):
+        eng.submit(p, max_new_tokens=8).result()
+    base = np.asarray(_family(16, 4, 2, seed=59)[0])
+    eng.submit(base, max_new_tokens=4).result()
+    eng.submit(np.concatenate([base[:12], [1, 2, 3]]).astype(np.int32),
+               max_new_tokens=4).result()  # mid-page COW, mirrored
+    assert serving._SEEN_SHAPES[eng.cache_key] == enumerated
+    assert eng.captures == eng.eager_calls == expected
+    assert eng.replays > 0
+    assert eng.stats()["admission"]["kv"]["cow_copies_total"] >= 1
+
+
+def test_seeded_sampling_replays_and_top_k_1_is_greedy(make_engine):
+    """The same sampled request replays token for token on a fresh
+    engine, other seeds decorrelate, temperature 0 is greedy, and top_k=1
+    (a point mass: the rejection rule's last branch) is greedy too."""
+    prompt = _prompts(1, seed=61)[0]
+    streams = {}
+    for seed in (5, 5, 6, 7):
+        eng = make_engine(spec_tokens=2, spec_drafter="ngram")
+        eng.start()
+        sp = decode.SamplingParams(temperature=0.9, top_p=0.95, seed=seed)
+        streams.setdefault(seed, []).append(eng.submit(
+            prompt, max_new_tokens=16, sampling=sp).result(timeout=60))
+        eng.stop()
+    assert streams[5][0] == streams[5][1]
+    assert len({tuple(v[0]) for v in streams.values()}) > 1
+    eng = make_engine(spec_tokens=4, spec_drafter="ngram")
+    eng.start()
+    p = _prompts(1, seed=67)[0]
+    want = eng.submit(p, max_new_tokens=12).result()
+    for sp in (decode.SamplingParams(temperature=0.0, seed=9),
+               decode.SamplingParams(temperature=0.8, top_k=1, seed=9)):
+        assert eng.submit(p, max_new_tokens=12, sampling=sp).result() \
+            == want
+
+
+def test_spec_sampling_distribution_matches_none_drafter(make_engine):
+    """The same sampled workload through a speculating engine and the
+    ``none`` drafter gives per-position marginals within total variation
+    0.35 over 200 seeds (the reference's size and bound)."""
+    spec = make_engine(spec_tokens=2, spec_drafter="ngram")
+    plain = make_engine(spec_tokens=1, spec_drafter="none")
+    spec.start()
+    plain.start()
+    p0 = int(spec._spec_proposed_total.value)
+    prompt = _prompts(1, seed=79)[0]
+    n, new = 200, 5
+    a = np.zeros((new, DECODE_CFG.vocab_size))
+    b = np.zeros((new, DECODE_CFG.vocab_size))
+    for seed in range(n):
+        sp = decode.SamplingParams(temperature=0.7, top_p=0.9, seed=seed)
+        for eng, acc in ((spec, a), (plain, b)):
+            toks = eng.submit(prompt, max_new_tokens=new,
+                              sampling=sp).result(timeout=60)
+            for j, t in enumerate(toks):
+                acc[j, t] += 1
+    assert int(spec._spec_proposed_total.value) > p0  # not vacuous
+    for j in range(new):
+        tv = 0.5 * np.abs(a[j] / n - b[j] / n).sum()
+        assert tv < 0.35, (j, tv)
+
+
+def test_cancel_mid_speculation_rewinds_and_frees(make_engine):
+    """A cancel landing between propose and verify retires the victim at
+    the step boundary with every page freed and the pool's law intact,
+    while the survivor's stream stays exact."""
+    base = make_engine(max_seqs=2, share_prefixes=False)
+    base.start()
+    spec = make_engine(max_seqs=2, spec_tokens=4, spec_drafter="ngram",
+                       share_prefixes=False)
+    prompts = _prompts(2, lo=8, hi=12, seed=97)
+    want = base.submit(prompts[1], max_new_tokens=24).result()
+    state = {"victim": None, "armed": False}
+    real = spec._call
+
+    def chaotic(kind, v):
+        if kind == "verify" and state["armed"] and state["victim"]:
+            state["victim"].cancel()  # between propose and verify
+            state["armed"] = False
+        return real(kind, v)
+
+    spec._call = chaotic
+    spec.start()
+    victim = spec.submit(prompts[0], max_new_tokens=40)
+    next(victim.tokens(timeout=30))  # prefill done, speculation underway
+    state.update(victim=victim, armed=True)
+    survivor = spec.submit(prompts[1], max_new_tokens=24)
+    assert survivor.result(timeout=60) == want
+    deadline = time.time() + 10
+    while spec.pool.used_pages and time.time() < deadline:
+        time.sleep(0.01)
+    assert spec.pool.used_pages == 0
+    spec.pool.check_invariant()
+    assert not state["armed"], "the hook never fired mid-speculation"
+
+
+def test_stop_mid_speculation_keeps_invariant(make_engine):
+    eng = make_engine(max_seqs=2, spec_tokens=4, spec_drafter="model")
+    real = eng._call
+
+    def slow(kind, v):
+        if kind == "verify":
+            time.sleep(0.02)
+        return real(kind, v)
+
+    eng._call = slow
+    eng.start()
+    streams = [eng.submit(p, max_new_tokens=38)
+               for p in _prompts(4, lo=3, hi=20, seed=101)]
+    results = []
+
+    def consume(s):
+        try:
+            results.append(("ok", s.result(timeout=30)))
+        except Exception as e:
+            results.append(("err", type(e).__name__))
+
+    threads = [threading.Thread(target=consume, args=(s,)) for s in streams]
+    for t in threads:
+        t.start()
+    eng.stop()
+    for t in threads:
+        t.join(timeout=30)
+    assert len(results) == 4 and any(k == "err" for k, _ in results)
+    assert eng.pool.used_pages == 0
+    eng.pool.check_invariant()
+
+
+def test_spec_stats_and_flight_stages(make_engine):
+    """The ``spec`` blocks of stats(), the SLO snapshot and /healthz's kv
+    block carry the reference's keys at live values, and a speculating
+    engine records ``speculate`` and ``verify`` flight stages and no
+    ``decode``."""
+    from tensorflowonspark_torch.obs import flight
+
+    eng = make_engine(spec_tokens=4, spec_drafter="ngram")
+    eng.start()
+    rec = flight.recorder("decode")
+    rec.reset()
+    for p in _prompts(3, seed=83):
+        eng.submit(p, max_new_tokens=16).result()
+    snap = rec.snapshot()
+    assert snap["stages_s"].get("speculate", 0) > 0
+    assert snap["stages_s"].get("verify", 0) > 0
+    assert "decode" not in snap["stages_s"]
+    assert snap["verdict"] in flight.VERDICTS
+    assert 0.0 <= eng.slo_snapshot()["spec_acceptance_rate"] <= 1.0
+    st = eng.stats()
+    assert st["engine"]["spec"] == {
+        "spec_tokens": 4, "drafter": "ngram", "ladder": [1, 2, 4],
+        "k": eng._spec_ctl.k, "shifts": eng._spec_ctl.shifts}
+    kv = st["admission"]["kv"]
+    assert kv["spec_proposed_total"] >= kv["spec_accepted_total"] > 0
+    assert kv["spec_k"] in (1, 2, 4)
+    theirs = ref_decode.DecodeEngine(ref_tinylm.Config.tiny(), max_seqs=4,
+                                     page_size=8, max_len=64,
+                                     max_prompt_len=24, spec_tokens=4)
+    try:
+        ref_doc = theirs.stats()
+    finally:
+        theirs.stop()
+    assert set(ref_doc["engine"]["spec"]) == set(st["engine"]["spec"])
+    assert set(ref_doc["admission"]["kv"]) <= set(kv)
+    assert set(ref_doc["slo"]) <= set(st["slo"])
+
+
+def test_http_sampling_quartet_reaches_engine(make_engine):
+    import http.client
+
+    eng = make_engine(spec_tokens=2, spec_drafter="ngram")
+    eng.start()
+    srv = decode.DecodeHTTPServer(eng)
+    greedy = make_engine(max_seqs=2)
+    greedy.start()
+    srv2 = decode.DecodeHTTPServer(greedy)
+    try:
+        host, port = srv.start()
+        conn = http.client.HTTPConnection(host, port, timeout=30)
+        body = json.dumps({"prompt": [1, 2, 3, 4], "max_new_tokens": 8,
+                           "stream": False, "temperature": 0.9,
+                           "top_p": 0.95, "seed": 11}).encode()
+        outs = []
+        for _ in range(2):
+            conn.request("POST", "/v1/generate", body=body)
+            r = conn.getresponse()
+            assert r.status == 200
+            outs.append(json.loads(r.read())["tokens"])
+        assert outs[0] == outs[1] and len(outs[0]) == 8
+        want = eng.submit([1, 2, 3, 4], max_new_tokens=8,
+                          sampling=decode.SamplingParams(
+                              temperature=0.9, top_p=0.95, seed=11)).result()
+        assert outs[0] == want
+        # a sampling request on an engine without speculation: 400
+        h2, p2 = srv2.start()
+        c2 = http.client.HTTPConnection(h2, p2, timeout=30)
+        c2.request("POST", "/v1/generate", body=body)
+        r2 = c2.getresponse()
+        assert r2.status == 400 and b"spec_tokens" in r2.read()
+    finally:
+        srv.stop()
+        srv2.stop()
 
 
 # -- observability -----------------------------------------------------------

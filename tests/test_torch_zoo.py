@@ -600,6 +600,75 @@ def test_prefill_fn_matches_jax(lm_weights, plen, bucket, pages):
     assert _close(vr, v2, skip_trash=True) <= LM_TOL
 
 
+#: verify rows ``(seq_len, step_len, pages)`` at k = 4 (L = 5): full
+#: mid-page, crossing a page, idle (step 0, zero table), partial, a slot
+#: whose last position is max_len - 1, two slots sharing a prefix page
+#: (page 2, read only)
+VERIFY_ROWS = [(3, 5, [1]), (6, 5, [16, 17]), (0, 0, []),
+               (17, 2, [4, 5, 6]), (59, 5, list(range(7, 15))),
+               (9, 3, [2, 15]), (12, 4, [2, 3])]
+
+
+def test_verify_fn_matches_jax(lm_weights):
+    """``verify_fn`` against the reference's on the same weights and pools:
+    the logits of every valid position (t < step_lens; the others read
+    the trash page, whose content is undefined) and both pools outside the
+    trash page within 1e-5, the argmax exactly."""
+    rp, tp = lm_weights
+    rng = np.random.RandomState(23)
+    S, L = len(VERIFY_ROWS), 5
+    tokens = rng.randint(0, LM_CFG.vocab_size, size=(S, L)).astype(np.int32)
+    seq = np.array([r[0] for r in VERIFY_ROWS], np.int32)
+    steps = np.array([r[1] for r in VERIFY_ROWS], np.int32)
+    tables = _tables([r[2] for r in VERIFY_ROWS])
+    kp, vp = _pools(23)
+    lg, kr, vr = ref_tinylm.verify_fn(
+        rp, jnp.asarray(tokens), jnp.asarray(seq), jnp.asarray(steps),
+        jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tables),
+        config=LM_REF_CFG, page_size=PS)
+    k2, v2 = _t(kp.copy()), _t(vp.copy())
+    lg2, kout, vout = port_tinylm.verify_fn(
+        tp, _t(tokens), _t(seq), _t(steps), k2, v2, _t(tables),
+        config=LM_CFG, page_size=PS)
+    assert kout is k2 and vout is v2  # written in place
+    assert lg2.dtype == torch.float32
+    assert lg2.shape == (S, L, LM_CFG.vocab_size)
+    valid = np.arange(L)[None, :] < steps[:, None]
+    assert _close(np.asarray(lg)[valid], lg2.numpy()[valid]) <= LM_TOL
+    assert np.array_equal(np.asarray(lg)[valid].argmax(-1),
+                          lg2.numpy()[valid].argmax(-1))
+    assert _close(kr, k2, skip_trash=True) <= LM_TOL
+    assert _close(vr, v2, skip_trash=True) <= LM_TOL
+    assert np.array_equal(k2[:, 2].numpy(), kp[:, 2])  # shared, unwritten
+    assert np.array_equal(v2[:, 2].numpy(), vp[:, 2])
+
+
+def test_verify_columns_are_successive_decode_steps(lm_weights):
+    """Column t of one verify call is the decode step that takes column
+    t's token t steps later: the same greedy token at every position and
+    the same pools (1e-5), whatever the drafted tokens."""
+    _, tp = lm_weights
+    rng = np.random.RandomState(29)
+    rows = [r for r in VERIFY_ROWS if r[1] == 5]
+    S, L = len(rows), 5
+    tokens = rng.randint(0, LM_CFG.vocab_size, size=(S, L)).astype(np.int32)
+    seq = np.array([r[0] for r in rows], np.int32)
+    tables = _tables([r[2] for r in rows])
+    kp, vp = _pools(29)
+    kv, vv = _t(kp.copy()), _t(vp.copy())
+    lg, _, _ = port_tinylm.verify_fn(
+        tp, _t(tokens), _t(seq), _t(np.full((S,), L, np.int32)), kv, vv,
+        _t(tables), config=LM_CFG, page_size=PS)
+    kd, vd = _t(kp.copy()), _t(vp.copy())
+    for t in range(L):
+        nt, _, _ = port_tinylm.decode_fn(
+            tp, _t(tokens[:, t].copy()), _t(seq + t), kd, vd, _t(tables),
+            config=LM_CFG, page_size=PS)
+        assert np.array_equal(nt.numpy(), lg[:, t].argmax(-1).numpy())
+    assert float((kv - kd)[:, 1:].abs().max()) <= LM_TOL
+    assert float((vv - vd)[:, 1:].abs().max()) <= LM_TOL
+
+
 def test_copy_page_fn_matches_jax():
     kp, vp = _pools(11)
     kr, vr = ref_tinylm.copy_page_fn(jnp.asarray(kp), jnp.asarray(vp),
