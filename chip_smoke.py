@@ -283,6 +283,46 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    and (e) its own; ``python3 chip_smoke.py --phase 17`` runs the build
    and this phase alone.
 
+18. BatchNorm training (``norm="batch"``: flax's ``momentum=0.9``, ε
+   1e-5, through torch's fused ``native_batch_norm``; no hand-written
+   kernel) for ResNet-50 ``Config(norm="batch")`` at 224² and
+   Inception-v3 ``Config(canonical=True, norm="batch")`` at 299², bf16
+   compute, f32 params, seeded.  (a) ResNet-50 at 8 rows: one f32 step's
+   gradients on the card against the same step on the host
+   (``BN_GRADS_F32_VS_HOST``); the bf16 step's loss against its f32
+   twin's (``BN_BF16_LOSS_REL``) and each of its BatchNorm sites, output
+   and input gradient, against f64 on that site's own inputs
+   (``BN_BF16_SITE``), with planted faults that must read above; every
+   gradient finite and nonzero; after
+   one ``Trainer.step`` the running statistics against flax's rule
+   recomputed on the host in f64 from the norms' inputs (the batch's mean
+   and biased variance), within ``BN_STATS_TOL``, and a planted fault
+   (torch's ``batch_norm``, whose running variance is the unbiased one)
+   must read above it.  (b) 8 captured steps bit for bit 8 eager ones
+   (losses, parameters, AdamW state and running statistics) for ResNet-50
+   at 64 and Inception-v3 at 32, no hand-written kernel counted or traced;
+   then rate, busy ms and idle share, host µs, capture s, peak memory
+   allocated and reserved at 256 (ResNet) and 128 (Inception), eager beside
+   captured, and the eager step's busy ms by family (convs, BatchNorm
+   statistics, BatchNorm apply and backward, casts/pads/pool, AdamW,
+   other) beside the GroupNorm ResNet-50 step at 256 and the BatchNorm one
+   through the formula written out, profiled the same way.
+   (c) After (b)'s steps one row's logits are the same bits alone, in its
+   batch and in another batch; a planted train-mode forward at eval must
+   break that.  (d) The graph run checkpoints at its step 8
+   (``Trainer.checkpoint``); a trainer of another seed ``restore_latest()``
+   s it: every tensor, ``batch_stats`` included, the run's bits, and one
+   more step on each gives the same loss and state.  (e) ResNet's
+   ``Trainer.export`` → ``TFModel.transform`` of 67 rows by the serialized
+   forward and by name: the bits of ``Trainer.predict``; then
+   ``TFCluster.run`` → ``DataFeed`` → ``Trainer.step`` at 64 on 128 rows in
+   2 partitions (``InputMode.SPARK``): the final loss against an in-process
+   replay, at least one graph replay.  (f) No hand-written kernel launches
+   in the phase's processes.  Phase 18 runs in phase 11's application
+   after phase 16, and prints its seconds beside ``PHASE18_BUDGET_S``;
+   ``python3 chip_smoke.py --phase 18`` runs the build and this phase
+   alone.
+
 The last lines are the card line, one JSON line listing each kernel (the
 one-pass and two-pass forwards of ``group_norm_act`` and its one-pass and
 four-launch backwards, times at the training slice's batch and under
@@ -292,7 +332,8 @@ other cases suffixed; ``launches_tf_mode`` counts phases 11-12's,
 ``launches_phase13`` phase 13's, ``launches_phase14`` the executors' of
 phase 14(c)-(g), ``phase14_*`` the zoo's sites on each GroupNorm
 path, ``launches_phase15`` phase 15's and ``launches_phase16`` phase 16's
-(a)-(d), ``replay_launches_phase16`` the kernels its traced replays ran;
+(a)-(d), ``replay_launches_phase16`` the kernels its traced replays ran,
+``launches_phase18`` phase 18's (none);
 then the two paged kernels, times of the decode step's case and the others
 suffixed, ``launches_phase17`` the main path's (the warmup's eager calls
 and captures), ``launches_phase17e`` those of 17(e)'s three speculating
@@ -311,6 +352,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import gc
 import json
 import math
 import os
@@ -1159,7 +1201,8 @@ def _grads(model, loss_fn, batch, norm_act, backward=None):
         group_norm.reset_launches()
         loss = loss_fn(model, batch)
         loss.backward()
-        torch.cuda.synchronize()
+        if loss.is_cuda:
+            torch.cuda.synchronize()
     finally:
         group_norm._launch_backward = kernel_backward
     launches = dict(group_norm.launches_by_path)
@@ -2460,17 +2503,20 @@ def tf_wd_replay(args, device: str) -> tuple[list, dict]:
     return losses, {k: np.concatenate(v) for k, v in seen.items()}
 
 
-def node_published(cluster, keys) -> list:
-    """What each node put on its kv blackboard under ``keys`` (read after
-    ``cluster.shutdown``), in executor order."""
+def node_managers(cluster) -> list:
+    """The kv blackboard of each node of ``cluster``, in executor order."""
     from tensorflowonspark_torch import TFManager
 
     authkey = bytes.fromhex(cluster.cluster_meta["authkey_hex"])
-    out = []
-    for meta in sorted(cluster.cluster_info, key=lambda m: m["executor_id"]):
-        mgr = TFManager.connect(tuple(meta["addr"]), authkey)
-        out.append({k: mgr.get(k) for k in keys})
-    return out
+    return [TFManager.connect(tuple(meta["addr"]), authkey)
+            for meta in sorted(cluster.cluster_info,
+                               key=lambda m: m["executor_id"])]
+
+
+def node_published(cluster, keys) -> list:
+    """What each node put on its kv blackboard under ``keys`` (read after
+    ``cluster.shutdown``), in executor order."""
+    return [{k: mgr.get(k) for k in keys} for mgr in node_managers(cluster)]
 
 
 def loss_rel(losses, replay, final_only: bool) -> float:
@@ -4828,7 +4874,9 @@ def state_gap(got: dict, want: dict) -> tuple:
 
 
 def run_trajectory(name, config, lr, optimizer, batches, mode: str,
-                   save_to: str | None = None) -> dict:
+                   save_to: str | None = None,
+                   checkpoint_dir: str | None = None,
+                   keep: bool = False) -> dict:
     """``GRAPH_STEPS`` steps of a fresh seed-0 ``Trainer`` on ``batches``:
     ``mode`` ``graph`` (its compiled step), ``eager`` (the step swapped for
     the eager one, ``make_train_step``'s or ``make_sharded_train_step``'s)
@@ -4838,13 +4886,17 @@ def run_trajectory(name, config, lr, optimizer, batches, mode: str,
     ``GRAPH_TRACED_STEP`` (not in a stale run), what the compiled step
     did, and the final state; ``save_to`` checkpoints the step
     ``GRAPH_RESTORE_AT`` state there, and then (d) restores it after the
-    run and steps again."""
+    run and steps again.  ``checkpoint_dir`` makes the trainer checkpoint
+    there at its last step (``Trainer.checkpoint``'s cadence), and
+    ``keep`` returns the trainer (``trainer``)."""
     import torch
 
     from tensorflowonspark_torch.trainer import Trainer
 
     t = Trainer(name, config=config, learning_rate=lr, seed=0,
                 device="cuda", optimizer=optimizer)
+    if checkpoint_dir:
+        t.checkpoint(checkpoint_dir, every_steps=len(batches))
     if mode == "eager":
         t.train_step = eager_step(t)
     elif mode == "stale":
@@ -4874,7 +4926,8 @@ def run_trajectory(name, config, lr, optimizer, batches, mode: str,
         out["restored"] = {"losses": [float(v) for v in again],
                            "state": state_tensors(t),
                            "step": int(t.state.step), "actions": actions}
-    del t
+    if keep:
+        out["trainer"] = t
     return out
 
 
@@ -5066,7 +5119,11 @@ def graph_numbers(label: str, make_trainer, batch, unit: str, per_step: int,
             + f"peak {m['peak_gb']:.2f} GB allocated / "
               f"{m['peak_reserved_gb']:.2f} GB reserved")
     print(f"compiled step (e) {label}: " + "; ".join(parts), flush=True)
-    del t, compiled
+    # a Trainer and its compiled step form a reference cycle (the step's
+    # shard closure holds the trainer): collect it, or its graph pool stays
+    # on the card for the next phase
+    del t, compiled, eager
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -6458,6 +6515,997 @@ def phase17_entries(decode_result: dict) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: BatchNorm training (ResNet-50 and Inception-v3, norm="batch")
+# ---------------------------------------------------------------------------
+
+PHASE18_BUDGET_S = 60
+BN_GRAD_BATCH = 8
+#: (b): 8 captured steps against 8 eager ones at these batches; the rates
+#: at the larger ones, eager beside captured
+BN_STEP_BATCH = {"resnet50": 64, "inception_v3": 32}
+BN_RATE_BATCH = {"resnet50": 256, "inception_v3": 128}
+#: (a): the running statistics after one step against flax's rule
+#: recomputed on the host in f64 from that batch's norm inputs, max |Δ|
+#: over max |host| of each site's mean and var.  Only the f32 sums over
+#: N·H·W differ in order (≈ 1e-6); an unbiased running variance (torch's
+#: ``batch_norm``) moves the last stage's (392 values a channel at 8 rows)
+#: by 0.1/391 of its variance, ≈ 2.6e-4 of the statistic
+BN_STATS_TOL = 2e-5
+#: (a): one step's gradients at 8 rows, rel L2 over all parameters.  A
+#: BatchNorm ResNet-50 at init is ill-conditioned: measured on the CPU at
+#: 224², batch 8, seed 3 (f32), a 1e-7 relative change of the images moves
+#: the gradients by 2.55e-2, bf16 sits 1.33 from f32 (the early convs'
+#: gradients, 10² larger than GroupNorm's, are noise-dominated), and
+#: statistics detached from autograd (a classic BatchNorm fault) 1.47.  So
+#: the card's f32 twin is held to the same step run on the host CPU in
+#: f32, where the planted fault must read above the gate
+BN_GRADS_F32_VS_HOST = 0.1
+#: (a): the bf16 step where an uncorrelated result would fail.  Its
+#: gradients are not held to f32: at init the bf16 step's sit 1.2-1.35
+#: from f32 below the head (an uncorrelated one reads 1.41), and its
+#: logits 0.119 and head gradients 0.115 (measured on an H100): the head's
+#: zero-mean weights cancel the features' common mean, and each
+#: BatchNorm backward subtracts from the bf16 dy its batch mean and its
+#: projection on x̂, so rounding grows through the net.  Instead each of
+#: the step's 53 BatchNorm sites, recorded in the step, is held to flax's
+#: BatchNorm(+add)(+ReLU) in f64 on that site's own bf16 inputs, output
+#: and input gradient (rel L2): bf16 rounds each by ≈ 2⁻⁹, so predicted
+#: 2e-3-5e-3 a site before the first card run (CPU, tiny config: worst
+#: 2.2e-3 and 1.7e-3; the statistics cut from autograd 0.34).  A halved
+#: dx reads 0.5, an uncorrelated one √2.  The loss, which the net
+#: conditions well, is held to the f32 twin's (2.2e-3 apart there); a
+#: forward that lost ``train`` must read above that
+BN_BF16_SITE = 2e-2
+BN_BF16_LOSS_REL = 2e-2
+BN_SERVE_ROWS = 67
+BN_SLICE_ROWS = 128
+BN_SLICE_PARTITIONS = 2
+BN_SLICE_BATCH = 64
+BN_FAMILIES = ("convs", "BatchNorm statistics",
+               "BatchNorm apply and backward", "GroupNorm kernels",
+               "casts/pads/pool", "AdamW", "other")
+#: forward ops and autograd nodes of the casts, pads and pools around the
+#: norms (the family phase 6 calls casts/pads/pool)
+_CAST_POOL = ("aten::to", "aten::_to_copy", "aten::copy_", "aten::clone",
+              "aten::contiguous", "aten::constant_pad_nd", "aten::pad",
+              "aten::max_pool2d", "aten::max_pool2d_with_indices",
+              "aten::avg_pool2d", "aten::permute", "ToCopyBackward",
+              "ConstantPadNdBackward", "MaxPool2DWithIndicesBackward",
+              "AvgPool2DBackward", "CloneBackward", "PermuteBackward")
+_CONV_KERNELS = ("conv", "fprop", "dgrad", "wgrad", "xmma", "gemm",
+                 "cudnn", "implicit", "cutlass", "nvjet", "sm90_")
+_EVALUATE = "autograd::engine::evaluate_function: "
+
+
+def bn_configs() -> dict:
+    """Phase 18's models at their published widths: ``{zoo name: (module,
+    config)}``."""
+    from tensorflowonspark_torch.models import inception, resnet
+
+    return {"resnet50": (resnet, resnet.Config(norm="batch")),
+            "inception_v3": (inception, inception.Config(canonical=True,
+                                                         norm="batch"))}
+
+
+def bn_sites(model) -> list:
+    """The module names of ``model``'s BatchNorms (each owns a ``mean`` and
+    a ``var`` buffer), in forward order."""
+    return [name.rsplit(".", 1)[0] for name, _ in model.named_buffers()
+            if name.endswith(".mean")]
+
+
+def bn_norm_inputs(model, sites):
+    """Forward pre-hooks that keep each BatchNorm's first input
+    (``{site: x}``) and the handles that remove them."""
+    inputs, handles = {}, []
+    modules = dict(model.named_modules())
+    for site in sites:
+        def hook(_m, args, site=site):
+            inputs.setdefault(site, args[0].detach().clone())
+        handles.append(modules[site].register_forward_pre_hook(hook))
+    return inputs, handles
+
+
+def bn_running_expected(inputs: dict, before: dict) -> dict:
+    """flax's running update recomputed on the host in f64: for each site
+    ``momentum·r + (1 − momentum)·s`` with ``s`` the batch's mean and
+    BIASED variance of the norm's input over N, H and W."""
+    from tensorflowonspark_torch.models import _common
+
+    m = _common.BATCH_NORM_MOMENTUM
+    out = {}
+    for site, x in inputs.items():
+        x = x.double().cpu()
+        mean = x.mean(dim=(0, 2, 3))
+        var = ((x - mean.view(1, -1, 1, 1)) ** 2).mean(dim=(0, 2, 3))
+        for key, stat in (("mean", mean), ("var", var)):
+            out[f"{site}.{key}"] = (m * before[f"{site}.{key}"].double().cpu()
+                                    + (1 - m) * stat)
+    return out
+
+
+def bn_stats_gap(got: dict, want: dict) -> tuple:
+    """``(worst, its buffer)``: the largest max |got − want| / max |want|
+    over the running statistics."""
+    worst, where = 0.0, None
+    for k, w in want.items():
+        g = got[k].double().cpu()
+        gap = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-12)
+        if gap > worst:
+            worst, where = gap, k
+    return worst, where
+
+
+class swapped:
+    """While active, ``module.<name>`` is ``make(the original)``."""
+
+    def __init__(self, module, name: str, make):
+        self.module, self.name, self.make = module, name, make
+
+    def __enter__(self):
+        self.saved = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.make(self.saved))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
+
+
+def detached_statistics(plain):
+    """The planted fault of 18(a)'s gradient gates, ``make`` for
+    :class:`swapped` over ``_common.batch_norm`` (``plain``): in training,
+    the batch's mean and biased variance cut from autograd (the backward
+    loses its centering terms); the running update and the rest as
+    ``plain``."""
+    import torch
+
+    from tensorflowonspark_torch.models import _common
+
+    def batch_norm(x, scale, bias, running_mean, running_var, train,
+                   residual=None, relu=True):
+        if not train:
+            return plain(x, scale, bias, running_mean, running_var, False,
+                         residual, relu)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       unbiased=False)
+        _common.update_running_(running_mean, running_var, mean, torch.rsqrt(
+            var + _common.BATCH_NORM_EPS))
+        return plain(x, scale, bias, mean, var, False, residual, relu)
+
+    return batch_norm
+
+
+def decomposed_statistics(plain):
+    """18(b)'s yardstick (the port's BatchNorm before the fused op),
+    ``make`` for :class:`swapped` over ``_common.batch_norm`` (``plain``):
+    in training, flax's formula written out, which autograd
+    differentiates: the f32
+    mean and ``E[x²] − E[x]²`` clipped at 0 over N, H and W, ``(x_f32 −
+    mean)·rsqrt(var + ε)·scale + bias`` rounded to ``x``'s dtype, then the
+    add and ReLU; the running update and eval as ``plain``."""
+    import torch
+
+    from tensorflowonspark_torch.models import _common
+
+    def batch_norm(x, scale, bias, running_mean, running_var, train,
+                   residual=None, relu=True):
+        if not train:
+            return plain(x, scale, bias, running_mean, running_var, False,
+                         residual, relu)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp_min(xf.square().mean(dim=(0, 2, 3))
+                              - mean.square(), 0.0)
+        rstd = torch.rsqrt(var + _common.BATCH_NORM_EPS)
+        _common.update_running_(running_mean, running_var, mean.detach(),
+                                rstd.detach())
+        shape = (1, -1, 1, 1)
+        y = ((xf - mean.view(shape)) * (rstd * scale).view(shape)
+             + bias.view(shape)).to(x.dtype)
+        if residual is not None:
+            y = residual + y
+        return torch.relu(y) if relu else y
+
+    return batch_norm
+
+
+def recording(records: list):
+    """``make`` for :class:`swapped` over ``_common.batch_norm``: each
+    training call of the original appends ``{x, scale, bias, residual,
+    relu, y}`` to ``records`` and, once the backward has run, the
+    gradients of its output (``dy``) and of its input (``dx``: the conv's
+    output feeds nothing else)."""
+    def make(plain):
+        def batch_norm(x, scale, bias, running_mean, running_var, train,
+                       residual=None, relu=True):
+            y = plain(x, scale, bias, running_mean, running_var, train,
+                      residual, relu)
+            if train:
+                rec = {"x": x.detach().clone(),
+                       "scale": scale.detach().clone(),
+                       "bias": bias.detach().clone(),
+                       "residual": None if residual is None
+                       else residual.detach().clone(),
+                       "relu": relu, "y": y.detach().clone()}
+                x.register_hook(lambda g: rec.__setitem__("dx", g.clone()))
+                y.register_hook(lambda g: rec.__setitem__("dy", g.clone()))
+                records.append(rec)
+            return y
+
+        return batch_norm
+
+    return make
+
+
+def site_reference(rec: dict) -> tuple:
+    """flax's BatchNorm(+add)(+ReLU) in f64 on one recorded site's own
+    inputs: ``(y, dx)``, normalised by the batch's mean and biased
+    variance over N, H and W, ``dx`` by autograd from the site's ``dy``;
+    the ReLU's mask is the recorded output's (a discrete choice at values
+    that round to 0)."""
+    import torch
+
+    from tensorflowonspark_torch.models import _common
+
+    x = rec["x"].double().requires_grad_()
+    shape = (1, -1, 1, 1)
+    mean = x.mean(dim=(0, 2, 3))
+    var = ((x - mean.view(shape)) ** 2).mean(dim=(0, 2, 3))
+    y = ((x - mean.view(shape))
+         * torch.rsqrt(var + _common.BATCH_NORM_EPS).view(shape)
+         * rec["scale"].double().view(shape)
+         + rec["bias"].double().view(shape))
+    if rec["residual"] is not None:
+        y = y + rec["residual"].double()
+    if rec["relu"]:
+        y = y * (rec["y"] > 0)
+    y.backward(rec["dy"].double())
+    return y.detach(), x.grad
+
+
+def bn_site_gaps(model, loss_fn, batch, make=None) -> dict:
+    """18(a)'s bf16 site gate: one step of ``model`` (its BatchNorm
+    through ``make`` of the plain one if given, for a planted fault) with
+    every BatchNorm recorded (:func:`recording`), then each site's output
+    and input gradient against :func:`site_reference` on that site's own
+    inputs, rel L2: ``{"y": worst, "dx": worst, "sites": n, "at": the
+    worst dx's site}``, and the same dx readings of the recorded
+    gradients halved and permuted within each tensor (uncorrelated, the
+    same norm).  The model's running statistics move."""
+    import contextlib
+
+    import torch
+
+    from tensorflowonspark_torch.kernels import group_norm
+    from tensorflowonspark_torch.models import _common
+
+    records = []
+    with contextlib.ExitStack() as stack:
+        if make is not None:
+            stack.enter_context(swapped(_common, "batch_norm", make))
+        stack.enter_context(swapped(_common, "batch_norm",
+                                    recording(records)))
+        loss = float(_grads(model, loss_fn, batch,
+                            group_norm.group_norm_act_plain)[1])
+    gen = torch.Generator().manual_seed(0)
+    out = {"loss": loss, "sites": len(records), "y": 0.0, "dx": 0.0,
+           "at": None, "dx halved": 0.0, "dx uncorrelated": 0.0}
+    for i, rec in enumerate(records):
+        y, dx = site_reference(rec)
+        got = rec["dx"].double()
+        perm = torch.randperm(got.numel(), generator=gen).to(got.device)
+        gaps = {"y": _rel_l2({0: rec["y"]}, {0: y}),
+                "dx": _rel_l2({0: got}, {0: dx}),
+                "dx halved": _rel_l2({0: 0.5 * got}, {0: dx}),
+                "dx uncorrelated": _rel_l2(
+                    {0: got.flatten()[perm].view_as(got)}, {0: dx})}
+        if gaps["dx"] >= out["dx"]:
+            out["at"] = i
+        for k, v in gaps.items():
+            out[k] = max(out[k], v) if k in ("y", "dx") else (
+                min(out[k], v) if i else v)
+        del rec, y, dx, got
+    return out
+
+
+def bf16_gate(loss32: float, good: dict, faults: dict) -> list:
+    """The breaches of 18(a)'s bf16 readings: the loss off its f32 twin's
+    by more than ``BN_BF16_LOSS_REL``; a site's output or input gradient
+    off f64 on its own inputs by more than ``BN_BF16_SITE``; or a planted
+    fault that reads at or below the gate it must break (``faults``:
+    :func:`bn_site_gaps` of the step with its statistics cut from
+    autograd, and of a forward that lost ``train``, which normalises by
+    the running statistics)."""
+    def loss_gap(r):
+        return abs(r["loss"] - loss32) / abs(loss32)
+
+    out = [f"bf16 {k} {good[k]:.3e}" for k in ("y", "dx")
+           if good[k] > BN_BF16_SITE]
+    if loss_gap(good) > BN_BF16_LOSS_REL:
+        out.append(f"bf16 loss {loss_gap(good):.3e}")
+    if not good["sites"]:
+        out.append("no BatchNorm site recorded")
+    misses = {"dx halved": good["dx halved"] <= BN_BF16_SITE,
+              "dx uncorrelated": good["dx uncorrelated"] <= BN_BF16_SITE,
+              "detached statistics dx":
+                  faults["detached statistics"]["dx"] <= BN_BF16_SITE,
+              "lost train loss":
+                  loss_gap(faults["lost train"]) <= BN_BF16_LOSS_REL}
+    return out + [f"planted {k} MISSED" for k, v in misses.items() if v]
+
+
+def lost_train(plain):
+    """A planted fault of 18(a), ``make`` for :class:`swapped` over
+    ``_common.batch_norm``: training normalises by the running statistics
+    (the ``train`` flag lost on its way down)."""
+    def batch_norm(x, scale, bias, running_mean, running_var, train,
+                   residual=None, relu=True):
+        return plain(x, scale, bias, running_mean, running_var, False,
+                     residual, relu)
+
+    return batch_norm
+
+
+def torch_batch_norm(x, scale, bias, running_mean, running_var, train,
+                     residual=None, relu=True):
+    """The planted fault of 18(a): ``F.batch_norm`` with torch's running
+    update (its momentum 0.1 is flax's 0.9, but its running variance is the
+    UNBIASED one) in ``_common.batch_norm``'s place."""
+    import torch
+    import torch.nn.functional as F
+
+    y = F.batch_norm(x.float(), running_mean, running_var, scale, bias,
+                     training=train, momentum=0.1,
+                     eps=1e-5).to(x.dtype)
+    if residual is not None:
+        y = residual + y
+    return torch.relu(y) if relu else y
+
+
+def bn_stats_case(name: str, config, batch: dict, device: str = "cuda",
+                  planted: bool = False) -> tuple:
+    """One ``Trainer.step`` of a fresh BatchNorm trainer on ``batch``: the
+    running statistics against :func:`bn_running_expected` of the norms'
+    inputs (:func:`bn_stats_gap`): ``(worst, its buffer, every site seen,
+    sites)``; ``planted`` runs the step with :func:`torch_batch_norm`
+    swapped in."""
+    from tensorflowonspark_torch.models import _common
+    from tensorflowonspark_torch.trainer import Trainer
+
+    t = Trainer(name, config=config, learning_rate=TRAIN_LR, seed=0,
+                device=device)
+    sites = bn_sites(t.model)
+    before = {k: v.clone() for k, v in t.model.named_buffers()}
+    inputs, handles = bn_norm_inputs(t.model, sites)
+    plain = _common.batch_norm
+    if planted:
+        _common.batch_norm = torch_batch_norm
+    try:
+        t.step(batch)
+    finally:
+        _common.batch_norm = plain
+        for h in handles:
+            h.remove()
+    want = bn_running_expected(inputs, before)
+    got = dict(t.model.named_buffers())
+    complete = sorted(want) == sorted(got) and len(sites) == len(inputs)
+    return (*bn_stats_gap(got, want), complete, len(sites))
+
+
+def eval_bits(predict, images, row: int) -> dict:
+    """18(c): row ``row`` of ``images`` scored by ``predict`` inside
+    ``images``, inside another batch (the other rows replaced by their
+    reverse) and alone (the other rows zero, as the serving plane pads a
+    short batch), at the same shape: whether the logits are the same bits
+    each time, and the largest gap."""
+    import torch
+
+    other = images.flip(0).clone()
+    other[row] = images[row]
+    alone = torch.zeros_like(images)
+    alone[row] = images[row]
+    got = [predict(x)[row].float() for x in (images, other, alone)]
+    same = all(bool(torch.equal(got[0], g)) for g in got[1:])
+    gap = max(float((got[0] - g).abs().max()) for g in got[1:])
+    return {"same_bits": same, "max_gap": gap}
+
+
+def train_mode_predict(trainer):
+    """The planted fault of 18(c): a predict that runs the train-mode
+    forward (batch statistics) without autograd; it puts the running
+    statistics back after each call."""
+    import torch
+
+    def predict(images):
+        buffers = {k: v.clone() for k, v in trainer.model.named_buffers()}
+        with torch.no_grad():
+            out = trainer.model(images, train=True)
+            for k, v in trainer.model.named_buffers():
+                v.copy_(buffers[k])
+        return out[0] if isinstance(out, tuple) else out
+
+    return predict
+
+
+def _in_range(name: str):
+    """``make`` for :class:`swapped`: the original, run inside the
+    profiler range ``name``."""
+    from torch.profiler import record_function
+
+    def make(plain):
+        def fn(*args, **kwargs):
+            with record_function(name):
+                return plain(*args, **kwargs)
+
+        return fn
+
+    return make
+
+
+def bn_annotated():
+    """While active, ``_common.batch_norm`` runs inside a
+    ``tfos::batch_norm`` profiler range and its running update inside
+    ``tfos::bn_stats``: the ranges
+    :func:`step_families` reads.  Only the profiled steps carry them."""
+    import contextlib
+
+    from tensorflowonspark_torch.models import _common
+
+    stack = contextlib.ExitStack()
+    for attr, name in (("batch_norm", "tfos::batch_norm"),
+                       ("update_running_", "tfos::bn_stats")):
+        stack.enter_context(swapped(_common, attr, _in_range(name)))
+    return stack
+
+
+def _bn_sequence_numbers(events) -> set:
+    """The autograd sequence numbers of the forward ops inside a
+    ``tfos::batch_norm`` range: their backward nodes carry the same."""
+    out = set()
+    for e in events:
+        if getattr(e, "sequence_nr", -1) < 0:
+            continue
+        node = e.cpu_parent
+        while node is not None:
+            if node.name == "tfos::batch_norm":
+                out.add(e.sequence_nr)
+                break
+            node = node.cpu_parent
+    return out
+
+
+def event_family(event, kernel: str, bn_seq: set) -> str:
+    """The family of a device kernel named ``kernel`` launched by the host
+    op ``event``: the hand-written and library kernels by name (the fused
+    BatchNorm's statistics kernels too), the rest by
+    the op's ancestry (a ``tfos::`` range; a backward node whose forward
+    op ran inside ``tfos::batch_norm``; a cast, pad or pool op or its
+    backward)."""
+    name = kernel.lower()
+    if "gn_" in name:
+        return "GroupNorm kernels"
+    if "batch_norm_collect_statistics" in name:
+        return "BatchNorm statistics"
+    if any(k in name for k in ("adam", "multi_tensor", "foreach")):
+        return "AdamW"
+    if any(k in name for k in _CONV_KERNELS):
+        return "convs"
+    node, cast = event, False
+    while node is not None:
+        op = node.name
+        if op == "tfos::bn_stats":
+            return "BatchNorm statistics"
+        if op == "tfos::batch_norm":
+            return "BatchNorm apply and backward"
+        if op.startswith(_EVALUATE):
+            if node.sequence_nr in bn_seq:
+                return "BatchNorm apply and backward"
+            cast = cast or op[len(_EVALUATE):].startswith(_CAST_POOL)
+            break
+        if "Adam" in op:
+            return "AdamW"
+        cast = cast or op.startswith(_CAST_POOL)
+        node = node.cpu_parent
+    return "casts/pads/pool" if cast else "other"
+
+
+def step_families(events, launches) -> dict:
+    """ms by :data:`BN_FAMILIES` of ``launches`` (``(host op, kernel name,
+    ms)``), the sequence numbers read from the host ops ``events``."""
+    bn_seq = _bn_sequence_numbers(list(events))
+    fams = dict.fromkeys(BN_FAMILIES, 0.0)
+    for op, kernel, ms in launches:
+        fams[event_family(op, kernel, bn_seq)] += ms
+    return fams
+
+
+def _depth(event) -> int:
+    n = 0
+    while event.cpu_parent is not None:
+        event, n = event.cpu_parent, n + 1
+    return n
+
+
+def kernels_by_op(events, calls: int = 1):
+    """``(host op, kernel name, ms per call)`` of each device kernel
+    torch.profiler attached to a host op, once.  The profiler attaches a
+    kernel to every host event of its correlation id, and the ids of ops
+    and of its own bookkeeping events ("Activity Buffer Request") can
+    collide: within a group of one id the kernels count once, on the op
+    (a ``::`` name that is no user annotation, the deepest)."""
+    groups: dict = {}
+    for e in events:
+        if launched_kernels(e):
+            groups.setdefault(e.id, []).append(e)
+    for group in groups.values():
+        op = max(group, key=lambda e: (
+            not getattr(e, "is_user_annotation", False), "::" in e.name,
+            _depth(e)))
+        for name, ms in launched_kernels(op, calls):
+            yield op, name, ms
+
+
+def launched_kernels(event, calls: int = 1) -> list:
+    """``(name, ms per call)`` of the device kernels torch.profiler
+    attached to the host op ``event``, less the device span of a user
+    annotation (a ``record_function`` range or an optimizer's
+    ``Optimizer.step#...``), which the profiler attaches to its range
+    like a kernel and which covers kernels counted already."""
+    return [(k.name, k.duration / 1e3 / calls)
+            for k in getattr(event, "kernels", ())
+            if k.name != event.name and not _ANNOTATION.match(k.name)]
+
+
+def profile_step_families(trainer, batch, steps: int = 3) -> dict:
+    """Device ms a step by family (:func:`step_families` over the kernels
+    torch.profiler attaches to their host ops) of ``steps`` eager steps
+    (a replay has no host ops to attribute), with every kernel's sum
+    beside (``busy``): what no op claimed reads as ``unattributed``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step = trainer.train_step
+    trainer.train_step = eager_step(trainer)
+    trainer.step(batch)
+    try:
+        with bn_annotated(), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                trainer.step(batch)
+            torch.cuda.synchronize()
+    finally:
+        trainer.train_step = step
+    events = prof.events()
+    fams = step_families(events, kernels_by_op(events, steps))
+    busy = sum(ms for _, ms in device_kernels(prof, steps))
+    fams["unattributed"] = busy - sum(fams.values())
+    fams["busy"] = busy
+    return fams
+
+
+def bn_train_map_fun(args, ctx):
+    """18(e)'s SPARK-mode ``map_fun``: a BatchNorm ResNet-50 ``Trainer``
+    fed by ``DataFeed``; publishes its losses, the GroupNorm launches of
+    its steps, its graph replays (the capture's included) and its
+    device."""
+    from tensorflowonspark_torch import metrics
+    from tensorflowonspark_torch.kernels import group_norm
+    from tensorflowonspark_torch.models import resnet
+    from tensorflowonspark_torch.trainer import Trainer
+
+    trainer = Trainer("resnet50", config=resnet.Config(**args["config"]),
+                      learning_rate=args["lr"], seed=args["seed"])
+    trainer.add_step_callback(metrics.MetricsReporter(ctx, interval=1))
+    feed = ctx.get_data_feed(train_mode=True,
+                             input_mapping=["image", "label"], prefetch=2)
+    ctx.mgr.set("ready", True)
+    group_norm.reset_launches()
+    losses = []
+    while not feed.should_stop():
+        batch = feed.next_batch(args["batch"], device_put=trainer.shard)
+        if not batch or batch["image"].shape[0] == 0:
+            continue
+        losses.append(trainer.step(batch))
+    ctx.mgr.set("launches", dict(group_norm.launches_by_path))
+    ctx.mgr.set("graph_replays", trainer.train_step.replays)
+    ctx.mgr.set("losses", [float(v) for v in losses])
+    ctx.mgr.set("device", str(trainer.device))
+
+
+def bn_slice(sc, config) -> dict:
+    """18(e)'s SPARK-mode slice of a ResNet ``config`` (``norm="batch"``):
+    ``TFCluster.run`` → ``cluster.train`` over ``BN_SLICE_ROWS`` rows in
+    ``BN_SLICE_PARTITIONS`` partitions →
+    ``DataFeed`` → ``Trainer.step`` at ``BN_SLICE_BATCH``, against the same
+    batches stepped in this process."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch import TFCluster
+    from tensorflowonspark_torch.trainer import Trainer
+
+    side = config.image_size
+    rng = np.random.RandomState(18)
+    images = rng.rand(BN_SLICE_ROWS, side, side, 3).astype(np.float32)
+    labels = rng.randint(0, config.num_classes, size=BN_SLICE_ROWS)
+    args = {"batch": BN_SLICE_BATCH, "lr": TRAIN_LR, "seed": 0,
+            "config": dataclasses.asdict(config)}
+    t0 = time.perf_counter()
+    cluster = TFCluster.run(sc, bn_train_map_fun, args, num_executors=1,
+                            input_mode=TFCluster.InputMode.SPARK)
+    [mgr] = node_managers(cluster)
+    deadline = time.monotonic() + 600
+    while not mgr.get("ready") and time.monotonic() < deadline:
+        if mgr.get("state") == "failed":
+            break
+        time.sleep(0.2)
+    cluster.train(sc.parallelize([(images[i], int(labels[i]))
+                                  for i in range(BN_SLICE_ROWS)],
+                                 BN_SLICE_PARTITIONS), feed_timeout=600)
+    cluster.shutdown(grace_secs=120)
+    job_s = time.perf_counter() - t0
+    node = {k: mgr.get(k) for k in ("state", "losses", "launches",
+                                    "graph_replays", "device")}
+    t = Trainer("resnet50", config=config, learning_rate=TRAIN_LR, seed=0,
+                device="cuda")
+    replay = [float(t.step({"image": images[lo:lo + BN_SLICE_BATCH],
+                            "label": labels[lo:lo + BN_SLICE_BATCH]}))
+              for lo in range(0, BN_SLICE_ROWS, BN_SLICE_BATCH)]
+    del t
+    torch.cuda.empty_cache()
+    losses = node["losses"] or []
+    rel = (abs(losses[-1] - replay[-1]) / abs(replay[-1]) if losses
+           else float("inf"))
+    steps = BN_SLICE_ROWS // BN_SLICE_BATCH
+    print(f"batch norm (e) SPARK slice TFCluster.run -> DataFeed -> "
+          f"Trainer.step, resnet50 norm=batch on {node['device']}: state "
+          f"{node['state']}, losses {[round(v, 5) for v in losses]}; "
+          f"in-process {[round(v, 5) for v in replay]}; final rel "
+          f"{rel:.3e} (tol {SLICE_TRAIN_VS_IN_PROCESS}); graph replays "
+          f"{node['graph_replays']} (the capture's included); GroupNorm "
+          f"launches {node['launches']}; job {job_s:.1f} s", flush=True)
+    failures = []
+    if (node["state"] != "finished" or len(losses) != steps
+            or not all(math.isfinite(v) for v in losses)
+            or rel > SLICE_TRAIN_VS_IN_PROCESS
+            or (node["graph_replays"] or 0) < 1
+            or not str(node["device"]).startswith("cuda")
+            or any((node["launches"] or {"?": 1}).values())):
+        failures.append(f"(e) slice: {node}, rel {rel:.3e}")
+    return {"failures": failures, "launches": node["launches"] or {}}
+
+
+def bn_serving(sc, trainer, work: str, name: str = "resnet50") -> dict:
+    """18(e): ``trainer.export`` → ``TFModel.transform`` of
+    ``BN_SERVE_ROWS`` rows in 3 partitions, by the serialized forward and
+    by name (the same weights exported weights-only): each the bits of
+    ``trainer.predict`` on the executor's padded batches."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch import ckpt, compat, sparkapi
+
+    export = os.path.join(work, "bn_export")
+    trainer.export(export)
+    weights_only = export + "_weights_only"
+    compat.export_saved_model(ckpt.load_pytree(os.path.join(export, "model")),
+                              weights_only)
+    side = trainer.config.image_size
+    images = np.random.RandomState(19).rand(
+        BN_SERVE_ROWS, side, side, 3).astype(np.float32)
+    df = sparkapi.LocalSparkSession(sc).createDataFrame(
+        [{"id": i, "image": images[i]} for i in range(BN_SERVE_ROWS)]
+    ).repartition(3)
+    sizes = [len(p) for p in df.rdd._partitions]
+    want = scores_in_process(lambda x: trainer.predict({"image": x}),
+                             images, sizes, SLICE_BATCH)
+    failures, launches = [], collections.Counter()
+    for label, model_name, d in (("serialized", None, export),
+                                 ("by name", name, weights_only)):
+        got = serve_export(sc, df, d, SLICE_BATCH, {"image": "image"},
+                           "logits", model_name=model_name)
+        bits = bool(torch.equal(got["scores"], want))
+        err = (rel_err(got["scores"], want)
+               if got["scores"].shape == want.shape else float("inf"))
+        launches.update(got["executor"])
+        print(f"batch norm (e) TFModel.transform ({label}) of the "
+              f"{name} norm=batch export: {got['rows']} rows in {sizes}, "
+              f"{got['seconds']:.3f} s; scores the bits of "
+              f"Trainer.predict: {bits} (rel {err:.3e}); executor launches "
+              f"{got['executor']}", flush=True)
+        if got["rows"] != BN_SERVE_ROWS or not bits or any(
+                got["executor"].values()):
+            failures.append(f"(e) {label}: rows {got['rows']}, bits {bits}"
+                            f", rel {err:.3e}")
+    return {"failures": failures, "launches": dict(launches)}
+
+
+def bn_rates(lib, config, name: str, n: int) -> dict:
+    """18(b)'s numbers at ``n`` rows: :func:`graph_numbers` (rate, busy and
+    idle, host, capture, peak memory allocated and reserved, eager beside
+    captured) and the eager step's busy ms by family."""
+    import torch
+
+    from tensorflowonspark_torch.trainer import Trainer
+
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in lib.example_batch(config, n, seed=18).items()}
+
+    def make():
+        return Trainer(name, config=config, learning_rate=TRAIN_LR,
+                       device="cuda")
+
+    out = graph_numbers(f"batch norm {name} batch {n}", make, batch,
+                        "images", n)
+    t = make()
+    out["families"] = profile_step_families(t, batch)
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def print_families(label: str, fams: dict) -> None:
+    busy = fams.get("busy") or 0.0
+    if not busy:
+        print(f"batch norm families {label}: the profiler recorded no "
+              f"device time (not measured)", flush=True)
+        return
+    print(f"batch norm families {label}, device ms a step (eager): busy "
+          f"{busy:.3f}; " + ", ".join(
+              f"{k} {v:.3f} ({v / busy:.1%})" for k, v in fams.items()
+              if k != "busy" and v)
+          + (" (NEGATIVE unattributed: a kernel counted twice)"
+             if fams["unattributed"] < -1e-3 else ""), flush=True)
+
+
+def batch_norm_phase(sc, work: str) -> dict:
+    """Phase 18 (see the module docstring), in ``sc``'s application under
+    ``work``: every sub-phase runs; the failures are gathered and fail the
+    run at the end."""
+    import dataclasses
+
+    import torch
+
+    from tensorflowonspark_torch.kernels import group_norm
+    from tensorflowonspark_torch.models import _common, resnet
+    from tensorflowonspark_torch.trainer import Trainer
+
+    t_start = time.perf_counter()
+    # the trainers and graph pools of earlier phases, held by reference
+    # cycles, leave the card before the steps at 256
+    gc.collect()
+    torch.cuda.empty_cache()
+    group_norm.reset_launches()
+    before = flat_counts()
+    failures = []
+    configs = bn_configs()
+    rlib, rconfig = configs["resnet50"]
+
+    # (a) gradients against the f32 twin; the running statistics
+    def device_batch(lib, config, n, seed):
+        return {k: torch.from_numpy(v).cuda()
+                for k, v in lib.example_batch(config, n, seed=seed).items()}
+
+    batch = device_batch(rlib, rconfig, BN_GRAD_BATCH, 3)
+    host_batch = {k: v.cpu() for k, v in batch.items()}
+    model = rlib.make_model(rconfig, seed=0).cuda()
+    state = rlib.state_of(model)
+    f32_config = dataclasses.replace(rconfig, dtype="float32")
+    f32 = rlib.load_state(rlib.make_model(f32_config), state).cuda()
+    host = rlib.load_state(rlib.make_model(f32_config), state)
+    loss_fn = rlib.make_loss_fn(model, rconfig)
+    g16, loss16, l16 = _grads(model, loss_fn, batch,
+                              group_norm.group_norm_act)
+    g32, loss32, l32 = _grads(f32, loss_fn, batch,
+                              group_norm.group_norm_act_plain)
+    with swapped(_common, "batch_norm", detached_statistics):
+        g_fault = _grads(f32, loss_fn, batch,
+                         group_norm.group_norm_act_plain)[0]
+    bf16 = bn_site_gaps(model, loss_fn, batch)
+    bf16_faults = {"detached statistics": bn_site_gaps(
+                       model, loss_fn, batch, detached_statistics),
+                   "lost train": bn_site_gaps(model, loss_fn, batch,
+                                              lost_train)}
+    g_host, loss_host, _ = _grads(host, loss_fn, host_batch,
+                                  group_norm.group_norm_act_plain)
+    names = [k for k, _ in model.named_parameters()]
+    del model, f32, host
+
+    def on_host(g):
+        return {k: v.cpu() for k, v in g.items()}
+
+    vs_host = _rel_l2(on_host(g32), g_host)
+    planted = _rel_l2(on_host(g_fault), g_host)
+    complete = sorted(g16) == sorted(names)
+    finite = all(bool(torch.isfinite(g).all()) for g in g16.values())
+    nonzero = sum(float(g.abs().max()) > 0 for g in g16.values())
+    del g16, g32, g_fault, g_host
+    good = bn_stats_case("resnet50", rconfig, batch)
+    fault = bn_stats_case("resnet50", rconfig, batch, planted=True)
+    print(f"batch norm (a) resnet50 norm=batch {rconfig.image_size}² one "
+          f"step at batch {BN_GRAD_BATCH}: loss bf16 {loss16:.5f}, f32 "
+          f"{loss32:.5f}, f32 "
+          f"on the host {loss_host:.5f}; bf16 grads of {len(names)} params "
+          f"complete={complete}, finite={finite}, nonzero={nonzero}; rel_l2"
+          f" f32 card-vs-host {vs_host:.3e} (tol {BN_GRADS_F32_VS_HOST}; "
+          f"planted statistics detached from autograd {planted:.3e}, "
+          f"{'caught' if planted > BN_GRADS_F32_VS_HOST else 'MISSED'}), "
+          f"bf16 step at its {bf16['sites']} BatchNorm sites against f64 "
+          f"on each site's inputs (tol {BN_BF16_SITE}): worst y "
+          f"{bf16['y']:.3e}, dx {bf16['dx']:.3e} (site {bf16['at']}); "
+          f"planted: dx halved {bf16['dx halved']:.3e}, uncorrelated "
+          f"{bf16['dx uncorrelated']:.3e}, statistics cut from autograd "
+          + ", ".join(f"{k} {bf16_faults['detached statistics'][k]:.3e}"
+                      for k in ("y", "dx"))
+          + f"; bf16 loss off f32 {abs(bf16['loss'] - loss32) / loss32:.3e}"
+          f" (tol {BN_BF16_LOSS_REL}), lost train "
+          f"{abs(bf16_faults['lost train']['loss'] - loss32) / loss32:.3e};"
+          f" breaches {bf16_gate(loss32, bf16, bf16_faults) or 'none'}; "
+          f"running statistics after one Trainer.step against flax's rule "
+          f"on the host (f64) at {good[3]} sites: worst {good[0]:.3e} at "
+          f"{good[1]} (tol {BN_STATS_TOL}); planted unbiased running "
+          f"variance (torch's batch_norm): {fault[0]:.3e} at {fault[1]} "
+          f"({'caught' if fault[0] > BN_STATS_TOL else 'MISSED'})",
+          flush=True)
+    if (not complete or len(names) != nonzero or not finite
+            or vs_host > BN_GRADS_F32_VS_HOST
+            or planted <= BN_GRADS_F32_VS_HOST
+            or bf16_gate(loss32, bf16, bf16_faults)
+            or good[0] > BN_STATS_TOL or not good[2]
+            or fault[0] <= BN_STATS_TOL or any(l16.values())
+            or any(l32.values())):
+        failures.append(f"(a): grads card-vs-host {vs_host:.3e}, planted "
+                        f"{planted:.3e}, bf16 "
+                        f"{bf16_gate(loss32, bf16, bf16_faults)}, finite "
+                        f"{finite}, nonzero {nonzero}/{len(names)}, stats "
+                        f"{good}, planted {fault}")
+
+    ends = [("(a)", time.perf_counter())]
+
+    # (b) captured against eager, (d) the checkpoint, (c) eval bits
+    none = dict.fromkeys(flat_counts(), 0)
+    kept = {}
+    for name, (lib, config) in configs.items():
+        n = BN_STEP_BATCH[name]
+        batches = [device_batch(lib, config, n, 180 + i)
+                   for i in range(GRAPH_STEPS)]
+        ckpt_dir = os.path.join(work, f"bn_ckpt_{name}")
+        graph = run_trajectory(name, config, TRAIN_LR, None, batches,
+                               "graph", checkpoint_dir=ckpt_dir, keep=True)
+        eager = run_trajectory(name, config, TRAIN_LR, None, batches,
+                               "eager")
+        failures += [f"(b) {f}" for f in trajectory_gate(
+            f"batch norm {name} at {n}", graph, eager, none)]
+        t = graph.pop("trainer")
+        t.finish_checkpoints()
+        resumed = Trainer(name, config=config, learning_rate=TRAIN_LR,
+                          seed=1, device="cuda")
+        resumed.checkpoint(ckpt_dir)
+        step = resumed.restore_latest()
+        host = {k: v.cpu() for k, v in graph["state"].items()}
+        differ, worst = state_gap(
+            {k: v.cpu() for k, v in state_tensors(resumed).items()}, host)
+        extra = device_batch(lib, config, n, 190)
+        la, lb = float(t.step(extra)), float(resumed.step(extra))
+        after, _ = state_gap(
+            {k: v.cpu() for k, v in state_tensors(resumed).items()},
+            {k: v.cpu() for k, v in state_tensors(t).items()})
+        del resumed
+        print(f"batch norm (d) {name}: restore_latest() -> {step}; state "
+              f"tensors differing from the run's {differ} of {len(host)} "
+              f"(batch_stats included, worst rel {worst:.3e}); one more "
+              f"step each: losses {la:.6f} / {lb:.6f}, tensors differing "
+              f"{after}", flush=True)
+        if step != GRAPH_STEPS or differ or la != lb or after:
+            failures.append(f"(d) {name}: step {step}, differ {differ}, "
+                            f"losses {la} {lb}, after {after}")
+        images = batches[0]["image"]
+        bits = eval_bits(lambda x, t=t: t.predict({"image": x}), images, 3)
+        planted = eval_bits(train_mode_predict(t), images, 3)
+        print(f"batch norm (c) {name}: row 3's logits alone, in its batch "
+              f"and in another batch the same bits: {bits['same_bits']} "
+              f"(max gap {bits['max_gap']:.3e}); planted train-mode "
+              f"forward at eval: same bits {planted['same_bits']} (gap "
+              f"{planted['max_gap']:.3e}, "
+              f"{'caught' if not planted['same_bits'] else 'MISSED'})",
+              flush=True)
+        if not bits["same_bits"] or planted["same_bits"]:
+            failures.append(f"(c) {name}: {bits}, planted {planted}")
+        kept[name] = t
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    ends.append(("(b)-(d)", time.perf_counter()))
+
+    # (e) the export served, then the SPARK-mode slice
+    kept.pop("inception_v3")
+    serving = bn_serving(sc, kept.pop("resnet50"), work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    failures += serving["failures"]
+    ends.append(("(e) serving", time.perf_counter()))
+    spark = bn_slice(sc, rconfig)
+    failures += spark["failures"]
+    ends.append(("(e) slice", time.perf_counter()))
+
+    # (b) rates, memory and busy ms by family
+    rates = {name: bn_rates(lib, config, name, BN_RATE_BATCH[name])
+             for name, (lib, config) in configs.items()}
+    for name, r in rates.items():
+        print_families(f"{name} norm=batch at {BN_RATE_BATCH[name]}",
+                       r["families"])
+    ends.append(("(b) rates", time.perf_counter()))
+
+    # (f) no hand-written kernel in the BatchNorm runs above
+    launches = {k: v - before[k] for k, v in flat_counts().items()}
+    executors = collections.Counter(serving["launches"])
+    executors.update(spark["launches"])
+    counted = {k: v for k, v in launches.items() if v} or "none"
+    on_executors = dict(executors) if any(executors.values()) else "none"
+    print(f"batch norm (f) kernel launches in phase 18's BatchNorm runs: "
+          f"this process {counted}, executors {on_executors} (and none in "
+          f"the traced steps of (b) above)", flush=True)
+    if any(launches.values()) or any(executors.values()):
+        failures.append(f"(f) launches {launches}, executors "
+                        f"{dict(executors)}")
+
+    # the GroupNorm ResNet-50 step profiled the same way, for the families
+    gn = Trainer("resnet50", config=resnet.Config(), learning_rate=TRAIN_LR,
+                 device="cuda")
+    gn_fams = profile_step_families(gn, device_batch(
+        rlib, resnet.Config(), BN_RATE_BATCH["resnet50"], 18))
+    del gn
+    gc.collect()
+    torch.cuda.empty_cache()
+    print_families(f"resnet50 GroupNorm at {BN_RATE_BATCH['resnet50']} "
+                   f"(phase 6's step)", gn_fams)
+    # and the BatchNorm step through flax's formula written out (18(a)'s
+    # plain reference; this port's BatchNorm before the fused op)
+    t = Trainer("resnet50", config=rconfig, learning_rate=TRAIN_LR,
+                device="cuda")
+    with swapped(_common, "batch_norm", decomposed_statistics):
+        dec_fams = profile_step_families(t, device_batch(
+            rlib, rconfig, BN_RATE_BATCH["resnet50"], 18))
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    print_families(f"resnet50 norm=batch at {BN_RATE_BATCH['resnet50']} "
+                   f"through the formula written out", dec_fams)
+    ends.append(("GroupNorm and decomposed steps", time.perf_counter()))
+    seconds = time.perf_counter() - t_start
+    print(f"phase 18 {seconds:.1f} s (budget {PHASE18_BUDGET_S} s): "
+          + ", ".join(f"{label} {end - start:.1f}" for (label, end), start
+                      in zip(ends, [t_start] + [e for _, e in ends])),
+          flush=True)
+    if failures:
+        raise SystemExit("batch norm phase failed: " + "; ".join(failures))
+    total = collections.Counter(launches)
+    total.update(executors)
+    return {"launches": dict(total), "rates": rates, "gn_families": gn_fams,
+            "decomposed_families": dec_fams, "seconds": seconds}
+
+
+def phase18_alone(card: str) -> int:
+    """``--phase 18``: phase 18 alone (after the build) in its own
+    application, then the card line."""
+    from tensorflowonspark_torch import sparkapi
+
+    sc = sparkapi.LocalSparkContext("local[1]")
+    work = tempfile.mkdtemp(prefix="tfos_torch_bn_")
+    try:
+        batch_norm_phase(sc, work)
+    finally:
+        sc.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    print(card)
+    return 0
+
+
 def phase16_alone(card: str) -> int:
     """``--phase 16``: phase 16 in a scratch directory, then the card
     line."""
@@ -6487,7 +7535,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Drive the PyTorch port on one CUDA card (every phase "
                     "with no arguments).")
-    parser.add_argument("--phase", type=int, choices=(16, 17),
+    parser.add_argument("--phase", type=int, choices=(16, 17, 18),
                         help="run the build and this phase alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -6514,6 +7562,8 @@ def main(argv=None) -> int:
         return phase16_alone(card)
     if args.phase == 17:
         return phase17_alone(card)
+    if args.phase == 18:
+        return phase18_alone(card)
     ends = [time.perf_counter()]  # each phase's end, from phase 1 (build)
 
     config = resnet.Config()
@@ -6574,10 +7624,13 @@ def main(argv=None) -> int:
         bert_base = bert_phase(sc, work)
         t16 = time.perf_counter()
         compiled = compiled_step_phase(work)
+        t_end = time.perf_counter()
+        batch_norm = batch_norm_phase(sc, work)
+        t18 = time.perf_counter()
     finally:
         sc.stop()
         shutil.rmtree(work, ignore_errors=True)
-    t_end = time.perf_counter()
+    t17 = time.perf_counter()
     decoded = decode_phase()
     t_done = time.perf_counter()
     print(f"resnet50 images/s at batch {SLICE_TRAIN_BATCH}: TENSORFLOW-mode "
@@ -6604,8 +7657,9 @@ def main(argv=None) -> int:
           flush=True)
     print(f"seconds: phase 11 {t12 - t11:.1f}, phase 12 {t13 - t12:.1f}, "
           f"phase 13 {t14 - t13:.1f}, phase 14 {t15 - t14:.1f}, phase 15 "
-          f"{t16 - t15:.1f}, phase 16 {t_end - t16:.1f}, phase 17 "
-          f"{t_done - t_end:.1f}; all phases {t_done - t_start:.1f}",
+          f"{t16 - t15:.1f}, phase 16 {t_end - t16:.1f}, phase 18 "
+          f"{t18 - t_end:.1f}, phase 17 {t_done - t17:.1f}; all phases "
+          f"{t_done - t_start:.1f}",
           flush=True)
 
     print(card)  # as nvidia-smi gives it: name, power limit
@@ -6628,6 +7682,7 @@ def main(argv=None) -> int:
         "launches_phase15": bert_base["launches"][path],
         "launches_phase16": compiled["launches"][path],
         "replay_launches_phase16": compiled["replay_traced"].get(path, 0),
+        "launches_phase18": batch_norm["launches"].get(path, 0),
         **kern[path], **phase14_entry(zoo["kernels"], path)}
         for path in names]
     grouping = tables["combine"]
@@ -6642,6 +7697,7 @@ def main(argv=None) -> int:
         "launches_phase15": bert_base["launches"]["group"],
         "launches_phase16": compiled["launches"]["group"],
         "replay_launches_phase16": compiled["replay_traced"].get("group", 0),
+        "launches_phase18": batch_norm["launches"].get("group", 0),
         "max_abs_err": 0.0, "ms": grouping["group_ms"],
         "device_ms": grouping["group_device_ms"],
         "plain_ms": grouping["group_plain_ms"],
@@ -6661,6 +7717,7 @@ def main(argv=None) -> int:
         "launches_phase15": bert_base["launches"][path],
         "launches_phase16": compiled["launches"][path],
         "replay_launches_phase16": compiled["replay_traced"].get(path, 0),
+        "launches_phase18": batch_norm["launches"].get(path, 0),
         **tables[path]}
         for _, path in WD_MODES]
     kernels += phase17_entries(decoded)

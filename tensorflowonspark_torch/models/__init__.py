@@ -15,8 +15,8 @@ Every model module exposes the reference's surface, in PyTorch:
   params)`` → the JAX package's weights and AdamW state, as numpy
 
 ``tiny_lm`` (``models/tinylm.py``) carries the decode surface that
-``decode.DecodeEngine`` serves; its training, export and serving through
-``TFModel`` are not ported yet.
+``decode.DecodeEngine`` serves and trains through ``Trainer``; the
+reference defines no export or ``TFModel`` serving for it.
 """
 
 from __future__ import annotations

@@ -8,6 +8,7 @@ walk that the models' weight converters share.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -51,7 +52,10 @@ def classification_outputs(model: torch.nn.Module, batch) -> torch.Tensor:
 def classification_forward(model: torch.nn.Module, batch) -> torch.Tensor:
     """:func:`classification_outputs` without autograd.  ``model`` rides
     as the first argument, where the reference's forward takes its params
-    pytree."""
+    pytree.  A BatchNorm model's forward defaults to ``train=False``, so
+    this is also the reference's ``make_stateful_classification_forward_fn``:
+    it reads the running statistics and never updates them, whatever the
+    module's ``.training`` flag."""
     with torch.inference_mode():
         return classification_outputs(model, batch)
 
@@ -96,6 +100,25 @@ def make_classification_loss_fn(model: torch.nn.Module):
     return loss_fn
 
 
+def make_stateful_classification_loss_fn(model: torch.nn.Module):
+    """The BatchNorm models' loss (the reference's
+    ``make_stateful_classification_loss_fn``): the softmax cross-entropy
+    of :func:`make_classification_loss_fn` over ``model(image,
+    train=True)``, whose every BatchNorm normalises by the batch's
+    statistics and updates its running statistics in place (where the
+    reference returns them as new collections).  Tagged ``stateful``: a
+    data-parallel step averages the model's floating collections across
+    ranks after it (``parallel.train.make_train_step``)."""
+    del model
+
+    def loss_fn(model, batch):
+        logits = model(batch["image"], train=True)
+        return F.cross_entropy(logits.float(), batch["label"].long())
+
+    loss_fn.stateful = True
+    return loss_fn
+
+
 def image_example_batch(image_shape, num_classes: int, batch_size: int = 8,
                         seed: int = 0):
     """Synthetic ``{image, label}`` batch; ``image_shape`` excludes batch.
@@ -116,6 +139,10 @@ def image_example_batch(image_shape, num_classes: int, batch_size: int = 8,
 # ---------------------------------------------------------------------------
 
 GROUP_NORM_EPS = 1e-6  # flax nn.GroupNorm default
+BATCH_NORM_EPS = 1e-5  # flax nn.BatchNorm default
+#: the reference's ``nn.BatchNorm(momentum=0.9)``: the running statistics
+#: keep 0.9 of themselves a step (torch's ``momentum`` is the other 0.1)
+BATCH_NORM_MOMENTUM = 0.9
 
 
 def same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
@@ -184,9 +211,85 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(ch))
         self.groups = groups
 
-    def forward(self, x, norm_act, relu: bool = True):
+    def forward(self, x, norm_act, relu: bool = True, train: bool = False):
+        del train  # per sample: the same in training and in eval
         return norm_act(x, self.scale, self.bias, self.groups,
                         GROUP_NORM_EPS, None, relu)
+
+
+def update_running_(running_mean: torch.Tensor, running_var: torch.Tensor,
+                    mean: torch.Tensor, rstd: torch.Tensor) -> None:
+    """flax's running update in place: ``r = 0.9·r + 0.1·batch`` for the
+    mean and the BIASED variance, the latter recovered from the batch's
+    ``rstd = 1/√(var + ε)`` as ``rstd⁻² − ε`` clipped at 0.  The buffers
+    are written into, never rebound, so a captured step replays the update
+    and a restore copies into the same tensors."""
+    with torch.no_grad():
+        var = torch.clamp_min(rstd.pow(-2) - BATCH_NORM_EPS, 0.0)
+        running_mean.mul_(BATCH_NORM_MOMENTUM).add_(
+            mean, alpha=1 - BATCH_NORM_MOMENTUM)
+        running_var.mul_(BATCH_NORM_MOMENTUM).add_(
+            var, alpha=1 - BATCH_NORM_MOMENTUM)
+
+
+def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               running_mean: torch.Tensor, running_var: torch.Tensor,
+               train: bool, residual: torch.Tensor | None = None,
+               relu: bool = True) -> torch.Tensor:
+    """flax ``nn.BatchNorm(use_running_average=not train, momentum=0.9,
+    epsilon=1e-5, dtype=x.dtype)`` over an NCHW ``x`` in plain PyTorch,
+    then the optional residual add and ReLU.  One fused
+    ``torch.native_batch_norm`` normalises, in f32 for a bf16 ``x`` and
+    in f64 for an f64 one (``(x − mean)·rsqrt(var + ε)·scale + bias``
+    rounded to ``x``'s dtype):
+    with ``train`` by the batch's mean and biased variance over N, H and
+    W, which its backward differentiates through, and then the running
+    statistics take flax's update (:func:`update_running_`); otherwise by
+    the running statistics.  The add and ReLU run in ``x``'s dtype, as the
+    reference's do.  Not torch's running update (``F.batch_norm`` with
+    buffers): its running variance is the unbiased one."""
+    f32 = torch.promote_types(x.dtype, torch.float32)  # f64 stays f64
+    scale, bias = scale.to(f32), bias.to(f32)
+    if train:
+        y, mean, rstd = torch.native_batch_norm(
+            x, scale, bias, None, None, True, 0.0, BATCH_NORM_EPS)
+        update_running_(running_mean, running_var, mean, rstd)
+    else:
+        y = torch.native_batch_norm(
+            x, scale, bias, running_mean.to(f32), running_var.to(f32),
+            False, 0.0, BATCH_NORM_EPS)[0]
+    if residual is not None:
+        y = residual + y
+    return torch.relu(y) if relu else y
+
+
+class BatchNorm(nn.Module):
+    """:func:`batch_norm` with f32 ``scale``/``bias`` and the running
+    ``mean``/``var`` buffers (flax's ``batch_stats`` leaves, init 0 and
+    1); ``forward`` takes the ``norm_act`` the models pass to every norm
+    and ignores it."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(ch))
+        self.bias = nn.Parameter(torch.zeros(ch))
+        self.register_buffer("mean", torch.zeros(ch))
+        self.register_buffer("var", torch.ones(ch))
+
+    def forward(self, x, norm_act=None, relu: bool = True,
+                train: bool = False, residual=None):
+        del norm_act
+        return batch_norm(x, self.scale, self.bias, self.mean, self.var,
+                          train, residual, relu)
+
+
+def batch_stats_of(model: nn.Module) -> dict:
+    """``{"batch_stats": {name: buffer}}``: the model's running statistics
+    as live tensors (a model's ``collections()``, which the train state
+    carries), under the names :func:`state_of` exports them by; ``{}``
+    without BatchNorm."""
+    stats = dict(model.named_buffers())
+    return {"batch_stats": stats} if stats else {}
 
 
 def max_pool(x: torch.Tensor, k: int, stride: int,
@@ -240,45 +343,62 @@ def init_weights_(model: nn.Module, seed: int) -> None:
 
 
 def state_of(model: nn.Module) -> dict:
-    """``{"params": {name: f32 array}}``: the reference's export layout,
-    with torch parameter names."""
-    return {"params": {k: t.detach().cpu().float().numpy()
-                       for k, t in model.state_dict().items()}}
+    """The export state of ``model``: ``{"params": {name: f32 array}}``
+    plus, for BatchNorm, ``{"collections": {"batch_stats": {name:
+    array}}}`` — the reference's export layout, with torch names."""
+    buffers = {n for n, _ in model.named_buffers()}
+    params, stats = {}, {}
+    for name, t in model.state_dict().items():
+        (stats if name in buffers else params)[name] = (
+            t.detach().cpu().float().numpy())
+    state = {"params": params}
+    if stats:
+        state["collections"] = {"batch_stats": stats}
+    return state
 
 
 def load_state(model: nn.Module, state: dict) -> nn.Module:
-    """Load :func:`state_of`'s tree into ``model``: every parameter must be
-    present, and nothing else."""
+    """Load :func:`state_of`'s tree into ``model``: every parameter and
+    statistic must be present, and nothing else."""
+    tensors = dict(state["params"])
+    tensors.update((state.get("collections") or {}).get("batch_stats", {}))
     model.load_state_dict(
         {k: torch.from_numpy(np.array(v, dtype=np.float32))
-         for k, v in state["params"].items()}, strict=True)
+         for k, v in tensors.items()}, strict=True)
     return model
 
 
 def config_from_state(state: dict, build, configs) -> object:
     """The first of ``configs`` whose model (``build(config)``, on the
-    ``meta`` device) has exactly ``state``'s parameter names and shapes;
-    ``ValueError`` when none has."""
+    ``meta`` device) has exactly ``state``'s parameter names and shapes,
+    with ``norm="batch"`` where the state carries ``batch_stats`` (the
+    reference's ``pipeline`` rule); ``ValueError`` when none has."""
     got = {k: tuple(getattr(v, "shape", ())) for k, v in
            state["params"].items()}
+    batch = bool((state.get("collections") or {}).get("batch_stats"))
     for config in configs:
+        if batch:
+            config = dataclasses.replace(config, norm="batch")
         with torch.device("meta"):
             model = build(config)
-        if got == {k: tuple(v.shape) for k, v in model.state_dict().items()}:
+        if got == {k: tuple(v.shape) for k, v in model.named_parameters()}:
             return config
     raise ValueError("the export's parameters match none of the configs "
                      f"{[type(c).__name__ for c in configs]} tried")
 
 
-def params_from_flax(params, module_name) -> dict:
-    """A flax ``params`` tree as ``{"params": {torch name: f32 array}}``.
+def params_from_flax(params, module_name, batch_stats=None) -> dict:
+    """A flax ``params`` tree (and BatchNorm ``batch_stats``) as the
+    export state :func:`state_of` writes: ``{"params": {torch name: f32
+    array}}`` plus ``{"collections": {"batch_stats": ...}}``.
 
     ``module_name(path)`` maps a flax module path (a tuple of names) to the
     torch module's name and raises ``KeyError`` for a path it does not
     know.  Conv kernels go HWIO → OIHW (a depthwise ``(kh, kw, 1, C)`` to
     ``(C, 1, kh, kw)``), dense kernels ``(in, out)`` → ``(out, in)``;
-    biases and norm ``scale``/``bias`` keep their names.  A leaf of any
-    other name or rank raises ``KeyError``."""
+    biases, norm ``scale``/``bias`` and the statistics' ``mean``/``var``
+    keep their names.  A leaf of any other name or rank raises
+    ``KeyError``."""
     out = {}
     for path, leaf in flax_leaves(params):
         name = module_name(path[:-1])
@@ -292,7 +412,16 @@ def params_from_flax(params, module_name) -> dict:
             out[f"{name}.{path[-1]}"] = a
         else:
             raise KeyError(f"unmapped flax leaf {'/'.join(path)} {a.shape}")
-    return {"params": out}
+    state = {"params": out}
+    if batch_stats is not None:
+        stats = {}
+        for path, leaf in flax_leaves(batch_stats):
+            if path[-1] not in ("mean", "var"):
+                raise KeyError(f"unmapped flax statistic {'/'.join(path)}")
+            stats[f"{module_name(path[:-1])}.{path[-1]}"] = np.asarray(
+                leaf, dtype=np.float32)
+        state["collections"] = {"batch_stats": stats}
+    return state
 
 
 def numbered(path: tuple, kind: str) -> int:

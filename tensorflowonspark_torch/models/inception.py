@@ -19,8 +19,10 @@ order.  Two padding variants (``Config.canonical``):
 Every conv → GroupNorm → ReLU is a :class:`ConvNorm`, whose norm goes
 through :attr:`InceptionV3.norm_act`, the fused kernel: 94 calls a forward
 (96 in a canonical training step, the aux head's 2 included) and as many
-backward launches a training step.  BatchNorm (``norm="batch"``) is not
-ported.
+backward launches a training step.  With ``norm="batch"`` each ConvNorm's
+norm is the reference's ``nn.BatchNorm(momentum=0.9)`` in plain PyTorch
+(``_common.BatchNorm``): batch statistics and their running update under
+``forward(image, train=True)``, the running statistics otherwise.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ class Config:
     width_mult: float = 1.0
     groups: int = 32
     dtype: str = "bfloat16"
-    norm: str = "group"  # "batch" is not ported
+    norm: str = "group"  # "group" | "batch" (running stats in collections)
     #: True = published Inception-v3: VALID stem/reductions + aux head
     canonical: bool = False
     aux_weight: float = 0.4  # TF-slim's aux-logits loss weight
@@ -68,6 +70,7 @@ class _Widths:
     def __init__(self, config: Config):
         self.mult, self.max_groups = config.width_mult, config.groups
         self.red_pad = "VALID" if config.canonical else "SAME"
+        self.batch = config.norm == "batch"
 
     def ch(self, c: int) -> int:
         return max(8, int(round(c * self.mult)))
@@ -80,16 +83,19 @@ class _Widths:
 
 
 class ConvNorm(nn.Module):
-    """conv (no bias) → GroupNorm → ReLU, the inception building block."""
+    """conv (no bias) → GroupNorm or BatchNorm → ReLU, the inception
+    building block."""
 
     def __init__(self, w: _Widths, cin: int, cout: int, kernel,
                  stride: int = 1, padding: str = "SAME"):
         super().__init__()
         self.conv = _common.Conv(cin, cout, kernel, stride, padding)
-        self.norm = _common.GroupNorm(cout, w.groups(cout))
+        self.norm = (_common.BatchNorm(cout) if w.batch
+                     else _common.GroupNorm(cout, w.groups(cout)))
 
-    def forward(self, x, norm_act, padding: str | None = None):
-        return self.norm(self.conv(x, padding), norm_act)
+    def forward(self, x, norm_act, padding: str | None = None,
+                train: bool = False):
+        return self.norm(self.conv(x, padding), norm_act, train=train)
 
 
 class _Block(nn.Module):
@@ -105,6 +111,11 @@ class _Block(nn.Module):
             padding: str = "SAME") -> int:
         self.cn.append(ConvNorm(self._w, cin, cout, kernel, stride, padding))
         return cout
+
+    def towers(self, act, train: bool):
+        """``c(k, x)``: ConvNorm ``k`` of ``cn`` over ``x`` with this
+        forward's ``norm_act`` and ``train``."""
+        return lambda k, x, padding=None: self.cn[k](x, act, padding, train)
 
 
 def _avg_pool3(x):
@@ -123,12 +134,12 @@ class InceptionA(_Block):
         bp = self.add(cin, w.ch(pool_features), 1)
         self.out = b1 + b5 + b3 + bp
 
-    def forward(self, x, act):
-        c = self.cn
-        b1 = c[0](x, act)
-        b5 = c[2](c[1](x, act), act)
-        b3 = c[5](c[4](c[3](x, act), act), act)
-        bp = c[6](_avg_pool3(x), act)
+    def forward(self, x, act, train=False):
+        c = self.towers(act, train)
+        b1 = c(0, x)
+        b5 = c(2, c(1, x))
+        b3 = c(5, c(4, c(3, x)))
+        bp = c(6, _avg_pool3(x))
         return torch.cat([b1, b5, b3, bp], dim=1)
 
 
@@ -141,10 +152,10 @@ class ReductionA(_Block):
         bd = self.add(w.ch(96), w.ch(96), 3, 2, w.red_pad)
         self.pad, self.out = w.red_pad, b3 + bd + cin
 
-    def forward(self, x, act):
-        c = self.cn
-        b3 = c[0](x, act)
-        bd = c[3](c[2](c[1](x, act), act), act)
+    def forward(self, x, act, train=False):
+        c = self.towers(act, train)
+        b3 = c(0, x)
+        bd = c(3, c(2, c(1, x)))
         bp = _common.max_pool(x, 3, 2, self.pad)
         return torch.cat([b3, bd, bp], dim=1)
 
@@ -165,14 +176,14 @@ class InceptionB(_Block):
         bp = self.add(cin, w.ch(192), 1)
         self.out = b1 + b7 + bd + bp
 
-    def forward(self, x, act):
-        c = self.cn
-        b1 = c[0](x, act)
-        b7 = c[3](c[2](c[1](x, act), act), act)
+    def forward(self, x, act, train=False):
+        c = self.towers(act, train)
+        b1 = c(0, x)
+        b7 = c(3, c(2, c(1, x)))
         bd = x
         for k in range(4, 9):
-            bd = c[k](bd, act)
-        bp = c[9](_avg_pool3(x), act)
+            bd = c(k, bd)
+        bp = c(9, _avg_pool3(x))
         return torch.cat([b1, b7, bd, bp], dim=1)
 
 
@@ -187,12 +198,12 @@ class ReductionB(_Block):
         b7 = self.add(w.ch(192), w.ch(192), 3, 2, w.red_pad)
         self.pad, self.out = w.red_pad, b3 + b7 + cin
 
-    def forward(self, x, act):
-        c = self.cn
-        b3 = c[1](c[0](x, act), act)
+    def forward(self, x, act, train=False):
+        c = self.towers(act, train)
+        b3 = c(1, c(0, x))
         b7 = x
         for k in range(2, 6):
-            b7 = c[k](b7, act)
+            b7 = c(k, b7)
         bp = _common.max_pool(x, 3, 2, self.pad)
         return torch.cat([b3, b7, bp], dim=1)
 
@@ -211,14 +222,14 @@ class InceptionC(_Block):
         bp = self.add(cin, w.ch(192), 1)
         self.out = b1 + b3 + bd + bp
 
-    def forward(self, x, act):
-        c = self.cn
-        b1 = c[0](x, act)
-        b3 = c[1](x, act)
-        b3 = torch.cat([c[2](b3, act), c[3](b3, act)], dim=1)
-        bd = c[5](c[4](x, act), act)
-        bd = torch.cat([c[6](bd, act), c[7](bd, act)], dim=1)
-        bp = c[8](_avg_pool3(x), act)
+    def forward(self, x, act, train=False):
+        c = self.towers(act, train)
+        b1 = c(0, x)
+        b3 = c(1, x)
+        b3 = torch.cat([c(2, b3), c(3, b3)], dim=1)
+        bd = c(5, c(4, x))
+        bd = torch.cat([c(6, bd), c(7, bd)], dim=1)
+        bp = c(8, _avg_pool3(x))
         return torch.cat([b1, b3, bd, bp], dim=1)
 
 
@@ -234,10 +245,11 @@ class AuxHead(_Block):
         width = self.add(w.ch(128), w.ch(768), 5)
         self.head = nn.Linear(width, num_classes)
 
-    def forward(self, x, act):
+    def forward(self, x, act, train=False):
+        c = self.towers(act, train)
         a = _common.avg_pool(x, 5, 3, "VALID" if x.shape[2] >= 5 else "SAME")
-        a = self.cn[0](a, act)
-        a = self.cn[1](a, act, "VALID" if a.shape[2] >= 5 else "SAME")
+        a = c(0, a)
+        a = c(1, a, "VALID" if a.shape[2] >= 5 else "SAME")
         a = _common.global_mean(a)
         return F.linear(a.float(), self.head.weight, self.head.bias)
 
@@ -248,10 +260,9 @@ class InceptionV3(nn.Module):
 
     def __init__(self, config: Config):
         super().__init__()
-        if config.norm != "group":
-            raise NotImplementedError(
-                "Inception-v3 with norm='batch' (BatchNorm training) is not "
-                "ported yet: ROADMAP Queue 1 item 4")
+        if config.norm not in ("group", "batch"):
+            raise ValueError(f"norm must be group or batch, got "
+                             f"{config.norm!r}")
         w = _Widths(config)
         self.dtype = getattr(torch, config.dtype)
         self.canonical = config.canonical
@@ -286,25 +297,35 @@ class InceptionV3(nn.Module):
         self.norm_act = group_norm.group_norm_act
 
     def forward(self, image: torch.Tensor, train: bool = False):
-        act, s = self.norm_act, self.stem
+        act = self.norm_act
+
+        def s(k, x):
+            return self.stem[k](x, act, train=train)
+
         pad = "VALID" if self.canonical else "SAME"
         x = _common.to_nchw(image, self.dtype)
-        x = s[2](s[1](s[0](x, act), act), act)
+        x = s(2, s(1, s(0, x)))
         x = _common.max_pool(x, 3, 2, pad)
-        x = s[4](s[3](x, act), act)
+        x = s(4, s(3, x))
         x = _common.max_pool(x, 3, 2, pad)
         for block in self.inception_a:
-            x = block(x, act)
-        x = self.reduction_a(x, act)
+            x = block(x, act, train)
+        x = self.reduction_a(x, act, train)
         for block in self.inception_b:
-            x = block(x, act)
-        aux = self.aux(x, act) if train and self.aux is not None else None
-        x = self.reduction_b(x, act)
+            x = block(x, act, train)
+        aux = (self.aux(x, act, train) if train and self.aux is not None
+               else None)
+        x = self.reduction_b(x, act, train)
         for block in self.inception_c:
-            x = block(x, act)
+            x = block(x, act, train)
         x = _common.global_mean(x)
         logits = F.linear(x.float(), self.head.weight, self.head.bias)
         return (logits, aux) if aux is not None else logits
+
+    def collections(self) -> dict:
+        """``{"batch_stats": {name: buffer}}`` for BatchNorm (the live
+        running statistics the train state carries), else ``{}``."""
+        return _common.batch_stats_of(self)
 
 
 def make_model(config: Config, seed: int = 0) -> InceptionV3:
@@ -319,9 +340,14 @@ def make_model(config: Config, seed: int = 0) -> InceptionV3:
 def make_loss_fn(model: InceptionV3, config: Config):
     """``loss(model, batch) -> scalar``: softmax cross-entropy in f32; on
     the canonical net ``CE(logits) + aux_weight · CE(aux_logits)``, the
-    published training objective."""
+    published training objective.  For BatchNorm the loss is stateful:
+    the forward trains on the batch's statistics and updates the running
+    ones in place (the aux head's too)."""
+    batch_norm = config.norm == "batch"
     if not config.canonical:
-        return _common.make_classification_loss_fn(model)
+        return (_common.make_stateful_classification_loss_fn(model)
+                if batch_norm else
+                _common.make_classification_loss_fn(model))
 
     def loss_fn(model, batch):
         logits, aux = model(batch["image"], train=True)
@@ -329,6 +355,8 @@ def make_loss_fn(model: InceptionV3, config: Config):
         return (F.cross_entropy(logits.float(), labels)
                 + config.aux_weight * F.cross_entropy(aux.float(), labels))
 
+    if batch_norm:
+        loss_fn.stateful = True
     return loss_fn
 
 
@@ -343,7 +371,8 @@ serving_forward = _common.classification_outputs
 
 def make_serving_model(config: Config) -> InceptionV3:
     """The model an export binds its weights to: on the ``meta`` device,
-    each GroupNorm through ``torch.ops.tfos.group_norm_act``."""
+    each GroupNorm through ``torch.ops.tfos.group_norm_act``; BatchNorm in
+    eval mode over the export's ``batch_stats``."""
     with torch.device("meta"):
         model = InceptionV3(config)
     model.norm_act = group_norm.group_norm_act_op
@@ -362,7 +391,8 @@ load_state = _common.load_state
 
 def config_from_state(state: dict) -> Config:
     """The config with the export's parameter shapes: ``Config()`` or
-    ``Config.tiny()``, canonical where the export holds the aux head."""
+    ``Config.tiny()``, canonical where the export holds the aux head,
+    ``norm="batch"`` where it carries ``batch_stats``."""
     return _common.config_from_state(state, InceptionV3, (
         Config(), Config(canonical=True), Config.tiny(),
         Config.tiny_canonical()))
@@ -372,11 +402,12 @@ def config_from_state(state: dict) -> Config:
 _BLOCKS = {"InceptionA": ("inception_a", 3), "ReductionA": ("reduction_a", 1),
            "InceptionB": ("inception_b", 4), "ReductionB": ("reduction_b", 1),
            "InceptionC": ("inception_c", 2)}
-_INNER = {"Conv_0": "conv", "GroupNorm_0": "norm"}
+_INNER = {"Conv_0": "conv", "GroupNorm_0": "norm", "BatchNorm_0": "norm"}
 
 
 def _conv_norm(path: tuple, prefix: str) -> str:
-    """``(ConvNorm_k, Conv_0 | GroupNorm_0)`` → ``<prefix>.k.conv|norm``."""
+    """``(ConvNorm_k, Conv_0 | GroupNorm_0 | BatchNorm_0)`` →
+    ``<prefix>.k.conv|norm``."""
     if len(path) == 2 and path[1] in _INNER:
         k = _common.numbered(path[:1], "ConvNorm")
         return f"{prefix}.{k}.{_INNER[path[1]]}"
@@ -404,12 +435,13 @@ def _module_name(path: tuple) -> str:
         raise KeyError(f"unmapped flax module {'/'.join(path)}") from None
 
 
-def params_from_flax(params) -> dict:
-    """The reference's params by call-order name (``ConvNorm_k`` of the
-    stem and of each block, ``InceptionA_0..2``, ``ReductionA_0``,
-    ``InceptionB_0..3``, ``aux``, ``ReductionB_0``, ``InceptionC_0..1``,
-    ``Dense_0``) as the port's.  Every leaf must map."""
-    return _common.params_from_flax(params, _module_name)
+def params_from_flax(params, batch_stats=None) -> dict:
+    """The reference's params (and BatchNorm ``batch_stats``) by
+    call-order name (``ConvNorm_k`` of the stem and of each block,
+    ``InceptionA_0..2``, ``ReductionA_0``, ``InceptionB_0..3``, ``aux``,
+    ``ReductionB_0``, ``InceptionC_0..1``, ``Dense_0``) as the port's
+    export state.  Every leaf must map."""
+    return _common.params_from_flax(params, _module_name, batch_stats)
 
 
 def opt_state_from_optax(opt_state, params) -> dict:

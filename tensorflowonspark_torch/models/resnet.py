@@ -10,8 +10,10 @@ The reference's choices carry over unchanged:
   (``conv3``/``norm3``) where the shape changes, and the block ends with
   ``relu(residual + norm2(conv2(y)))``;
 - GroupNorm by default (``num_groups=min(groups, ch)``, epsilon 1e-6, f32
-  statistics), BatchNorm with ``norm="batch"`` (eval only here: running
-  statistics, epsilon 1e-5; :func:`make_loss_fn` trains GroupNorm only).
+  statistics), BatchNorm with ``norm="batch"`` (flax's ``momentum=0.9``,
+  epsilon 1e-5: batch statistics and their running update under
+  ``forward(image, train=True)``, the running statistics otherwise; plain
+  PyTorch, ``_common.batch_norm``).
 
 Each GroupNorm goes through :attr:`ResNet.norm_act` — the fused kernel of
 :mod:`tensorflowonspark_torch.kernels.group_norm` — with the ReLU and, at a
@@ -38,7 +40,7 @@ from tensorflowonspark_torch.kernels import group_norm
 from tensorflowonspark_torch.models import _common
 
 GROUP_NORM_EPS = _common.GROUP_NORM_EPS
-BATCH_NORM_EPS = 1e-5  # flax nn.BatchNorm default
+BATCH_NORM_EPS = _common.BATCH_NORM_EPS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,8 +66,10 @@ _Conv = _common.Conv
 
 
 class _Norm(nn.Module):
-    """GroupNorm through the fused kernel, or eval-mode BatchNorm, with the
-    optional residual add and ReLU of the position it sits at."""
+    """GroupNorm through the fused kernel, or BatchNorm
+    (``_common.batch_norm``: batch statistics and the running update with
+    ``train``, the running statistics without), with the optional
+    residual add and ReLU of the position it sits at."""
 
     def __init__(self, ch: int, groups: int, batch: bool):
         super().__init__()
@@ -77,19 +81,12 @@ class _Norm(nn.Module):
             self.register_buffer("mean", torch.zeros(ch))
             self.register_buffer("var", torch.ones(ch))
 
-    def forward(self, x, norm_act, residual=None, relu=True):
+    def forward(self, x, norm_act, residual=None, relu=True, train=False):
         if not self.batch:
             return norm_act(x, self.scale, self.bias, self.groups,
                             GROUP_NORM_EPS, residual, relu)
-        # flax BatchNorm(use_running_average=True): f32 affine, rounded to
-        # the compute dtype; the add and ReLU then run in that dtype
-        shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(self.var + BATCH_NORM_EPS) * self.scale
-        y = ((x.float() - self.mean.view(shape)) * mul.view(shape)
-             + self.bias.view(shape)).to(x.dtype)
-        if residual is not None:
-            y = residual + y
-        return torch.relu(y) if relu else y
+        return _common.batch_norm(x, self.scale, self.bias, self.mean,
+                                  self.var, train, residual, relu)
 
 
 class Bottleneck(nn.Module):
@@ -109,17 +106,22 @@ class Bottleneck(nn.Module):
         else:
             self.conv3 = self.norm3 = None
 
-    def forward(self, x, norm_act):
-        y = self.norm0(self.conv0(x), norm_act)
-        y = self.norm1(self.conv1(y), norm_act)
+    def forward(self, x, norm_act, train=False):
+        y = self.norm0(self.conv0(x), norm_act, train=train)
+        y = self.norm1(self.conv1(y), norm_act, train=train)
         residual = x
         if self.conv3 is not None:
-            residual = self.norm3(self.conv3(x), norm_act, relu=False)
-        return self.norm2(self.conv2(y), norm_act, residual=residual)
+            residual = self.norm3(self.conv3(x), norm_act, relu=False,
+                                  train=train)
+        return self.norm2(self.conv2(y), norm_act, residual=residual,
+                          train=train)
 
 
 class ResNet(nn.Module):
-    """``forward(image)``: NHWC float32 images → float32 logits."""
+    """``forward(image, train=False)``: NHWC float32 images → float32
+    logits.  ``train`` matters to BatchNorm only (batch statistics and the
+    running update); it is an argument, as the reference's, never the
+    module's ``.training`` flag."""
 
     def __init__(self, config: Config):
         super().__init__()
@@ -141,17 +143,23 @@ class ResNet(nn.Module):
         #: ``group_norm.group_norm_act_plain`` to run the plain twin
         self.norm_act = group_norm.group_norm_act
 
-    def forward(self, image: torch.Tensor) -> torch.Tensor:
+    def forward(self, image: torch.Tensor, train: bool = False
+                ) -> torch.Tensor:
         x = image.to(self.dtype).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        x = self.norm(self.conv(x), self.norm_act)
+        x = self.norm(self.conv(x), self.norm_act, train=train)
         (ht, hb), (wl, wr) = same_pads(x.shape[2], 3, 2), same_pads(
             x.shape[3], 3, 2)
         x = F.max_pool2d(F.pad(x, (wl, wr, ht, hb), value=float("-inf")), 3, 2)
         for block in self.blocks:
-            x = block(x, self.norm_act)
+            x = block(x, self.norm_act, train)
         x = x.mean(dim=(2, 3), dtype=torch.float32).to(self.dtype)
         return F.linear(x.float(), self.head.weight, self.head.bias)
+
+    def collections(self) -> dict:
+        """``{"batch_stats": {name: buffer}}`` for BatchNorm (the live
+        running statistics the train state carries), else ``{}``."""
+        return _common.batch_stats_of(self)
 
 
 def make_model(config: Config, seed: int = 0) -> ResNet:
@@ -166,12 +174,11 @@ def make_model(config: Config, seed: int = 0) -> ResNet:
 
 
 def make_loss_fn(model: ResNet, config: Config):
-    """``loss(model, batch) -> scalar`` (softmax cross-entropy, f32).
-    GroupNorm only: BatchNorm training (batch statistics and their running
-    update) is not ported yet."""
+    """``loss(model, batch) -> scalar`` (softmax cross-entropy, f32); for
+    BatchNorm the stateful loss, which trains on the batch's statistics
+    and updates the running ones in place."""
     if config.norm == "batch":
-        raise NotImplementedError(
-            "BatchNorm training is not ported yet: use norm='group'")
+        return _common.make_stateful_classification_loss_fn(model)
     return _common.make_classification_loss_fn(model)
 
 
@@ -183,7 +190,9 @@ def make_serving_model(config: Config) -> ResNet:
     """The model an export binds its weights to: built on the ``meta``
     device (no storage, no init), each GroupNorm through
     ``torch.ops.tfos.group_norm_act``, which ``torch.export`` records as
-    one node that dispatches on the device the program runs on."""
+    one node that dispatches on the device the program runs on.  A
+    BatchNorm model serves in eval mode: its running statistics, bound
+    from the export's ``batch_stats``."""
     with torch.device("meta"):
         model = ResNet(config)
     model.norm_act = group_norm.group_norm_act_op
@@ -266,30 +275,10 @@ def tfrecord_parse_fn(side: int):
 # ---------------------------------------------------------------------------
 
 
-def state_of(model: ResNet) -> dict:
-    """The export state of ``model``: ``{"params": {name: array}}`` plus,
-    for BatchNorm, ``{"collections": {"batch_stats": {name: array}}}`` —
-    the reference's export layout, with torch parameter names."""
-    buffers = {n for n, _ in model.named_buffers()}
-    params, stats = {}, {}
-    for name, t in model.state_dict().items():
-        (stats if name in buffers else params)[name] = (
-            t.detach().cpu().float().numpy())
-    state = {"params": params}
-    if stats:
-        state["collections"] = {"batch_stats": stats}
-    return state
-
-
-def load_state(model: ResNet, state: dict) -> ResNet:
-    """Load an export state (see :func:`state_of`) into ``model``; every
-    parameter and statistic must be present, and nothing else."""
-    tensors = dict(state["params"])
-    tensors.update((state.get("collections") or {}).get("batch_stats", {}))
-    model.load_state_dict(
-        {k: torch.from_numpy(np.array(v, dtype=np.float32))
-         for k, v in tensors.items()}, strict=True)
-    return model
+#: the export state (``{"params"}`` plus BatchNorm's ``{"collections":
+#: {"batch_stats"}}``) and its load, strict
+state_of = _common.state_of
+load_state = _common.load_state
 
 
 def config_from_state(state: dict) -> Config:
@@ -339,16 +328,7 @@ def params_from_flax(params, batch_stats=None) -> dict:
     Conv kernels go HWIO → OIHW, the ``Dense`` kernel ``(in, out)`` →
     ``(out, in)``; norm ``scale``/``bias`` and ``mean``/``var`` keep their
     names.  A leaf that maps to nothing raises ``KeyError``."""
-    state = _common.params_from_flax(params, _module_name)
-    if batch_stats is not None:
-        stats = {}
-        for path, leaf in _common.flax_leaves(batch_stats):
-            if path[-1] not in ("mean", "var"):
-                raise KeyError(f"unmapped flax statistic {'/'.join(path)}")
-            stats[f"{_module_name(path[:-1])}.{path[-1]}"] = np.asarray(
-                leaf, dtype=np.float32)
-        state["collections"] = {"batch_stats": stats}
-    return state
+    return _common.params_from_flax(params, _module_name, batch_stats)
 
 
 def opt_state_from_optax(opt_state, params) -> dict:

@@ -13,7 +13,14 @@ builds the eager step:
 - with a ``torch.distributed`` group of more than one process, the
   gradients and the loss are averaged across ranks by one ``all_reduce``
   of one flat buffer: each rank trains on its share of the global batch,
-  as each dp shard does under the ``psum``;
+  as each dp shard does under the ``psum``.  A stateful loss (BatchNorm:
+  ``loss_fn.stateful``) normalises each rank's share by that share's
+  statistics and updates the running statistics in place; their floating
+  leaves ride the same buffer and leave it averaged.  That is the
+  reference's default, bucketed step (``parallel/collectives.py``:
+  per-replica statistics, then a ``pmean`` of every floating collection
+  leaf); its global-batch statistics (one data shard, or
+  ``TFOS_BUCKETED_ALLREDUCE=0``) are what one process computes;
 - the optional global-norm clip, with optax's semantics: gradients are
   scaled by ``max_norm / norm`` only when ``norm ≥ max_norm``;
 - the optimizer step, which updates the parameters in place (where the
@@ -47,9 +54,9 @@ class TrainState:
     optimizer updates in place), ``opt_state`` (the optimizer, which owns
     the moments), ``step`` (completed steps) and ``collections``: the
     model's non-param state by collection (``{"embedding": {"deep": t,
-    ...}}`` for wide&deep, from the module's ``collections()``; empty for a
-    model without one), live tensors that a model's own step updates in
-    place."""
+    ...}}`` for wide&deep, ``{"batch_stats": {"norm.mean": t, ...}}`` for
+    BatchNorm, from the module's ``collections()``; empty for a model
+    without one), live tensors that the step updates in place."""
 
     def __init__(self, params, opt_state, step: int = 0, collections=None):
         self.params = params
@@ -168,20 +175,37 @@ def all_gather_cat(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
     return out
 
 
+def floating_leaves(collections: dict) -> list[torch.Tensor]:
+    """The floating-point tensors of a state's ``collections`` (BatchNorm's
+    running statistics), in the collections' order, which every rank
+    shares."""
+    out = []
+    for leaf in collections.values():
+        if isinstance(leaf, dict):
+            out += floating_leaves(leaf)
+        elif isinstance(leaf, torch.Tensor) and leaf.is_floating_point():
+            out.append(leaf)
+    return out
+
+
 def average_across_ranks(grads: list[torch.Tensor], loss: torch.Tensor,
-                         world: int) -> torch.Tensor:
-    """Average ``grads`` (in place) and ``loss`` over the ranks with one
-    ``all_reduce`` of one flat f32 buffer; returns the averaged loss."""
+                         world: int,
+                         stats: list[torch.Tensor] = ()) -> torch.Tensor:
+    """Average ``grads`` and ``stats`` (both in place) and ``loss`` over
+    the ranks with one ``all_reduce`` of one flat f32 buffer; returns the
+    averaged loss."""
     import torch.distributed as dist
 
-    flat = torch.cat([g.reshape(-1).float() for g in grads]
+    tensors = [*grads, *stats]
+    flat = torch.cat([t.reshape(-1).float() for t in tensors]
                      + [loss.detach().reshape(1).float()])
     dist.all_reduce(flat)
     flat /= world
     offset = 0
-    for g in grads:
-        g.copy_(flat[offset:offset + g.numel()].view_as(g))
-        offset += g.numel()
+    with torch.no_grad():
+        for t in tensors:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
     return flat[-1]
 
 
@@ -203,8 +227,11 @@ def make_train_step(loss_fn: Callable[[Any, Any], torch.Tensor], optimizer,
     """``step(state, batch) -> (state, loss)``: one optimizer step of
     ``loss_fn(model, batch)`` (see the module docstring).  ``loss`` is the
     detached scalar on the device, averaged over the ranks when a group
-    of more than one process is initialised."""
+    of more than one process is initialised.  A stateful loss updates
+    ``state.collections`` in place, and across ranks they are averaged
+    with the gradients."""
     params = [p for p in model.parameters() if p.requires_grad]
+    stateful = bool(getattr(loss_fn, "stateful", False))
 
     def step(state: TrainState, batch):
         optimizer.zero_grad(set_to_none=True)
@@ -212,8 +239,11 @@ def make_train_step(loss_fn: Callable[[Any, Any], torch.Tensor], optimizer,
         loss.backward()
         grads = gradients_of(params)
         world = world_size()
-        loss = (average_across_ranks(grads, loss, world) if world > 1
-                else loss.detach())
+        if world > 1:
+            stats = floating_leaves(state.collections) if stateful else []
+            loss = average_across_ranks(grads, loss, world, stats)
+        else:
+            loss = loss.detach()
         if clip_global_norm is not None:
             clip_by_global_norm_(grads, float(clip_global_norm))
         optimizer.step()
@@ -224,11 +254,13 @@ def make_train_step(loss_fn: Callable[[Any, Any], torch.Tensor], optimizer,
 
 
 def make_eval_step(forward_fn, model: torch.nn.Module):
-    """``eval_step(batch) -> outputs``: ``forward_fn(model, batch)`` (the
-    model zoo's forwards run without autograd)."""
+    """``eval_step(batch) -> outputs``: ``forward_fn(model, batch)``
+    without autograd (``inference_mode``), whatever the forward does, so
+    no output requires grad."""
 
     def eval_step(batch):
-        return forward_fn(model, batch)
+        with torch.inference_mode():
+            return forward_fn(model, batch)
 
     return eval_step
 

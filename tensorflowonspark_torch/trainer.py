@@ -214,8 +214,10 @@ class Trainer:
         return loss
 
     def predict(self, batch):
-        """The model's forward on ``batch``, reading its collections (the
-        wide&deep tables) as they stand."""
+        """The model's forward on ``batch`` without autograd (no output
+        requires grad), reading its collections as they stand: the
+        wide&deep tables, BatchNorm's running statistics (the eval
+        forward never updates them)."""
         return self.eval_step(self.shard(batch))
 
     @property

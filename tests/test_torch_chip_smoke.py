@@ -1174,7 +1174,7 @@ def test_phase17_gates_budget_and_the_kernels_line():
     main = inspect.getsource(chip_smoke.main)
     assert main.index("decode_phase()") > main.index("sc.stop()")
     assert "kernels += phase17_entries(decoded)" in main
-    assert "choices=(16, 17)" in main
+    assert "choices=(16, 17, 18)" in main
     result = {
         "kernels": {label: {k: {"max_abs_err": 0.0, "ms": 1.0,
                                 "plain_ms": 2.0, "bound_ms": 0.5,
@@ -1311,3 +1311,224 @@ def test_phase17e_gates_budget_and_the_kernels_line():
               "replay_traced": {"kv_append": 4, "paged_attention": 4}}
     for e in chip_smoke.phase17_entries(result):
         assert e["launches_phase17e"] == 76 and e["launches"] == 12
+
+
+# ---------------------------------------------------------------------------
+# Phase 18 (BatchNorm training): the gates that need no card
+# ---------------------------------------------------------------------------
+
+
+def _bn_case(variant):
+    import dataclasses
+
+    from tensorflowonspark_torch.models import inception, resnet
+
+    if variant == "resnet50":
+        return "resnet50", resnet, resnet.Config.tiny("batch")
+    return "inception_v3", inception, dataclasses.replace(
+        inception.Config.tiny_canonical(), norm="batch")
+
+
+@pytest.mark.parametrize("variant", ["resnet50", "inception_v3"])
+def test_phase18_running_statistics_gate_catches_an_unbiased_variance(
+        one_thread, variant):
+    """18(a)'s statistics gate on the CPU: after one ``Trainer.step`` every
+    norm's running mean and var sit within ``BN_STATS_TOL`` of flax's rule
+    recomputed in f64 from the norms' inputs; with torch's ``batch_norm``
+    planted (an unbiased running variance) the same gate reads above it,
+    at a var buffer."""
+    name, lib, config = _bn_case(variant)
+    batch = lib.example_batch(config, 8, seed=3)
+    worst, where, complete, sites = chip_smoke.bn_stats_case(
+        name, config, batch, device="cpu")
+    assert complete and sites > 0
+    assert worst <= chip_smoke.BN_STATS_TOL, (worst, where)
+    fault, at, _, _ = chip_smoke.bn_stats_case(name, config, batch,
+                                               device="cpu", planted=True)
+    assert fault > chip_smoke.BN_STATS_TOL and at.endswith(".var")
+
+
+def test_phase18_gradient_gate_catches_detached_statistics(one_thread):
+    """18(a)'s gradient gate on the CPU at the tiny config: the same f32
+    step twice is the same gradients, and with the batch's statistics cut
+    from autograd (``chip_smoke.detached_statistics``) the gradients read
+    above ``BN_GRADS_F32_VS_HOST`` from the true ones."""
+    from tensorflowonspark_torch.kernels import group_norm
+    from tensorflowonspark_torch.models import _common
+
+    name, lib, config = _bn_case("resnet50")
+    model = lib.make_model(config, seed=0)
+    batch = {k: torch.from_numpy(v)
+             for k, v in lib.example_batch(config, 8, seed=3).items()}
+    loss_fn = lib.make_loss_fn(model, config)
+    act = group_norm.group_norm_act_plain
+    true = chip_smoke._grads(model, loss_fn, batch, act)[0]
+    assert chip_smoke._rel_l2(chip_smoke._grads(model, loss_fn, batch,
+                                                act)[0], true) == 0
+    plain = _common.batch_norm
+    with chip_smoke.swapped(_common, "batch_norm",
+                            chip_smoke.detached_statistics):
+        fault = chip_smoke._grads(model, loss_fn, batch, act)[0]
+    assert _common.batch_norm is plain
+    assert chip_smoke._rel_l2(fault, true) > chip_smoke.BN_GRADS_F32_VS_HOST
+
+
+def test_phase18_bf16_gates_hold_and_catch_planted_faults(one_thread):
+    """18(a)'s bf16 gates on the CPU at the tiny config: every BatchNorm
+    site of the bf16 step, output and input gradient, sits within
+    ``BN_BF16_SITE`` of f64 on its own inputs, and the loss within
+    ``BN_BF16_LOSS_REL`` of the f32 twin's; the recorded dx halved or
+    permuted, the statistics cut from autograd and a forward that lost
+    ``train`` each read above the gate they must break, and a fault that
+    reads below is reported."""
+    import dataclasses
+
+    from tensorflowonspark_torch.kernels import group_norm
+    from tensorflowonspark_torch.models import _common
+
+    name, lib, config = _bn_case("resnet50")
+    state = lib.state_of(lib.make_model(config, seed=0))
+    bf16 = lib.load_state(lib.make_model(dataclasses.replace(
+        config, dtype="bfloat16")), state)
+    f32 = lib.load_state(lib.make_model(config), state)
+    batch = {k: torch.from_numpy(v)
+             for k, v in lib.example_batch(config, 8, seed=3).items()}
+    loss_fn = lib.make_loss_fn(f32, config)
+    loss32 = chip_smoke._grads(f32, loss_fn, batch,
+                               group_norm.group_norm_act_plain)[1]
+    plain = _common.batch_norm
+    good = chip_smoke.bn_site_gaps(bf16, loss_fn, batch)
+    faults = {"detached statistics": chip_smoke.bn_site_gaps(
+                  bf16, loss_fn, batch, chip_smoke.detached_statistics),
+              "lost train": chip_smoke.bn_site_gaps(
+                  bf16, loss_fn, batch, chip_smoke.lost_train)}
+    assert _common.batch_norm is plain
+    n_sites = sum(1 for k, _ in bf16.named_buffers() if k.endswith(".mean"))
+    assert good["sites"] == n_sites == 9
+    assert 0 < good["y"] <= chip_smoke.BN_BF16_SITE
+    assert 0 < good["dx"] <= chip_smoke.BN_BF16_SITE
+    assert chip_smoke.bf16_gate(loss32, good, faults) == []
+    assert good["dx halved"] == pytest.approx(0.5, abs=0.01)
+    assert good["dx uncorrelated"] > 1.0
+    assert faults["detached statistics"]["dx"] > 0.1
+    # the same f32 step through the gate reads rounding alone
+    f32_sites = chip_smoke.bn_site_gaps(f32, loss_fn, batch)
+    assert f32_sites["y"] < 1e-5 and f32_sites["dx"] < 1e-4
+    missed = dict(faults, **{"detached statistics": good})
+    assert chip_smoke.bf16_gate(loss32, good, missed) == [
+        "planted detached statistics dx MISSED"]
+
+
+def test_phase18_eval_bits_hold_and_catch_a_train_mode_forward(one_thread):
+    """18(c) on the CPU: after steps, a row's logits are the same bits
+    alone, in its batch and in another; a train-mode forward at eval
+    (batch statistics) breaks that, and leaves the running statistics as
+    they were."""
+    from tensorflowonspark_torch.trainer import Trainer
+
+    name, lib, config = _bn_case("resnet50")
+    t = Trainer(name, config=config, device="cpu")
+    for i in range(2):
+        t.step(lib.example_batch(config, 8, seed=i))
+    images = torch.from_numpy(lib.example_batch(config, 8, seed=5)["image"])
+    got = chip_smoke.eval_bits(lambda x: t.predict({"image": x}), images, 3)
+    assert got["same_bits"] and got["max_gap"] == 0
+    stats = {k: v.clone() for k, v in t.model.named_buffers()}
+    planted = chip_smoke.eval_bits(chip_smoke.train_mode_predict(t),
+                                   images, 3)
+    assert not planted["same_bits"] and planted["max_gap"] > 1e-3
+    assert all(torch.equal(v, stats[k]) for k, v in t.model.named_buffers())
+
+
+def test_phase18_families_attribute_the_batch_norm_ops(one_thread):
+    """18(b)'s families on the CPU's op events (self times standing for
+    kernels): the BatchNorm ranges' forward ops go to their families, every
+    backward node of an op inside ``tfos::batch_norm`` to "BatchNorm apply
+    and backward" (matched by autograd sequence number), convs, casts,
+    pads and pools and AdamW by name, and nothing else into those."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tensorflowonspark_torch.trainer import Trainer
+
+    name, lib, config = _bn_case("resnet50")
+    t = Trainer(name, config=config, device="cpu")
+    batch = lib.example_batch(config, 4)
+    t.step(batch)
+    with chip_smoke.bn_annotated(), profile(
+            activities=[ProfilerActivity.CPU]) as prof:
+        t.step(batch)
+    events = list(prof.events())
+    fams = chip_smoke.step_families(
+        events, [(e, e.name, e.self_cpu_time_total / 1e3) for e in events])
+    for fam in ("convs", "BatchNorm statistics",
+                "BatchNorm apply and backward", "casts/pads/pool", "AdamW"):
+        assert fams[fam] > 0, fam
+    assert fams["GroupNorm kernels"] == 0
+    seq = chip_smoke._bn_sequence_numbers(events)
+    backward = [e for e in events if e.name.startswith(
+        "autograd::engine::evaluate_function: ")]
+    bn_nodes = {e.name.rsplit(" ", 1)[1] for e in backward
+                if chip_smoke.event_family(e, e.name, seq)
+                == "BatchNorm apply and backward"}
+    assert {"NativeBatchNormBackward0", "ReluBackward0"} <= bn_nodes
+    assert not {"ConvolutionBackward0", "NllLossBackward0",
+                "AddmmBackward0"} & bn_nodes
+    # the stock GroupNorm step has no BatchNorm family at all
+    g = Trainer(name, config=lib.Config.tiny(), device="cpu")
+    g.step(batch)
+    with chip_smoke.bn_annotated(), profile(
+            activities=[ProfilerActivity.CPU]) as prof:
+        g.step(batch)
+    events = list(prof.events())
+    fams = chip_smoke.step_families(
+        events, [(e, e.name, e.self_cpu_time_total / 1e3) for e in events])
+    assert fams["BatchNorm statistics"] == 0
+    assert fams["BatchNorm apply and backward"] == 0
+
+
+def test_phase18_kernels_of_an_op_leave_out_annotation_spans():
+    """A ``record_function`` range's device span comes attached to the
+    range like a kernel; the families count only the kernels."""
+    kernel = types.SimpleNamespace
+    rng = types.SimpleNamespace(name="tfos::batch_norm", kernels=[
+        kernel(name="tfos::batch_norm", duration=900.0)])
+    op = types.SimpleNamespace(name="aten::mul", kernels=[
+        kernel(name="vectorized_elementwise_kernel", duration=300.0)])
+    step = types.SimpleNamespace(name="Optimizer.step#AdamW.step", kernels=[
+        kernel(name="Optimizer.step#AdamW.step", duration=50.0),
+        kernel(name="multi_tensor_apply_kernel", duration=20.0)])
+    assert chip_smoke.launched_kernels(rng, 3) == []
+    assert chip_smoke.launched_kernels(op, 3) == [
+        ("vectorized_elementwise_kernel", 300.0 / 1e3 / 3)]
+    assert chip_smoke.launched_kernels(step) == [
+        ("multi_tensor_apply_kernel", 0.02)]
+
+
+def test_phase18_a_kernel_counts_once_when_host_ids_collide():
+    """The profiler attaches a kernel to every host event of its
+    correlation id, and its bookkeeping events can share an op's id:
+    ``kernels_by_op`` counts such a kernel once, on the op."""
+    kernel = types.SimpleNamespace(name="elementwise_kernel", duration=10.0)
+    parent = types.SimpleNamespace(name="tfos::batch_norm", cpu_parent=None,
+                                   id=3, kernels=[], is_user_annotation=True)
+    op = types.SimpleNamespace(name="aten::mul", cpu_parent=parent, id=7,
+                               kernels=[kernel], is_user_annotation=False)
+    book = types.SimpleNamespace(name="Activity Buffer Request",
+                                 cpu_parent=None, id=7, kernels=[kernel],
+                                 is_user_annotation=False)
+    other = types.SimpleNamespace(name="aten::add", cpu_parent=None, id=8,
+                                  kernels=[kernel], is_user_annotation=False)
+    got = list(chip_smoke.kernels_by_op([book, parent, op, other], 2))
+    assert got == [(op, "elementwise_kernel", 0.005),
+                   (other, "elementwise_kernel", 0.005)]
+
+
+def test_phase18_is_on_the_command_line_and_in_the_kernels_line():
+    """``--phase 18`` parses; the kernels line gains ``launches_phase18``
+    for every GroupNorm and table entry (phase 18 launches none)."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    assert "choices=(16, 17, 18)" in src
+    assert src.count('"launches_phase18"') == 3
+    assert chip_smoke.PHASE18_BUDGET_S == 60

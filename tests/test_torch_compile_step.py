@@ -22,6 +22,7 @@ import torch
 
 from tensorflowonspark_torch.examples import bert_squad
 from tensorflowonspark_torch.kernels import group_norm, sparse_adagrad
+from tensorflowonspark_torch.models import inception as port_inception
 from tensorflowonspark_torch.models import resnet as port_resnet
 from tensorflowonspark_torch.models import widedeep as port_wd
 from tensorflowonspark_torch.parallel import train as train_lib
@@ -157,10 +158,24 @@ def _wd_batches(config, n=STEPS):
     return [ref_wd.example_batch(config, BATCH, seed=i) for i in range(n)]
 
 
+def _inception_batches(config, n=STEPS):
+    return [port_inception.example_batch(config, 4, seed=i)
+            for i in range(n)]
+
+
 CASES = {
     "resnet": (lambda: ("resnet50", port_resnet.Config.tiny()),
                lambda c: _resnet_batches(ref_resnet.Config(
                    **dataclasses.asdict(c)))),
+    # BatchNorm: the running statistics update inside the step (a replay
+    # updates them), and the bits compared include them
+    "resnet_batch_norm": (lambda: ("resnet50", port_resnet.Config.tiny(
+        "batch")), lambda c: _resnet_batches(ref_resnet.Config(
+            **dataclasses.asdict(c)))),
+    "inception_canonical_batch_norm": (lambda: ("inception_v3",
+                                                dataclasses.replace(
+        port_inception.Config.tiny_canonical(), norm="batch")),
+        _inception_batches),
     "wide_deep_dense": (lambda: ("wide_deep", dataclasses.replace(
         port_wd.Config.tiny(), table_update="dense")),
         lambda c: _wd_batches(ref_wd.Config(**dataclasses.asdict(c)))),

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from tensorflowonspark_torch import ckpt
 from tensorflowonspark_torch.models import inception as port
 from tensorflowonspark_tpu.models import inception as ref
 from test_torch_zoo import (F32_REL, check_parity, count_norm_calls,
@@ -201,9 +202,204 @@ def test_converter_maps_every_leaf_at_full_width():
             port.params_from_flax(dict(params, **bad))
 
 
-def test_batch_norm_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        port.make_model(port.Config(norm="batch"))
+@pytest.mark.parametrize("variant", ["tiny", "tiny_canonical"])
+def test_batch_norm_trains_and_serves(variant):
+    """``Trainer("inception_v3", config=Config(norm="batch"))`` trains both
+    tiny variants (the canonical one through its aux loss, whose head's
+    statistics update too); the state carries every norm's running mean
+    and var as ``batch_stats``, ``config_from_state`` finds the BatchNorm
+    config, and the serving model bound to params and statistics gives
+    ``predict``'s logits, which require no grad."""
+    from tensorflowonspark_torch import saved_model
+    from tensorflowonspark_torch.trainer import Trainer
+
+    config = dataclasses.replace(getattr(port.Config, variant)(),
+                                 norm="batch")
+    t = Trainer("inception_v3", config=config, learning_rate=1e-3,
+                device="cpu")
+    stats = t.state.collections["batch_stats"]
+    assert len(stats) == 2 * sum(
+        isinstance(m, port._common.BatchNorm) for m in t.model.modules())
+    assert not any(isinstance(m, port._common.GroupNorm)
+                   for m in t.model.modules())
+    batch = port.example_batch(config, batch_size=4)
+    losses = [float(t.step(batch)) for _ in range(3)]
+    assert np.all(np.isfinite(losses))
+    moved = [k for k, v in stats.items() if not torch.equal(
+        v, torch.zeros_like(v) if k.endswith(".mean") else
+        torch.ones_like(v))]
+    assert sorted(moved) == sorted(stats)  # the aux head's included
+    state = port.state_of(t.model)
+    assert sorted(state["collections"]["batch_stats"]) == sorted(stats)
+    assert port.config_from_state(state) == config
+    want = t.predict(batch)
+    assert not want.requires_grad
+    serve = saved_model.wrap_state_forward(port.serving_forward,
+                                           port.make_serving_model(config))
+    got = serve({"params": {k: torch.from_numpy(v)
+                            for k, v in state["params"].items()},
+                 "collections": {"batch_stats": {
+                     k: torch.from_numpy(v) for k, v in
+                     state["collections"]["batch_stats"].items()}}},
+                {"image": torch.from_numpy(batch["image"])})
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def _bf16_statistics(plain):
+    """A planted summation-precision fault, in ``_common.batch_norm``'s
+    place: in training the batch's mean and biased variance kept in bf16
+    (autograd through them); eval as ``plain``."""
+    def batch_norm(x, scale, bias, running_mean, running_var, train,
+                   residual=None, relu=True):
+        if not train:
+            return plain(x, scale, bias, running_mean, running_var, False,
+                         residual, relu)
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        mean, var = (mean.bfloat16().to(x.dtype),
+                     var.bfloat16().to(x.dtype))
+        port._common.update_running_(running_mean, running_var,
+                                     mean.detach(),
+                                     torch.rsqrt(var.detach() + 1e-5))
+        shape = (1, -1, 1, 1)
+        y = ((x - mean.view(shape))
+             * (torch.rsqrt(var + 1e-5) * scale).view(shape)
+             + bias.view(shape))
+        if residual is not None:
+            y = residual + y
+        return torch.relu(y) if relu else y
+
+    return batch_norm
+
+
+#: the port's f32 step from the f64 answer against the JAX package's own:
+#: the f32 rounding of either is a draw whose size moves with the order of
+#: its sums (the port's one step, tiny config: gradients 1.4e-1 from f64
+#: on one thread, 4.9e-3 on four; JAX's 3.0e-2), so the bound is an order
+#: of magnitude
+F32_ERROR_OVER_JAX = 10
+
+
+@pytest.mark.parametrize("variant", ["tiny", "tiny_canonical"])
+def test_batch_norm_step_matches_the_jax_trainer_in_f64(variant):
+    """One step of the port's ``Trainer`` against the JAX ``Trainer`` on
+    one data shard (the whole batch's statistics), SGD, from the same
+    weights, in f64 (JAX's x64 mode; the f32 heads of both round alike):
+    the loss (the canonical one with its aux term), every parameter after
+    the step (so every gradient), every running statistic, then
+    ``predict`` over them, within 1e-5.
+
+    One step, not five: at these sizes the last stages' BatchNorms see 4
+    values a channel (1×1 at batch 4; the canonical aux head too), where
+    gradients reach 9e2 and training is chaotic.  In f64 the first step's
+    gradients agree within 3.4e-7 of each leaf's largest (the f32 heads'
+    rounding), and the losses part from the second step on (rel 1e-5 at
+    step 2, 1e-1 by step 5, SGD at lr 1e-2 or 1e-3, also at 64² and batch
+    16); in f32 the first train-mode forward already sits 1e-3 apart.
+
+    So in f32 the same step is held to the JAX package's own f32 error:
+    the JAX ``Trainer``'s f32 step sits above 1e-5 from its f64 answer in
+    the loss, and the port's f32 step sits within ``F32_ERROR_OVER_JAX``
+    times JAX's own f32 distance in the loss, the gradients (the step's
+    change of every parameter, rel L2) and the change of every running
+    statistic (rel L2).  Measured on the CPU on one thread, JAX f32 /
+    port f32 from JAX f64: tiny, loss 9.8e-4 / 6.3e-4, gradients 3.0e-2 /
+    1.4e-1, statistics 7.2e-4 / 6.2e-4; canonical, 2.4e-5 / 3.3e-5, 3.5e-2
+    / 4.8e-2, 6.2e-5 / 7.2e-5.  With the statistics kept in bf16 planted
+    in the port's BatchNorm (a summation-precision fault) every reading
+    is above the bound (tiny: 1.6e-1, 1.1, 2.6e-1; canonical: 2.2e-3,
+    1.2, 5.6e-2)."""
+    import optax
+
+    from tensorflowonspark_torch.trainer import Trainer
+    from tensorflowonspark_tpu.trainer import Trainer as JaxTrainer
+
+    lr = 1e-2
+    config = dataclasses.replace(getattr(ref.Config, variant)(),
+                                 norm="batch", dtype="float64")
+    batch = ref.example_batch(config, 4, seed=0)
+    probe = ref.example_batch(config, 4, seed=1)
+    with jax.enable_x64(True):
+        jax_t = JaxTrainer("inception_v3", config=config, seed=0,
+                           devices=jax.devices()[:1],
+                           optimizer=optax.sgd(lr))
+        start = port.params_from_flax(
+            jax.device_get(jax_t.state.params),
+            jax.device_get(jax_t.state.collections["batch_stats"]))
+        want_loss = float(jax_t.step(batch))
+        want = port.params_from_flax(
+            jax.device_get(jax_t.state.params),
+            jax.device_get(jax_t.state.collections["batch_stats"]))
+        want_scores = np.asarray(jax_t.predict(probe))
+    t = Trainer("inception_v3", config=port.Config(
+        **dataclasses.asdict(config)), device="cpu",
+        optimizer=lambda p: torch.optim.SGD(p, lr=lr))
+    port.load_state(t.model, start)
+    loss = float(t.step(batch))
+    got = port.state_of(t.model)
+    assert abs(loss - want_loss) <= F32_REL * abs(want_loss)
+    for group in ("params", "collections"):
+        w, g = ckpt._flatten(want[group]), ckpt._flatten(got[group])
+        assert sorted(w) == sorted(g)
+        for k in w:
+            scale = max(float(np.abs(w[k]).max()), 1.0)
+            assert float(np.abs(g[k] - w[k]).max()) <= F32_REL * scale, k
+    assert any(k.startswith("aux.") for k in got["collections"][
+        "batch_stats"]) == config.canonical
+    assert rel(t.predict(probe).numpy(), want_scores) < F32_REL
+
+    # f32: the port's step within an order of JAX's own f32 error
+    f32 = dataclasses.replace(config, dtype="float32")
+    jax_t = JaxTrainer("inception_v3", config=f32, seed=0,
+                       devices=jax.devices()[:1], optimizer=optax.sgd(lr))
+    start32 = port.params_from_flax(jax.device_get(jax_t.state.params))
+    for k, v in start["params"].items():
+        np.testing.assert_array_equal(start32["params"][k], v)
+    jax_loss = float(jax_t.step(batch))
+    jax_state = port.params_from_flax(
+        jax.device_get(jax_t.state.params),
+        jax.device_get(jax_t.state.collections["batch_stats"]))
+
+    def port_step(planted=False):
+        t = Trainer("inception_v3", config=port.Config(
+            **dataclasses.asdict(f32)), device="cpu",
+            optimizer=lambda p: torch.optim.SGD(p, lr=lr))
+        port.load_state(t.model, start)
+        plain = port._common.batch_norm
+        if planted:
+            port._common.batch_norm = _bf16_statistics(plain)
+        try:
+            return float(t.step(batch)), port.state_of(t.model)
+        finally:
+            port._common.batch_norm = plain
+
+    def change(tree):
+        return {group: {k: v - ckpt._flatten(start[group])[k]
+                        for k, v in ckpt._flatten(tree[group]).items()}
+                for group in ("params", "collections")}
+
+    def rel_l2(got, want):
+        assert sorted(got) == sorted(want)
+        num = sum(float(((got[k] - want[k]).astype(np.float64) ** 2).sum())
+                  for k in want)
+        den = sum(float((want[k].astype(np.float64) ** 2).sum())
+                  for k in want)
+        return float(np.sqrt(num / den))
+
+    def gaps(loss, got):
+        got, ref_change = change(got), change(want)
+        return {"loss": abs(loss - want_loss) / abs(want_loss),
+                "gradients": rel_l2(got["params"], ref_change["params"]),
+                "statistics": rel_l2(got["collections"],
+                                     ref_change["collections"])}
+
+    own = gaps(jax_loss, jax_state)
+    assert own["loss"] > F32_REL
+    got = gaps(*port_step())
+    for k, v in got.items():
+        assert v <= F32_ERROR_OVER_JAX * own[k], (k, v, own[k])
+    planted = gaps(*port_step(planted=True))
+    assert all(planted[k] > F32_ERROR_OVER_JAX * own[k] for k in own), (
+        planted, own)
 
 
 @pytest.mark.parametrize("variant", ["tiny", "tiny_canonical"])

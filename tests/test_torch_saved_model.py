@@ -585,6 +585,45 @@ def test_trainer_export_serves_a_batch_of_one_and_a_ragged_tail(tmp_path,
                                    rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("name", ["resnet50", "inception_v3"])
+def test_batch_norm_export_serves_the_running_statistics(tmp_path,
+                                                        monkeypatch, name):
+    """A ``norm="batch"`` trainer's export: its state carries every
+    running statistic under ``collections/batch_stats``, and
+    ``TFModel.transform``'s executor function (``_RunModel``) serves it,
+    by the serialized forward and by model name, with the bits of the
+    trainer's ``predict`` (eval mode over the running statistics), on a
+    ragged tail of 5 rows padded to the bucket of 8."""
+    from tensorflowonspark_torch import sparkapi, util
+    from tensorflowonspark_torch.models import inception
+    from tensorflowonspark_torch.trainer import Trainer
+
+    monkeypatch.setenv(util.DEVICE_ENV, "cpu")
+    lib = resnet if name == "resnet50" else inception
+    config = dataclasses.replace(lib.Config.tiny(), norm="batch")
+    t = Trainer(name, config=config, device="cpu")
+    for i in range(2):
+        t.step(lib.example_batch(config, 8, seed=i))
+    d = str(tmp_path / "exp")
+    path = t.export(d)
+    state = ckpt.load_pytree(path)
+    stats = state["collections"]["batch_stats"]
+    assert sorted(stats) == sorted(k for k, _ in t.model.named_buffers())
+    weights_only = str(tmp_path / "weights")
+    compat.export_saved_model(state, weights_only)
+    images = lib.example_batch(config, 13, seed=5)["image"]
+    want = torch.cat([t.predict({"image": images[:8]}),
+                      t.predict({"image": np.concatenate(
+                          [images[8:], np.zeros_like(images[:3])])})[:5]])
+    rows = [sparkapi.Row(id=i, image=images[i]) for i in range(13)]
+    for export, model_name in ((d, None), (weights_only, name)):
+        run = pipeline._RunModel(export, model_name, None, 8,
+                                 {"image": "image"}, None, ["id", "image"])
+        got = torch.tensor(np.array([r.prediction
+                                     for r in run(iter(rows))]))
+        assert torch.equal(got, want), model_name
+
+
 def test_resnet_forward_matches_the_jax_packages_serialized_forward(
         tmp_path):
     """The JAX package exports its tiny ResNet (bf16 compute); the port

@@ -47,6 +47,8 @@ CASES = {
     "wide_deep_dense": ("wide_deep", widedeep, widedeep.Config.tiny()),
     "wide_deep_sparse": ("wide_deep", widedeep, dataclasses.replace(
         widedeep.Config.tiny(), table_update="sparse")),
+    # BatchNorm: the running statistics ride the checkpoint's collections
+    "resnet_batch_norm": ("resnet50", resnet, resnet.Config.tiny("batch")),
 }
 
 
@@ -232,7 +234,8 @@ def test_restore_into_a_fresh_trainer_creates_the_optimizer_state(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", ["resnet", "wide_deep_dense",
+                                  "wide_deep_sparse"])
 def test_port_resumed_from_a_jax_checkpoint_matches_jax(tmp_path, case):
     import jax
 
