@@ -5,8 +5,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
 (``nvcc``) and nothing of JAX.  Phases, each of which fails the run:
 
-1. Print the card's name and power limit; build every kernel from
-   ``tensorflowonspark_torch/csrc`` (timed).
+1. Print the card's name and power limit, and whether its Python can be
+   embedded (``Python.h`` and a shared ``libpython``, which the native
+   inference shim builds against; printed, not gated); build every kernel
+   from ``tensorflowonspark_torch/csrc`` (timed).
 2. Kernel phase: ``group_norm_act`` against its plain PyTorch twin at every
    (shape, mode) the ResNet-50 forward gives it, in bf16, at batch 32 (the
    serving slice's), 64 (the training slice's) and 256 (where the device
@@ -140,7 +142,9 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    4's 127 rows from phase 11's export (written on the card) and from the
    same weights exported in a spawned CPU process: scores within phase
    4's tolerance of the weights in process (whether the bits match is
-   printed), 53 ``gn_one_pass`` launches a batch on the executor, the
+   printed), 53 ``gn_one_pass`` launches a batch that calls the wrapper
+   on the executor (each bucket eager at its first sighting, captured at
+   its second; at least one batch a graph replay, which calls none), the
    program's bytes beside the weights'; then (c)'s wide&deep export.  (e)
    A re-export with new weights to phase 11's path is served fresh.
    Printed: checkpoint bytes, the cadence save's cost on the step path
@@ -164,7 +168,8 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    (d) ``resnet_spark --arch inception_v3`` (256 records of 299²) and
    ``--arch mobilenet_v1`` (224²) as phase 11 runs ResNet-50, 4 steps,
    against in-process replays, 94 + 94 and 27 + 27 launches a step.  (e) ``TFModel`` serves
-   (c)'s export: its serialized forward (94 launches a batch, the eager
+   (c)'s export: its serialized forward (94 launches a batch that calls
+   the wrapper, at least one graph replay, the eager
    forward's bits) and the weights by name.  (f) ``mnist_spark``'s
    ``map_fun`` on one executor in ``InputMode.SPARK`` against an in-process
    replay, and its self-describing export served.  (g) ``cifar10_spark``
@@ -300,28 +305,59 @@ It needs one NVIDIA card (built for ``sm_90a``: an H100), the CUDA toolkit
    (torch's ``batch_norm``, whose running variance is the unbiased one)
    must read above it.  (b) 8 captured steps bit for bit 8 eager ones
    (losses, parameters, AdamW state and running statistics) for ResNet-50
-   at 64 and Inception-v3 at 32, no hand-written kernel counted or traced;
+   at 32 and Inception-v3 at 16, no hand-written kernel counted or traced;
    then rate, busy ms and idle share, host µs, capture s, peak memory
    allocated and reserved at 256 (ResNet) and 128 (Inception), eager beside
    captured, and the eager step's busy ms by family (convs, BatchNorm
    statistics, BatchNorm apply and backward, casts/pads/pool, AdamW,
-   other) beside the GroupNorm ResNet-50 step at 256 and the BatchNorm one
-   through the formula written out, profiled the same way.
+   other).
    (c) After (b)'s steps one row's logits are the same bits alone, in its
    batch and in another batch; a planted train-mode forward at eval must
    break that.  (d) The graph run checkpoints at its step 8
    (``Trainer.checkpoint``); a trainer of another seed ``restore_latest()``
    s it: every tensor, ``batch_stats`` included, the run's bits, and one
    more step on each gives the same loss and state.  (e) ResNet's
-   ``Trainer.export`` → ``TFModel.transform`` of 67 rows by the serialized
+   ``Trainer.export`` → ``TFModel.transform`` of 35 rows by the serialized
    forward and by name: the bits of ``Trainer.predict``; then
-   ``TFCluster.run`` → ``DataFeed`` → ``Trainer.step`` at 64 on 128 rows in
+   ``TFCluster.run`` → ``DataFeed`` → ``Trainer.step`` at 32 on 64 rows in
    2 partitions (``InputMode.SPARK``): the final loss against an in-process
    replay, at least one graph replay.  (f) No hand-written kernel launches
    in the phase's processes.  Phase 18 runs in phase 11's application
    after phase 16, and prints its seconds beside ``PHASE18_BUDGET_S``;
    ``python3 chip_smoke.py --phase 18`` runs the build and this phase
    alone.
+
+19. The online serving tier (``online.OnlineServer``, its HTTP front end
+   and ``infer_embed``), in a process of its own (``--phase 19``: its
+   card-health probe and signature counters start there).  Two tenants,
+   seeded, warmed on load, so ``add_tenant`` captures every bucket's
+   forward into one CUDA graph: ``resnet`` (ResNet-50 ``Config()``, its
+   self-describing export, batch 32, buckets 8 and 32) and ``ctr``
+   (wide&deep ``Config()`` by ``model_name``, batch 256, buckets 64, 128
+   and 256, ``flush_ms`` 5).  (a) Closed-loop clients (16 × 8 single rows
+   on ``resnet``, 32 × 16 on ``ctr``, both at once) through ``submit``:
+   every reply equals its row scored alone by the eager forward at the
+   bucket it rode, bit for bit; a scatter that swaps a batch's first two
+   requests must read above.  (b) Each captured bucket's replay is the
+   eager forward's bits on the same staged batch, and ``_RunModel``'s
+   one-batch-behind emit of 96 rows at 32 too; reading a replay's static
+   outputs (``CapturedForward.hold`` planted away) must fail it.  (c)
+   ``gn_one_pass`` launches on the online path: 53 a ResNet forward,
+   an eager call and a capture a bucket, none in a replay (a traced
+   replay shows its 53), no plain-twin GroupNorm on the card.  (d)
+   ``OnlineHTTPServer``: ``POST /v1/predict`` replies equal ``submit``'s,
+   ``/healthz``'s ``compile_cache.warm_ratio`` 1.0, ``/metrics`` names
+   ``online_requests_total`` and ``online_coalesce_size``, a shed is a 429
+   with ``Retry-After``.  (e) ``infer_embed`` serves the ResNet export on
+   the card with the eager forward's bits.  (f) Printed, from timed
+   windows of ``ONLINE_WINDOW_S`` at (a)'s client counts: rows/s and
+   p50/p99 per tenant against the same clients calling the captured
+   forward one request a forward, the coalesce sizes and the
+   ``"online"`` flight plane over the window, the card's idle share from
+   a profiler trace of a second such window (its rates printed beside);
+   a batch's host µs and busy ms on an idle card, capture seconds a
+   bucket.  (g) The probe ran once there and passed.  Phase 19
+   prints its seconds beside ``PHASE19_BUDGET_S``.
 
 The last lines are the card line, one JSON line listing each kernel (the
 one-pass and two-pass forwards of ``group_norm_act`` and its one-pass and
@@ -333,7 +369,8 @@ other cases suffixed; ``launches_tf_mode`` counts phases 11-12's,
 phase 14(c)-(g), ``phase14_*`` the zoo's sites on each GroupNorm
 path, ``launches_phase15`` phase 15's and ``launches_phase16`` phase 16's
 (a)-(d), ``replay_launches_phase16`` the kernels its traced replays ran,
-``launches_phase18`` phase 18's (none);
+``launches_phase18`` phase 18's (none), ``launches_phase19`` phase 19's
+main path (GroupNorm only: its warm-ups and captures);
 then the two paged kernels, times of the decode step's case and the others
 suffixed, ``launches_phase17`` the main path's (the warmup's eager calls
 and captures), ``launches_phase17e`` those of 17(e)'s three speculating
@@ -491,6 +528,24 @@ def launch_counts(**counts) -> dict:
     from tensorflowonspark_torch.kernels import group_norm
 
     return {**dict.fromkeys(group_norm.launches_by_path, 0), **counts}
+
+
+def python_embed_line() -> str:
+    """Whether this Python can embed into a C program: its headers
+    (``Python.h`` under sysconfig's include dir) and its shared
+    ``libpython`` (under ``LIBDIR``), which the native inference shim
+    builds against.  Printed, not gated."""
+    import sysconfig
+
+    include = sysconfig.get_paths()["include"]
+    libdir = sysconfig.get_config_var("LIBDIR") or ""
+    ldlib = sysconfig.get_config_var("LDLIBRARY") or ""
+    shared = bool(sysconfig.get_config_var("Py_ENABLE_SHARED"))
+    return (f"python embedding: Python.h "
+            f"{os.path.exists(os.path.join(include, 'Python.h'))} "
+            f"({include}); shared libpython {shared} and "
+            f"{os.path.exists(os.path.join(libdir, ldlib))} "
+            f"({os.path.join(libdir, ldlib)})")
 
 
 def card_line() -> str:
@@ -840,6 +895,37 @@ def cupti_us(fn, calls: int, kernel: str,
     return None
 
 
+def traced_kernels(fn, calls: int, complete, sessions: int = 3) -> list:
+    """``(name, ms per call)`` of the kernels (spin kernels left out) of
+    ``calls`` back-to-back calls of ``fn`` under torch.profiler (CUPTI),
+    after ``TRACE_WARMUP_LAUNCHES`` spin kernels.  A session can drop
+    device records past the spin kernels, now and then most of them (a
+    phase-17 trace once kept 2 of a replay's 10 paged launches), and a
+    dropped record only ever lowers a count: a session for which
+    ``complete(kernels)`` is false is run again, up to ``sessions``, and
+    the last one is returned when none is (on the CPU, in the tests'
+    rehearsals, every session sees no kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    card = torch.cuda.is_available()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU]
+                     + [ProfilerActivity.CUDA] * card) as prof:
+            for _ in range(TRACE_WARMUP_LAUNCHES * card):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [(name, ms) for name, ms in device_kernels(prof, calls)
+                   if "spin" not in name.lower()
+                   and "sleep" not in name.lower()]
+        if complete(kernels):
+            break
+    return kernels
+
+
 def profile_forward(model, batch, fwd_ms: float, forwards: int = 3,
                     label: str = "resnet50") -> dict:
     """Device time per forward by kernel family (torch.profiler, CUPTI):
@@ -885,9 +971,19 @@ def profile_forward(model, batch, fwd_ms: float, forwards: int = 3,
 
 def _reset_launches(_):
     from tensorflowonspark_torch.kernels import group_norm
+    from tensorflowonspark_torch.parallel import train
 
     group_norm.reset_launches()
+    train.replayed_forwards = 0
     return [0]
+
+
+def _forward_replays(_):
+    """The executor's serving forwards that a graph replay ran alone since
+    :func:`_reset_launches` (their kernels count in no wrapper)."""
+    from tensorflowonspark_torch.parallel import train
+
+    return [train.replayed_forwards]
 
 
 def _reset_table_launches(_):
@@ -3051,8 +3147,10 @@ def serve_export(sc, df, export_dir: str, batch: int, in_map: dict,
                  out_col: str, model_name: str | None = None) -> dict:
     """``TFModel`` with no ``predict_fn`` over ``df`` on the card (with no
     ``model_name``: the export's serialized forward): the scores, the
-    seconds, and the GroupNorm launches of the executor and of the driver
-    (its schema sample), each counted from 0."""
+    seconds, the GroupNorm launches of the executor and of the driver
+    (its schema sample), each counted from 0, and the executor's forwards
+    that a graph replay ran alone (``replays``: each bucket's forward is
+    eager at its first sighting, captured at its second)."""
     import torch
 
     from tensorflowonspark_torch import pipeline
@@ -3072,9 +3170,11 @@ def serve_export(sc, df, export_dir: str, batch: int, in_map: dict,
     driver = dict(group_norm.launches_by_path)
     [(executor, _)] = sc.parallelize([0], 1).mapPartitions(
         _executor_state).collect()
+    [replays] = sc.parallelize([0], 1).mapPartitions(
+        _forward_replays).collect()
     return {"scores": torch.tensor([getattr(r, out_col) for r in out]),
             "rows": len(out), "seconds": seconds, "executor": executor,
-            "driver": driver}
+            "driver": driver, "replays": replays}
 
 
 def _time_loads(exports):
@@ -3352,13 +3452,15 @@ def persistence_phase(sc, work: str, tf_resnet: dict) -> dict:
         served[label] = got
         launches.update(got["executor"])
         launches.update(got["driver"])
+        called = n_batches - got["replays"]
         if (got["rows"] != SLICE_ROWS or got["err"] > SLICE_VS_IN_PROCESS
-                or got["executor"] != launch_counts(
-                    one_pass=53 * n_batches)):
+                or got["executor"] != launch_counts(one_pass=53 * called)
+                or got["replays"] < 1):
             failures.append(f"(d) the {label}-written export: rows "
                             f"{got['rows']}, rel {got['err']:.3e}, executor "
                             f"launches {got['executor']} (want "
-                            f"{53 * n_batches} one_pass)")
+                            f"{53 * called} one_pass: {n_batches} batches, "
+                            f"{got['replays']} replayed)")
     [loads] = sc.parallelize([0], 1).mapPartitions(_time_loads(
         [(export_a, None), (weights_only, "resnet50")])).collect()
     for label, got in served.items():
@@ -3370,8 +3472,9 @@ def persistence_phase(sc, work: str, tf_resnet: dict) -> dict:
               f"process {got['err']:.3e} (tol {SLICE_VS_IN_PROCESS}), the "
               f"same bits {got['bits']}; executor launches "
               f"{got['executor']['one_pass']} one_pass for {n_batches} "
-              f"batches ({got['executor']['one_pass'] / n_batches:.1f} a "
-              f"batch), driver {got['driver']['one_pass']}", flush=True)
+              f"batches, {got['replays']} of them graph replays (53 a "
+              f"batch that calls the wrapper), driver "
+              f"{got['driver']['one_pass']}", flush=True)
     if {"card", "cpu"} <= set(served):
         alike = bool(torch.equal(served["card"]["scores"],
                                  served["cpu"]["scores"]))
@@ -3773,12 +3876,14 @@ def zoo_serving(sc, export_dir: str, sites) -> dict:
     n_batches = sum(-(-n // SLICE_BATCH) for n in sizes)
     ref = scores_in_process(model, images, sizes, SLICE_BATCH)
     del model
-    want = step_launches(sites, n_batches, backward=False)
     failures, launches, out = [], collections.Counter(), {}
     for label, name, d in (("serialized", None, export_dir),
                            ("by name", "inception_v3", weights_only)):
         got = serve_export(sc, df, d, SLICE_BATCH, {"image": "image"},
                            "logits", model_name=name)
+        # a graph replay calls no wrapper
+        want = step_launches(sites, n_batches - got["replays"],
+                             backward=False)
         err = (rel_err(got["scores"], ref)
                if got["scores"].shape == ref.shape else float("inf"))
         bits = bool(torch.equal(got["scores"], ref))
@@ -3789,10 +3894,11 @@ def zoo_serving(sc, export_dir: str, sites) -> dict:
               f"{out[label]:.2f} rows/s (first, with the load); scores rel "
               f"vs the eager forward in process {err:.3e} (tol "
               f"{SLICE_VS_IN_PROCESS}), the same bits {bits}; executor "
-              f"launches {got['executor']} for {n_batches} batches (want "
-              f"{want})", flush=True)
+              f"launches {got['executor']} for {n_batches} batches, "
+              f"{got['replays']} of them graph replays (want {want})",
+              flush=True)
         if (got["rows"] != ZOO_SERVE_ROWS or err > SLICE_VS_IN_PROCESS
-                or got["executor"] != want
+                or got["executor"] != want or got["replays"] < 1
                 or (name is None and not bits)):
             failures.append(f"(e) {label}: rows {got['rows']}, rel "
                             f"{err:.3e}, bits {bits}, launches "
@@ -4952,7 +5058,7 @@ class StaleInputsStep:
             def _refresh(self, static_leaves, leaves):
                 # only the capture's own fill: not yet a captured graph's
                 if not any(c.static_leaves is static_leaves
-                           for c in self._captured.values()):
+                           for c in self._cache.captured.values()):
                     super()._refresh(static_leaves, leaves)
 
         return _Stale(step, shard=shard)
@@ -5020,9 +5126,10 @@ def trajectory_gate(label: str, graph: dict, eager: dict,
 
 
 def graph_numbers(label: str, make_trainer, batch, unit: str, per_step: int,
-                  modes=("eager", "captured")) -> dict:
+                  modes=("eager", "captured"), timed: int = GRAPH_TIMED_STEPS,
+                  profiled: int = GRAPH_PROFILED_STEPS) -> dict:
     """Phase 16(e) for one trainer, each mode on the same process and card:
-    rate (CUDA events over ``GRAPH_TIMED_STEPS`` steps), device busy ms a
+    rate (CUDA events over ``timed`` steps), device busy ms a
     step and the idle share (torch.profiler), the host µs of
     ``Trainer.step`` (median wall of calls made on an idle card, and in the
     timed loop, where a long graph's launch waits for room in the device's
@@ -5059,17 +5166,17 @@ def graph_numbers(label: str, make_trainer, batch, unit: str, per_step: int,
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
-        for _ in range(GRAPH_TIMED_STEPS):
+        for _ in range(timed):
             w0 = time.perf_counter()
             t.step(batch)
             walls.append(time.perf_counter() - w0)
         end.record()
         end.synchronize()
-        step_ms = start.elapsed_time(end) / GRAPH_TIMED_STEPS
+        step_ms = start.elapsed_time(end) / timed
         # the host's own cost a step: each call on an idle card, so that
         # no launch waits for room in the device's queue
         host, inputs = [], []
-        for _ in range(GRAPH_TIMED_STEPS):
+        for _ in range(timed):
             torch.cuda.synchronize()
             w0 = time.perf_counter()
             t.step(batch)
@@ -5080,7 +5187,7 @@ def graph_numbers(label: str, make_trainer, batch, unit: str, per_step: int,
             # graph.replay() alone: the same graph, on an idle card (it
             # trains one more step each; nothing after reads the state)
             graph, replays = compiled.graph_of(batch).graph, []
-            for _ in range(GRAPH_TIMED_STEPS):
+            for _ in range(timed):
                 torch.cuda.synchronize()
                 w0 = time.perf_counter()
                 graph.replay()
@@ -5089,7 +5196,7 @@ def graph_numbers(label: str, make_trainer, batch, unit: str, per_step: int,
                      "input_us": statistics.median(inputs) * 1e6}
             split["rest_us"] = (statistics.median(host) * 1e6
                                 - split["replay_us"] - split["input_us"])
-        busy = profiled_busy_ms(lambda: t.step(batch), GRAPH_PROFILED_STEPS)
+        busy = profiled_busy_ms(lambda: t.step(batch), profiled)
         out[mode] = {**split,
             "step_ms": step_ms, "rate": per_step * 1e3 / step_ms,
             "busy_ms": busy,
@@ -5878,12 +5985,11 @@ def decode_step_numbers(engine, kind: str, batch: dict,
     import statistics
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from tensorflowonspark_torch import decode, shapes
     from tensorflowonspark_torch.kernels import paged_attention as pa
 
-    prog = engine._programs[shapes.signature(batch)]
+    prog = engine._programs.captured[shapes.signature(batch)]
     calls = 5
 
     def eager():
@@ -5898,6 +6004,12 @@ def decode_step_numbers(engine, kind: str, batch: dict,
     torch.cuda.synchronize()
     wrapper = {k: v - before[k] for k, v in pa.launches_by_kernel.items()}
     out = {"wrapper_launches": wrapper}
+
+    def complete(kernels):  # every paged launch of every call in the trace
+        traced = traced_launches(n for n, _ in kernels)
+        return all(traced.get(k, 0) == wrapper.get(k, 0) * calls
+                   for k in PAGED_KERNELS.values())
+
     for mode in modes:  # "captured" among them: its trace counts
         fn = eager if mode == "eager" else captured
         walls = []
@@ -5907,18 +6019,8 @@ def decode_step_numbers(engine, kind: str, batch: dict,
             fn()
             walls.append(time.perf_counter() - t0)
         host_us = statistics.median(walls) * 1e6
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(TRACE_WARMUP_LAUNCHES):
-                torch.cuda._sleep(100)
-            torch.cuda.synchronize()
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
         names, families = [], collections.Counter()
-        for name, ms in device_kernels(prof, calls):
-            if "spin" in name.lower() or "sleep" in name.lower():
-                continue
+        for name, ms in traced_kernels(fn, calls, complete):
             names.append(name)
             families[decode_family(name)] += ms
         busy = sum(families.values()) or None
@@ -6521,10 +6623,15 @@ def phase17_entries(decode_result: dict) -> list:
 
 PHASE18_BUDGET_S = 60
 BN_GRAD_BATCH = 8
-#: (b): 8 captured steps against 8 eager ones at these batches; the rates
-#: at the larger ones, eager beside captured
-BN_STEP_BATCH = {"resnet50": 64, "inception_v3": 32}
+#: (b): 8 captured steps against 8 eager ones at these batches (halved
+#: from 64 and 32 to pay for phase 19: the gate is bit for bit at any
+#: batch); the rates at the larger ones, eager beside captured, over
+#: ``BN_TIMED_STEPS`` timed steps a mode (phase 16's 5) and
+#: ``BN_PROFILED_STEPS`` profiled ones (phase 16's 3)
+BN_STEP_BATCH = {"resnet50": 32, "inception_v3": 16}
 BN_RATE_BATCH = {"resnet50": 256, "inception_v3": 128}
+BN_TIMED_STEPS = 3
+BN_PROFILED_STEPS = 1
 #: (a): the running statistics after one step against flax's rule
 #: recomputed on the host in f64 from that batch's norm inputs, max |Δ|
 #: over max |host| of each site's mean and var.  Only the f32 sums over
@@ -6558,10 +6665,13 @@ BN_GRADS_F32_VS_HOST = 0.1
 #: forward that lost ``train`` must read above that
 BN_BF16_SITE = 2e-2
 BN_BF16_LOSS_REL = 2e-2
-BN_SERVE_ROWS = 67
-BN_SLICE_ROWS = 128
+#: (e): rows served (67 before phase 19: still 3 ragged partitions and an
+#: odd tail) and the SPARK slice's rows, partitions and batch (128 at 64
+#: before: 2 steps either way, the second a capture and its replay)
+BN_SERVE_ROWS = 35
+BN_SLICE_ROWS = 64
 BN_SLICE_PARTITIONS = 2
-BN_SLICE_BATCH = 64
+BN_SLICE_BATCH = 32
 BN_FAMILIES = ("convs", "BatchNorm statistics",
                "BatchNorm apply and backward", "GroupNorm kernels",
                "casts/pads/pool", "AdamW", "other")
@@ -6673,40 +6783,6 @@ def detached_statistics(plain):
         _common.update_running_(running_mean, running_var, mean, torch.rsqrt(
             var + _common.BATCH_NORM_EPS))
         return plain(x, scale, bias, mean, var, False, residual, relu)
-
-    return batch_norm
-
-
-def decomposed_statistics(plain):
-    """18(b)'s yardstick (the port's BatchNorm before the fused op),
-    ``make`` for :class:`swapped` over ``_common.batch_norm`` (``plain``):
-    in training, flax's formula written out, which autograd
-    differentiates: the f32
-    mean and ``E[x²] − E[x]²`` clipped at 0 over N, H and W, ``(x_f32 −
-    mean)·rsqrt(var + ε)·scale + bias`` rounded to ``x``'s dtype, then the
-    add and ReLU; the running update and eval as ``plain``."""
-    import torch
-
-    from tensorflowonspark_torch.models import _common
-
-    def batch_norm(x, scale, bias, running_mean, running_var, train,
-                   residual=None, relu=True):
-        if not train:
-            return plain(x, scale, bias, running_mean, running_var, False,
-                         residual, relu)
-        xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp_min(xf.square().mean(dim=(0, 2, 3))
-                              - mean.square(), 0.0)
-        rstd = torch.rsqrt(var + _common.BATCH_NORM_EPS)
-        _common.update_running_(running_mean, running_var, mean.detach(),
-                                rstd.detach())
-        shape = (1, -1, 1, 1)
-        y = ((xf - mean.view(shape)) * (rstd * scale).view(shape)
-             + bias.view(shape)).to(x.dtype)
-        if residual is not None:
-            y = residual + y
-        return torch.relu(y) if relu else y
 
     return batch_norm
 
@@ -7240,9 +7316,10 @@ def bn_rates(lib, config, name: str, n: int) -> dict:
                        device="cuda")
 
     out = graph_numbers(f"batch norm {name} batch {n}", make, batch,
-                        "images", n)
+                        "images", n, timed=BN_TIMED_STEPS,
+                        profiled=BN_PROFILED_STEPS)
     t = make()
-    out["families"] = profile_step_families(t, batch)
+    out["families"] = profile_step_families(t, batch, BN_PROFILED_STEPS)
     del t
     gc.collect()
     torch.cuda.empty_cache()
@@ -7272,7 +7349,7 @@ def batch_norm_phase(sc, work: str) -> dict:
     import torch
 
     from tensorflowonspark_torch.kernels import group_norm
-    from tensorflowonspark_torch.models import _common, resnet
+    from tensorflowonspark_torch.models import _common
     from tensorflowonspark_torch.trainer import Trainer
 
     t_start = time.perf_counter()
@@ -7454,29 +7531,6 @@ def batch_norm_phase(sc, work: str) -> dict:
         failures.append(f"(f) launches {launches}, executors "
                         f"{dict(executors)}")
 
-    # the GroupNorm ResNet-50 step profiled the same way, for the families
-    gn = Trainer("resnet50", config=resnet.Config(), learning_rate=TRAIN_LR,
-                 device="cuda")
-    gn_fams = profile_step_families(gn, device_batch(
-        rlib, resnet.Config(), BN_RATE_BATCH["resnet50"], 18))
-    del gn
-    gc.collect()
-    torch.cuda.empty_cache()
-    print_families(f"resnet50 GroupNorm at {BN_RATE_BATCH['resnet50']} "
-                   f"(phase 6's step)", gn_fams)
-    # and the BatchNorm step through flax's formula written out (18(a)'s
-    # plain reference; this port's BatchNorm before the fused op)
-    t = Trainer("resnet50", config=rconfig, learning_rate=TRAIN_LR,
-                device="cuda")
-    with swapped(_common, "batch_norm", decomposed_statistics):
-        dec_fams = profile_step_families(t, device_batch(
-            rlib, rconfig, BN_RATE_BATCH["resnet50"], 18))
-    del t
-    gc.collect()
-    torch.cuda.empty_cache()
-    print_families(f"resnet50 norm=batch at {BN_RATE_BATCH['resnet50']} "
-                   f"through the formula written out", dec_fams)
-    ends.append(("GroupNorm and decomposed steps", time.perf_counter()))
     seconds = time.perf_counter() - t_start
     print(f"phase 18 {seconds:.1f} s (budget {PHASE18_BUDGET_S} s): "
           + ", ".join(f"{label} {end - start:.1f}" for (label, end), start
@@ -7486,8 +7540,851 @@ def batch_norm_phase(sc, work: str) -> dict:
         raise SystemExit("batch norm phase failed: " + "; ".join(failures))
     total = collections.Counter(launches)
     total.update(executors)
-    return {"launches": dict(total), "rates": rates, "gn_families": gn_fams,
-            "decomposed_families": dec_fams, "seconds": seconds}
+    return {"launches": dict(total), "rates": rates, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the online serving tier
+# ---------------------------------------------------------------------------
+
+PHASE19_BUDGET_S = 60
+#: the tenants (``OnlineServer.add_tenant`` arguments less the export):
+#: ResNet-50 ``Config()`` by its self-describing export; wide&deep
+#: ``Config()`` by name, README's online example
+ONLINE_TENANTS = {
+    "resnet": {"input_mapping": {"image": "image"}, "batch_size": 32,
+               "bucket_sizes": [8, 32]},
+    "ctr": {"model_name": "wide_deep",
+            "input_mapping": {"dense": "dense", "cat": "cat"},
+            "batch_size": 256, "bucket_sizes": [64, 128, 256],
+            "flush_ms": 5.0}}
+#: closed-loop clients and single-row requests a client, per tenant
+ONLINE_CLIENTS = {"resnet": (16, 8), "ctr": (32, 16)}
+ONLINE_PLANTED_CLIENTS = 8  # 19(a)'s swapped scatter: 8 clients x 3 rows
+ONLINE_BEHIND_ROWS = 96  # 19(b)'s one-batch-behind emit: 3 batches of 32
+#: ``gn_one_pass`` launches a tenant's forward (ResNet-50's 53 GroupNorms)
+ONLINE_GN_LAUNCHES = {"resnet": 53}
+#: seconds of each of 19(f)'s timed windows (coalesced, coalesced under
+#: the trace, the one-request-a-forward clients)
+ONLINE_WINDOW_S = 3.0
+#: max abs gap of a reply from its row scored alone by the eager forward
+#: at the bucket it rode (f32 of the outputs): bit for bit
+ONLINE_SCATTER_TOL = 0.0
+
+
+class swapped_static:
+    """While active, ``cls.<name>`` is the static method ``make(the
+    original function)``."""
+
+    def __init__(self, cls, name: str, make):
+        self.cls, self.name, self.make = cls, name, make
+
+    def __enter__(self):
+        self.saved = self.cls.__dict__[self.name]
+        setattr(self.cls, self.name,
+                staticmethod(self.make(self.saved.__func__)))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.saved)
+
+
+def online_exports(work: str) -> dict:
+    """The tenants' exports, seeded: ResNet-50 ``Config()`` self-describing
+    (its forward a ``torch.export`` program, GroupNorm as
+    ``torch.ops.tfos.group_norm_act``), wide&deep ``Config()`` weights
+    only (served by ``model_name``)."""
+    from tensorflowonspark_torch import compat, saved_model, shapes
+    from tensorflowonspark_torch.models import resnet, widedeep
+
+    config = resnet.Config()
+    example = {k: v for k, v in resnet.example_batch(config, 2).items()
+               if k not in shapes.LABEL_KEYS}
+    compat.export_saved_model(
+        resnet.state_of(resnet.make_model(config, seed=0)),
+        os.path.join(work, "resnet"),
+        forward_fn=saved_model.wrap_state_forward(
+            resnet.serving_forward, resnet.make_serving_model(config)),
+        example_batch=example)
+    state = widedeep.state_of(widedeep.make_model(widedeep.Config(), seed=0))
+    state["collections"] = {k: v for k, v in state["collections"].items()
+                            if not k.endswith("_opt")}
+    compat.export_saved_model(state, os.path.join(work, "ctr"))
+    return {"resnet": os.path.join(work, "resnet"),
+            "ctr": os.path.join(work, "ctr")}
+
+
+def online_rows() -> dict:
+    """Each tenant's request rows, seeded, in the dtypes of its specs."""
+    import numpy as np
+
+    from tensorflowonspark_torch.models import resnet, widedeep
+
+    side = resnet.Config().image_size
+    n = max(ONLINE_CLIENTS["resnet"][0] * ONLINE_CLIENTS["resnet"][1],
+            ONLINE_BEHIND_ROWS)
+    images = np.random.RandomState(19).rand(n, side, side, 3).astype(
+        np.float32)
+    n = ONLINE_CLIENTS["ctr"][0] * ONLINE_CLIENTS["ctr"][1]
+    ctr = {k: v for k, v in widedeep.example_batch(
+        widedeep.Config(), n, seed=19).items() if k != "label"}
+    return {"resnet": {"image": images}, "ctr": ctr}
+
+
+def row_key(cols: dict) -> bytes:
+    """One request's identity: its columns' bytes, in name order."""
+    return b"".join(cols[k].tobytes() for k in sorted(cols))
+
+
+def run_clients(jobs: dict, seconds: float | None = None) -> dict:
+    """Closed-loop clients, every tenant's at once: ``jobs`` maps a tenant
+    to ``(call, clients, requests)``; client c of a tenant sends rows c·r
+    … c·r + r − 1 one at a time, each after the last reply.  With
+    ``seconds`` each client goes round its rows until that window ends
+    and keeps no replies.  Returns per tenant the replies by row, the
+    latencies and the wall from the start to its last reply."""
+    import threading
+
+    starts = threading.Barrier(sum(c for _, c, _ in jobs.values()) + 1)
+    out = {t: {"replies": {}, "latencies": [], "end": 0.0, "errors": []}
+           for t in jobs}
+    lock = threading.Lock()
+
+    def rows_of(lo, n):
+        if seconds is None:
+            yield from range(lo, lo + n)
+            return
+        while time.perf_counter() < deadline:
+            yield from range(lo, lo + n)
+
+    def client(tenant, call, lo, n):
+        starts.wait()
+        for j in rows_of(lo, n):
+            if seconds is not None and time.perf_counter() >= deadline:
+                break
+            t0 = time.perf_counter()
+            try:
+                reply = call(j)
+            except Exception as e:  # gathered: fails the phase
+                with lock:
+                    out[tenant]["errors"].append(repr(e))
+                continue
+            t1 = time.perf_counter()
+            with lock:
+                rec = out[tenant]
+                if seconds is None:
+                    rec["replies"][j] = reply
+                rec["latencies"].append(t1 - t0)
+                rec["end"] = max(rec["end"], t1)
+
+    threads = [threading.Thread(target=client, args=(t, call, c * r, r),
+                                daemon=True)
+               for t, (call, clients, r) in jobs.items()
+               for c in range(clients)]
+    for th in threads:
+        th.start()
+    deadline = float("inf")
+    if seconds is not None:
+        deadline = time.perf_counter() + seconds
+    starts.wait()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join(timeout=600)
+    for rec in out.values():
+        rec["wall"] = rec["end"] - t0
+    return out
+
+
+def quantiles_ms(latencies) -> tuple:
+    import numpy as np
+
+    a = np.asarray(latencies) * 1e3
+    return (float(np.percentile(a, 50)), float(np.percentile(a, 99))) \
+        if len(a) else (float("nan"), float("nan"))
+
+
+def eager_reply(group, cols: dict, bucket: int) -> dict:
+    """``cols`` (one row) scored alone by the eager forward (the loaded
+    forward itself, no graph) at ``bucket`` rows: the row's outputs, f32
+    on the host."""
+    from tensorflowonspark_torch import pipeline, serving
+
+    fwd = group.forward
+    batch = group.stage(serving.pad_columns(cols, bucket))
+    named = pipeline._name_outputs(fwd.fn(fwd.params, batch),
+                                   group.out_map)
+    return {c: serving._host(a)[:1] for c, a in named.items()}
+
+
+def reply_gap(reply: dict, want: dict) -> float:
+    import numpy as np
+
+    if sorted(reply) != sorted(want):
+        return float("inf")
+    return max(float(np.abs(np.asarray(reply[c], np.float32)
+                            - np.asarray(want[c], np.float32)).max())
+               for c in want)
+
+
+def scatter_gaps(srv, rows: dict, result: dict, served: dict) -> dict:
+    """19(a): each tenant's worst gap of a reply from its row scored alone
+    by the eager forward at the bucket it was served in, and the buckets
+    the replies rode."""
+    out = {}
+    for tenant, rec in result.items():
+        group = srv._tenants[tenant].group
+        worst, buckets = 0.0, collections.Counter()
+        for j, reply in rec["replies"].items():
+            cols = {k: v[j:j + 1] for k, v in rows[tenant].items()}
+            bucket = served.get(row_key(cols))
+            if bucket is None:
+                worst = float("inf")
+                continue
+            buckets[bucket] += 1
+            worst = max(worst, reply_gap(reply,
+                                         eager_reply(group, cols, bucket)))
+        out[tenant] = {"worst": worst, "buckets": dict(sorted(
+            buckets.items()))}
+    return out
+
+
+def online_traffic(srv, rows: dict, clients: dict) -> tuple:
+    """The closed loop through ``srv.submit``, both tenants at once, with
+    each served batch's bucket recorded by request around the server's
+    scatter."""
+    from tensorflowonspark_torch import online
+
+    served = {}
+
+    def recording(scatter):
+        def rec(reqs, arrays):
+            bucket = len(next(iter(arrays.values())))
+            for r in reqs:
+                served[row_key(r.cols)] = bucket
+            return scatter(reqs, arrays)
+        return rec
+
+    with swapped_static(online.OnlineServer, "_scatter", recording):
+        result = run_clients({t: (submitter(srv, rows, t), *clients[t])
+                              for t in clients})
+    return result, served
+
+
+def submitter(srv, rows: dict, tenant: str):
+    """``call(j)``: row j of ``tenant`` through ``srv.submit``, alone."""
+    return lambda j: srv.submit(
+        tenant, {k: v[j:j + 1] for k, v in rows[tenant].items()},
+        timeout=120.0)
+
+
+def online_window(srv, rows: dict, seconds: float) -> dict:
+    """19(f)'s window: the closed-loop clients of :data:`ONLINE_CLIENTS`
+    through ``srv.submit``, both tenants at once, for ``seconds``; with
+    the batches it served by (tenant, bucket), the coalesce-size
+    histogram's and the ``"online"`` flight plane's growth over it."""
+    from tensorflowonspark_torch import online
+    from tensorflowonspark_torch.obs import flight
+
+    batches = collections.Counter()
+
+    def counting(scatter):
+        def rec(reqs, arrays):
+            batches[(reqs[0].tenant.name,
+                      len(next(iter(arrays.values()))))] += 1
+            return scatter(reqs, arrays)
+        return rec
+
+    plane = flight.recorder("online")
+    hist0, stages0 = srv._coalesce_size.export(), plane.snapshot()
+    with swapped_static(online.OnlineServer, "_scatter", counting):
+        result = run_clients(
+            {t: (submitter(srv, rows, t), *ONLINE_CLIENTS[t])
+             for t in ONLINE_CLIENTS}, seconds=seconds)
+    hist1, stages1 = srv._coalesce_size.export(), plane.snapshot()
+    sizes, prev = {}, 0
+    for (le, c1), (_, c0) in zip(hist1["buckets"], hist0["buckets"]):
+        if c1 - c0 - prev:
+            sizes[le] = c1 - c0 - prev
+        prev = c1 - c0
+    return {"result": result, "batches": batches, "sizes": sizes,
+            "batches_total": stages1["batches"] - stages0["batches"],
+            "stages": {k: round(v - stages0["stages_s"].get(k, 0.0), 4)
+                       for k, v in stages1["stages_s"].items()},
+            "overlapped": {
+                k: round(v - stages0["overlapped_stages_s"].get(k, 0.0), 4)
+                for k, v in stages1["overlapped_stages_s"].items()}}
+
+
+def traced_busy(fn) -> tuple:
+    """``(fn(), kernel ms, copy ms)``: ``fn`` run under torch.profiler
+    (CUPTI, device activity only), the card's kernels' busy time (their
+    intervals' union) and its copies' and sets' time over the run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA
+                             if torch.cuda.is_available()
+                             else ProfilerActivity.CPU]) as prof:
+        out = fn()
+    spans, copy_us = [], 0.0
+    for e in prof.events():
+        if getattr(e, "device_type", None) is None \
+                or e.device_type.name != "CUDA" \
+                or getattr(e, "is_user_annotation", False) \
+                or _ANNOTATION.match(e.name):
+            continue
+        if e.name.startswith(("Memcpy", "Memset")):
+            copy_us += e.time_range.elapsed_us()
+        else:
+            spans.append((e.time_range.start, e.time_range.end))
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return out, busy / 1e3, copy_us / 1e3
+
+
+def planted_scatter_check(srv, rows: dict) -> dict:
+    """19(a)'s planted fault: the scatter hands a batch's first two
+    requests each other's rows; the replies must read above the
+    tolerance."""
+    from tensorflowonspark_torch import online
+
+    swaps = [0]
+
+    def swapping(scatter):
+        def bad(reqs, arrays):
+            if len(reqs) >= 2:
+                swaps[0] += 1
+                reqs = [reqs[1], reqs[0], *reqs[2:]]
+            return scatter(reqs, arrays)
+        return bad
+
+    with swapped_static(online.OnlineServer, "_scatter", swapping):
+        result, served = online_traffic(
+            srv, rows, {"resnet": (ONLINE_PLANTED_CLIENTS, 3)})
+    gaps = scatter_gaps(srv, rows, result, served)
+    return {"swapped_batches": swaps[0], "worst": gaps["resnet"]["worst"],
+            "errors": result["resnet"]["errors"]}
+
+
+def captured_vs_eager(srv) -> list:
+    """19(b): every captured bucket of every tenant, replayed on a staged
+    batch of seeded rows, against the eager forward on the same staged
+    batch: ``(tenant, bucket, what the call did, same bits)``."""
+    import numpy as np
+    import torch
+
+    from tensorflowonspark_torch import pipeline, shapes
+
+    out = []
+    for name, ts in srv._tenants.items():
+        group = ts.group
+        fwd = group.forward
+        for b in group.buckets:
+            rng = np.random.RandomState(b)
+            batch = {}
+            for feat, (tail, dtype) in group.specs.items():
+                if np.dtype(dtype).kind == "f":
+                    batch[feat] = rng.rand(b, *tail).astype(dtype)
+                else:
+                    # ids valid in any config (tiny wide&deep has 50
+                    # buckets a feature)
+                    batch[feat] = rng.randint(0, 50, (b, *tail)).astype(
+                        dtype)
+            staged = group.stage(batch)
+            got = pipeline._name_outputs(fwd(staged), group.out_map)
+            action = fwd.last
+            want = pipeline._name_outputs(fwd.fn(fwd.params, staged),
+                                          group.out_map)
+            same = sorted(got) == sorted(want) and all(
+                torch.equal(got[c], want[c]) for c in want)
+            out.append((name, b, action, same,
+                        shapes.signature(staged) in fwd.capture_seconds))
+    return out
+
+
+def behind_emit_check(export: str, images) -> dict:
+    """19(b)'s one-batch-behind emit: ``_RunModel`` scores
+    ``ONLINE_BEHIND_ROWS`` rows at batch 32 (the resnet tenant's forward
+    and graphs: the same model key) against the eager forward on each
+    batch, then again with ``CapturedForward.hold`` planted to hand back
+    the static outputs, which the next replay overwrites."""
+    import numpy as np
+
+    from tensorflowonspark_torch import pipeline, serving
+    from tensorflowonspark_torch.parallel import train as train_lib
+
+    n = ONLINE_BEHIND_ROWS
+    run = pipeline._RunModel(
+        export, None, None, ONLINE_TENANTS["resnet"]["batch_size"],
+        {"image": "image"}, None, ["image"],
+        bucket_sizes=ONLINE_TENANTS["resnet"]["bucket_sizes"])
+
+    def score():
+        return np.asarray([r.prediction for r in run(
+            iter([{"image": images[i]} for i in range(n)]))], np.float32)
+
+    got = score()
+    fn, params = run._load()
+    stage = serving.stager(run._device)
+    b = run.batch_size
+    want = np.concatenate([serving._host(fn(params, stage(
+        {"image": images[lo:lo + b]}))) for lo in range(0, n, b)])
+    with swapped_static(train_lib.CapturedForward, "hold",
+                        lambda hold: lambda outputs: outputs):
+        planted = score()
+    fwd = serving.captured(run._cache_key, fn, params)
+    return {"same_bits": got.shape == want.shape
+            and bool(np.array_equal(got, want)),
+            "planted_gap": (float(np.abs(planted - want).max())
+                            if planted.shape == want.shape
+                            else float("inf")),
+            "last": fwd.last}
+
+
+def http_checks(srv, rows: dict) -> tuple:
+    """19(d): ``OnlineHTTPServer`` over ``srv``: replies against
+    ``submit``'s, ``/healthz``'s warm ratio, ``/metrics``' families, then
+    a shed tenant's 429.  Returns ``(report, failures)``."""
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from tensorflowonspark_torch import compat, online
+
+    http = online.OnlineHTTPServer(srv)
+    http.start()
+    failures, report = [], {}
+
+    def post(doc, timeout=120.0):
+        req = urllib.request.Request(
+            http.url("/v1/predict"), data=json.dumps(doc).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return json.loads(r.read().decode())
+
+    try:
+        gaps = []
+        for tenant in ("resnet", "ctr"):
+            for j in (0, 1):
+                cols = {k: v[j:j + 1] for k, v in rows[tenant].items()}
+                doc = post({"tenant": tenant, "inputs": {
+                    k: v.tolist() for k, v in cols.items()}})
+                sub = srv.submit(tenant, cols, timeout=120.0)
+                gaps.append(reply_gap(
+                    {c: np.asarray(v, np.float32)
+                     for c, v in doc["outputs"].items()}, sub))
+        report["http_vs_submit"] = max(gaps)
+        with urllib.request.urlopen(http.url("/healthz"), timeout=30) as r:
+            health = json.loads(r.read().decode())
+        report["compile_cache"] = health["compile_cache"]
+        with urllib.request.urlopen(http.url("/metrics"), timeout=30) as r:
+            text = r.read().decode()
+        report["metrics"] = {k: k in text for k in (
+            "online_requests_total", "online_coalesce_size")}
+        if report["http_vs_submit"] != 0.0:
+            failures.append(f"(d) POST replies off submit's by "
+                            f"{report['http_vs_submit']}")
+        if health["compile_cache"]["warm_ratio"] != 1.0:
+            failures.append(f"(d) warm_ratio {health['compile_cache']}")
+        if not all(report["metrics"].values()):
+            failures.append(f"(d) /metrics {report['metrics']}")
+
+        # a shed: a gated forward holds the first batch while a flood
+        # fills a tenant's byte bound
+        gate = threading.Event()
+        toy = os.path.join(tempfile.mkdtemp(prefix="tfos_torch_shed_"),
+                           "toy")
+        compat.export_saved_model(
+            {"params": {"w": np.ones((4, 1), np.float32)}}, toy)
+
+        def gated(params, batch):
+            gate.wait(timeout=60.0)
+            return {"score": batch["features"].sum(dim=1)}
+
+        srv.add_tenant("shed", export_dir=toy, predict_fn=gated,
+                       batch_size=8, bucket_sizes=[8], flush_ms=1.0,
+                       warmup=False, input_mapping={"features": "features"},
+                       max_pending_mb=3 * 16 / (1 << 20))
+        row = {"tenant": "shed", "inputs": {"features": [[1.0] * 4]}}
+
+        def fire():
+            try:
+                post(row)
+            except urllib.error.HTTPError:
+                pass
+
+        flood = [threading.Thread(target=fire, daemon=True)
+                 for _ in range(10)]
+        for th in flood:
+            th.start()
+            time.sleep(0.02)
+        status = retry = None
+        try:
+            post({**row, "timeout_s": 1.0})
+        except urllib.error.HTTPError as e:
+            status, retry = e.code, e.headers.get("Retry-After")
+        gate.set()
+        for th in flood:
+            th.join(timeout=60)
+        srv.remove_tenant("shed")
+        report["shed"] = (status, retry)
+        if status != 429 or not retry or float(retry) <= 0:
+            failures.append(f"(d) shed gave {status}, Retry-After {retry}")
+    finally:
+        http.stop()
+    return report, failures
+
+
+def infer_embed_check(export: str, images) -> dict:
+    """19(e): the ResNet export through ``infer_embed``'s handle protocol
+    on the card, twice (an eager first call, then a capture), against the
+    eager forward's bits."""
+    import numpy as np
+
+    from tensorflowonspark_torch import infer_embed, pipeline, serving
+
+    x = np.ascontiguousarray(images[:3])
+    h = infer_embed.load(export)
+    try:
+        runs = []
+        for _ in range(2):
+            infer_embed.set_input(h, "image", x.tobytes(), x.shape, 0)
+            infer_embed.run(h)
+            runs.append(np.frombuffer(infer_embed.get_output(h),
+                                      np.float32).reshape(
+                infer_embed.output_shape(h)))
+        fwd = infer_embed._HANDLES[h]["forward"]
+        last = fwd.last
+    finally:
+        infer_embed.close(h)
+    key = pipeline.model_cache_key(export)
+    fn, params = pipeline._MODEL_CACHE[key][:2]
+    want = serving._host(fn(params, serving.stager(
+        pipeline.single_node_env())({"image": x})))
+    return {"same_bits": all(np.array_equal(r, want) for r in runs),
+            "last": last, "shape": tuple(runs[0].shape)}
+
+
+def batch_profile(fwd, staged, gn_launches: int, calls: int = 50) -> dict:
+    """The median host µs of one captured call (copy in, replay) made on
+    an idle card, so that no launch waits for room in the
+    device's queue, and its busy ms and ``gn_one_pass`` launches from a
+    profiler trace of one replay (:func:`traced_kernels`, complete when it
+    holds ``gn_launches``)."""
+    import statistics
+
+    import torch
+
+    walls = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd(staged)
+        walls.append(time.perf_counter() - t0)
+    host = statistics.median(walls) * 1e6
+    torch.cuda.synchronize()
+    kernels = traced_kernels(
+        lambda: fwd(staged), 1, lambda ks: traced_launches(
+            n for n, _ in ks).get("one_pass", 0) == gn_launches)
+    return {"host_us": host,
+            "busy_ms": sum(ms for _, ms in kernels) or None,
+            "gn_one_pass": traced_launches(
+                n for n, _ in kernels).get("one_pass", 0)}
+
+
+def online_phase(work: str, card: str) -> dict:
+    """Phase 19 (see the module docstring), in its own process: every
+    sub-phase runs; the failures are gathered and fail the run at the
+    end."""
+    from tensorflowonspark_torch import health, online, pipeline
+    from tensorflowonspark_torch.kernels import group_norm
+
+    t_start = time.perf_counter()
+    failures = []
+    ends = []
+    probes = [0, 0.0]  # runs, seconds
+    probe = health.probe_chip_health
+
+    def counted_probe(*a, **kw):
+        probes[0] += 1
+        t0 = time.perf_counter()
+        try:
+            return probe(*a, **kw)
+        finally:
+            probes[1] += time.perf_counter() - t0
+
+    health.probe_chip_health = counted_probe
+    plain_on_card = [0]
+    plain = group_norm.group_norm_act_plain
+
+    def counted_plain(x, *a, **kw):
+        if x.is_cuda:
+            plain_on_card[0] += 1
+        return plain(x, *a, **kw)
+
+    group_norm.group_norm_act_plain = counted_plain
+    exports = online_exports(work)
+    rows = online_rows()
+    ends.append(("exports", time.perf_counter()))
+
+    # the main path: warm on load (capture), then the closed loop
+    group_norm.reset_launches()
+    before = flat_counts()
+    srv = online.OnlineServer()
+    loaded = {}
+    for name, kw in ONLINE_TENANTS.items():
+        t0 = time.perf_counter()
+        srv.add_tenant(name, export_dir=exports[name], warmup=True, **kw)
+        loaded[name] = time.perf_counter() - t0
+    srv.start()
+    ends.append(("add_tenant", time.perf_counter()))
+    result, served = online_traffic(srv, rows, ONLINE_CLIENTS)
+    launches = {k: v - before[k] for k, v in flat_counts().items()}
+    ends.append(("traffic", time.perf_counter()))
+
+    # (c) the kernel on the online path
+    buckets = len(ONLINE_TENANTS["resnet"]["bucket_sizes"])
+    want_launches = launch_counts(
+        one_pass=ONLINE_GN_LAUNCHES["resnet"] * 2 * buckets)
+    want_launches = {k: want_launches.get(k, 0) for k in launches}
+    fwd = {t: srv._tenants[t].group.forward for t in ONLINE_TENANTS}
+    served_n = sum(len(r["replies"]) for r in result.values())
+    print(f"online (c) launches on the online path (add_tenant's warm "
+          f"and capture, then {served_n} requests): {launches} (want "
+          f"{want_launches}: 53 a ResNet forward, {buckets} buckets, an "
+          f"eager call and a capture each; a replay calls no wrapper); "
+          f"captures {({t: f.captures for t, f in fwd.items()})}, replays "
+          f"{({t: f.replays for t, f in fwd.items()})}, eager calls "
+          f"{({t: f.eager_calls for t, f in fwd.items()})}", flush=True)
+    if (launches != want_launches or launches["one_pass"] <= 0
+            or any(f.eager_calls != len(srv._tenants[t].group.buckets)
+                   for t, f in fwd.items())):
+        failures.append(f"(c) launches {launches}, want {want_launches}")
+
+    # (a) every reply against its row scored alone at its bucket
+    errors = {t: r["errors"] for t, r in result.items() if r["errors"]}
+    gaps = scatter_gaps(srv, rows, result, served)
+    planted = planted_scatter_check(srv, rows)
+    counts = {t: len(r["replies"]) for t, r in result.items()}
+    print(f"online (a) closed-loop single-row clients {ONLINE_CLIENTS} "
+          f"(clients, requests each), both tenants at once: replies "
+          f"{counts}, errors {errors or 'none'}; worst gap of a reply from "
+          f"its row scored alone by the eager forward at its bucket "
+          + ", ".join(f"{t} {g['worst']:.3e} (buckets {g['buckets']})"
+                      for t, g in gaps.items())
+          + f" (tol {ONLINE_SCATTER_TOL}: bit for bit); planted swapped "
+          f"scatter: {planted['swapped_batches']} batches swapped, worst "
+          f"{planted['worst']:.3e} "
+          f"({'caught' if planted['worst'] > ONLINE_SCATTER_TOL and planted['swapped_batches'] else 'MISSED'})",
+          flush=True)
+    for t, (c, r) in ONLINE_CLIENTS.items():
+        if counts[t] != c * r or gaps[t]["worst"] > ONLINE_SCATTER_TOL:
+            failures.append(f"(a) {t}: replies {counts[t]}, worst "
+                            f"{gaps[t]['worst']}")
+    if errors:
+        failures.append(f"(a) client errors {errors}")
+    if (planted["worst"] <= ONLINE_SCATTER_TOL
+            or not planted["swapped_batches"] or planted["errors"]):
+        failures.append(f"(a) planted swap {planted}")
+    ends.append(("(a)", time.perf_counter()))
+
+    # (b) each captured bucket against the eager forward; the behind emit
+    replays = captured_vs_eager(srv)
+    behind = behind_emit_check(exports["resnet"], rows["resnet"]["image"])
+    print(f"online (b) each captured bucket's replay against the eager "
+          f"forward on the same staged batch: "
+          + ", ".join(f"{t} {b}: {act}, same bits {same}"
+                      for t, b, act, same, _ in replays)
+          + f"; _RunModel over {ONLINE_BEHIND_ROWS} rows at batch 32 (one "
+          f"batch behind): the eager forward's bits {behind['same_bits']} "
+          f"(last call {behind['last']}); planted emit reading the static "
+          f"outputs: gap {behind['planted_gap']:.3e} "
+          f"({'caught' if behind['planted_gap'] > 0 else 'MISSED'})",
+          flush=True)
+    if not all(same and act == "replay" and cap
+               for _, _, act, same, cap in replays):
+        failures.append(f"(b) {replays}")
+    if (not behind["same_bits"] or behind["last"] != "replay"
+            or not behind["planted_gap"] > 0):
+        failures.append(f"(b) behind emit {behind}")
+    ends.append(("(b)", time.perf_counter()))
+
+    # (d) HTTP
+    http, http_failures = http_checks(srv, rows)
+    failures += http_failures
+    print(f"online (d) OnlineHTTPServer: POST /v1/predict against submit "
+          f"max gap {http['http_vs_submit']:.3e}; /healthz compile_cache "
+          f"{http['compile_cache']}; /metrics {http['metrics']}; a shed: "
+          f"HTTP {http['shed'][0]}, Retry-After {http['shed'][1]}",
+          flush=True)
+    ends.append(("(d)", time.perf_counter()))
+
+    # (e) infer_embed
+    emb = infer_embed_check(exports["resnet"], rows["resnet"]["image"])
+    print(f"online (e) infer_embed load/set_input/run/get_output of the "
+          f"resnet export on the card: output {emb['shape']} f32, the "
+          f"eager forward's bits in both runs {emb['same_bits']} (last "
+          f"call {emb['last']})", flush=True)
+    if not emb["same_bits"] or emb["last"] != "capture":
+        failures.append(f"(e) {emb}")
+    ends.append(("(e)", time.perf_counter()))
+
+    # (f) numbers (printed, not gated): timed windows at the same client
+    # counts; a batch's host and busy time on an idle card
+    profiles = {}
+    for t, ts in srv._tenants.items():
+        group = ts.group
+        for b in group.buckets:
+            staged = group.stage(shapes_zero(group.specs, b))
+            profiles[(t, b)] = batch_profile(
+                group.forward, staged, ONLINE_GN_LAUNCHES.get(t, 0))
+    capture_s = {t: {sig_rows(sig): round(s, 4) for sig, s in
+                     f.capture_seconds.items()
+                     if sig_rows(sig) in srv._tenants[t].group.buckets}
+                 for t, f in fwd.items()}
+
+    def direct(tenant):
+        from tensorflowonspark_torch import pipeline as pl, serving
+
+        group = srv._tenants[tenant].group
+        b = group.buckets[0]
+
+        def call(j):
+            cols = {k: v[j:j + 1] for k, v in rows[tenant].items()}
+            out = group.forward(group.stage(serving.pad_columns(cols, b)),
+                                take=serving.to_host)
+            return {c: a[:1] for c, a in
+                    pl._name_outputs(out, group.out_map).items()}
+        return call
+
+    win = online_window(srv, rows, ONLINE_WINDOW_S)
+    traced, busy_ms, copy_ms = traced_busy(
+        lambda: online_window(srv, rows, ONLINE_WINDOW_S))
+    base = run_clients({t: (direct(t), *ONLINE_CLIENTS[t])
+                        for t in ONLINE_CLIENTS}, seconds=ONLINE_WINDOW_S)
+
+    def rate(rec):
+        return len(rec["latencies"]) / rec["wall"]
+
+    for t in ONLINE_CLIENTS:
+        w, tr, bs = (win["result"][t], traced["result"][t], base[t])
+        p50, p99 = quantiles_ms(w["latencies"])
+        t50, t99 = quantiles_ms(tr["latencies"])
+        b50, b99 = quantiles_ms(bs["latencies"])
+        by_bucket = {b: n for (tt, b), n in sorted(win["batches"].items())
+                     if tt == t}
+        print(f"online (f) {t}, {ONLINE_CLIENTS[t][0]} closed-loop "
+              f"single-row clients for {ONLINE_WINDOW_S} s: coalesced "
+              f"{rate(w):.1f} rows/s ({len(w['latencies'])} requests), "
+              f"p50 {p50:.3f} ms, p99 {p99:.3f} ms (under the trace "
+              f"{rate(tr):.1f} rows/s, p50 {t50:.3f}, p99 {t99:.3f}); the "
+              f"same clients calling the captured forward directly (one "
+              f"request a forward at bucket "
+              f"{srv._tenants[t].group.buckets[0]}) {rate(bs):.1f} rows/s "
+              f"({len(bs['latencies'])} requests), p50 {b50:.3f} ms, p99 "
+              f"{b99:.3f} ms; batches by bucket {by_bucket}; capture s by bucket {capture_s[t]} ({card})", flush=True)
+    wall = max(r["wall"] for r in traced["result"].values())
+    print(f"online (f) the untraced window: coalesced batches "
+          f"{win['batches_total']}, real rows a batch by histogram bucket "
+          f"(le: batches) {win['sizes']}; the 'online' flight plane, s: "
+          f"compute thread {win['stages']}, coalescer thread (overlapped) "
+          f"{win['overlapped']}; the traced window: idle share of the card "
+          f"{1 - busy_ms / (wall * 1e3):.1%} (kernels busy {busy_ms:.1f} of "
+          f"{wall * 1e3:.1f} ms, their intervals' union; copies and sets "
+          f"{copy_ms:.1f} ms); a batch by (tenant, bucket) on an idle card: "
+          + ", ".join(f"{t} {b}: host {p['host_us']:.1f} µs, busy "
+                      f"{p['busy_ms'] if p['busy_ms'] is None else round(p['busy_ms'], 4)}"
+                      f" ms, gn_one_pass in the replay {p['gn_one_pass']}"
+                      for (t, b), p in profiles.items())
+          + f"; add_tenant s {({t: round(s, 3) for t, s in loaded.items()})}"
+          f" ({card})", flush=True)
+    for (t, b), p in profiles.items():
+        want = ONLINE_GN_LAUNCHES.get(t, 0)
+        if want and p["busy_ms"] and p["gn_one_pass"] != want:
+            failures.append(f"(c) a traced {t} replay at {b} ran "
+                            f"{p['gn_one_pass']} gn_one_pass, want {want}")
+    for name, w in (("window", win), ("traced window", traced)):
+        errs = {t: r["errors"][:3] for t, r in w["result"].items()
+                if r["errors"]}
+        if errs:
+            failures.append(f"(f) {name} client errors {errs}")
+    ends.append(("(f)", time.perf_counter()))
+
+    srv.stop()
+    # (g) the probe, once in this process
+    print(f"online (g) card health probe: {probes[0]} run in this process "
+          f"(pipeline.single_node_env, {probes[1]:.2f} s), verdict "
+          f"{pipeline._SERVING_PROBE_ERROR or 'healthy'}; plain-twin "
+          f"GroupNorm calls on the card {plain_on_card[0]}", flush=True)
+    if (probes[0] != 1 or pipeline._SERVING_PROBE_ERROR
+            or not pipeline._SERVING_PROBED):
+        failures.append(f"(g) probes {probes[0]}, "
+                        f"{pipeline._SERVING_PROBE_ERROR}")
+    if plain_on_card[0]:
+        failures.append(f"(c) plain GroupNorm on the card "
+                        f"{plain_on_card[0]} times")
+    health.probe_chip_health = probe
+    group_norm.group_norm_act_plain = plain
+    seconds = time.perf_counter() - t_start
+    print(f"phase 19 {seconds:.1f} s (budget {PHASE19_BUDGET_S} s): "
+          + ", ".join(f"{label} {end - start:.1f}" for (label, end), start
+                      in zip(ends, [t_start] + [e for _, e in ends])),
+          flush=True)
+    if failures:
+        raise SystemExit("online phase failed: " + "; ".join(failures))
+    return {"launches": launches, "seconds": seconds}
+
+
+def shapes_zero(specs: dict, rows: int) -> dict:
+    from tensorflowonspark_torch import shapes
+
+    return shapes.zero_batch(specs, rows)
+
+
+def sig_rows(sig) -> int:
+    """A signature's batch rows (its first leaf's leading dimension)."""
+    return sig[0][1][0]
+
+
+def phase19_alone(card: str, result_path: str | None) -> int:
+    """``--phase 19``: phase 19 in this process (its own: the serving
+    probe and the signature counters start fresh), then the card line;
+    ``--result`` writes its launches and seconds there as JSON."""
+    work = tempfile.mkdtemp(prefix="tfos_torch_online_")
+    try:
+        result = online_phase(work, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if result_path:
+        with open(result_path, "w") as f:
+            json.dump(result, f)
+    print(card)
+    return 0
+
+
+def run_phase19() -> dict:
+    """Phase 19 of the whole script: ``--phase 19`` in a child process
+    (its output goes to this one's), its result read back."""
+    fd, path = tempfile.mkstemp(prefix="tfos_torch_phase19_",
+                                suffix=".json")
+    os.close(fd)
+    try:
+        sys.stdout.flush()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--phase", "19",
+             "--result", path], timeout=900)
+        if proc.returncode != 0:
+            raise SystemExit(f"phase 19 failed (exit {proc.returncode})")
+        with open(path) as f:
+            return json.load(f)
+    finally:
+        os.unlink(path)
 
 
 def phase18_alone(card: str) -> int:
@@ -7535,8 +8432,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Drive the PyTorch port on one CUDA card (every phase "
                     "with no arguments).")
-    parser.add_argument("--phase", type=int, choices=(16, 17, 18),
+    parser.add_argument("--phase", type=int, choices=(16, 17, 18, 19),
                         help="run the build and this phase alone")
+    parser.add_argument("--result", help="with --phase 19: write the "
+                        "phase's launches and seconds here as JSON")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this script "
@@ -7554,6 +8453,7 @@ def main(argv=None) -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
+    print(python_embed_line(), flush=True)
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'}"
@@ -7564,6 +8464,8 @@ def main(argv=None) -> int:
         return phase17_alone(card)
     if args.phase == 18:
         return phase18_alone(card)
+    if args.phase == 19:
+        return phase19_alone(card, args.result)
     ends = [time.perf_counter()]  # each phase's end, from phase 1 (build)
 
     config = resnet.Config()
@@ -7632,6 +8534,8 @@ def main(argv=None) -> int:
         shutil.rmtree(work, ignore_errors=True)
     t17 = time.perf_counter()
     decoded = decode_phase()
+    t19 = time.perf_counter()
+    online_served = run_phase19()
     t_done = time.perf_counter()
     print(f"resnet50 images/s at batch {SLICE_TRAIN_BATCH}: TENSORFLOW-mode "
           f"slice {tf_resnet['images_per_s']} by cluster.metrics() "
@@ -7658,7 +8562,9 @@ def main(argv=None) -> int:
     print(f"seconds: phase 11 {t12 - t11:.1f}, phase 12 {t13 - t12:.1f}, "
           f"phase 13 {t14 - t13:.1f}, phase 14 {t15 - t14:.1f}, phase 15 "
           f"{t16 - t15:.1f}, phase 16 {t_end - t16:.1f}, phase 18 "
-          f"{t18 - t_end:.1f}, phase 17 {t_done - t17:.1f}; all phases "
+          f"{t18 - t_end:.1f}, phase 17 {t19 - t17:.1f}, phase 19 "
+          f"{t_done - t19:.1f} (in its process: "
+          f"{online_served['seconds']:.1f}); all phases "
           f"{t_done - t_start:.1f}",
           flush=True)
 
@@ -7683,6 +8589,7 @@ def main(argv=None) -> int:
         "launches_phase16": compiled["launches"][path],
         "replay_launches_phase16": compiled["replay_traced"].get(path, 0),
         "launches_phase18": batch_norm["launches"].get(path, 0),
+        "launches_phase19": online_served["launches"].get(path, 0),
         **kern[path], **phase14_entry(zoo["kernels"], path)}
         for path in names]
     grouping = tables["combine"]

@@ -1061,13 +1061,15 @@ class DecodeEngine:
                             max_entries=self.prefix_registry_max)
             if self.share_prefixes else None)
 
-        # one program a signature: static inputs, graph, output
-        if graphs is None and self.device.type == "cuda":
-            from tensorflowonspark_torch.parallel.train import CudaGraphs
+        # one program a signature: static inputs, graph, output; captured
+        # at its first sighting, right after its eager call
+        from tensorflowonspark_torch.parallel.train import (CudaGraphs,
+                                                            SignatureGraphs)
 
+        if graphs is None and self.device.type == "cuda":
             graphs = CudaGraphs()
         self._graphs = graphs
-        self._programs: dict[tuple, _Program] = {}
+        self._programs = SignatureGraphs(capture_at=1)
         #: signatures captured, steps replayed, steps run eagerly (each
         #: signature's first sighting, and every CPU step without graphs)
         self.captures = 0
@@ -1106,6 +1108,7 @@ class DecodeEngine:
         self._stopped = False
         self._thread: threading.Thread | None = None
         self._warmed = False
+        self._warming = False
         self.shed_window = ShedWindow()
         self._ttft_window = _LatencyWindow()
         self._itl_window = _LatencyWindow()
@@ -1223,7 +1226,16 @@ class DecodeEngine:
         counts
         through ``serving.note_compile`` and its first call's wall (the
         eager call and the capture) through
-        ``serving.observe_compile_seconds``."""
+        ``serving.observe_compile_seconds``, as warmed (before any
+        request)."""
+        self._warming = True
+        try:
+            self._warm_all()
+        finally:
+            self._warming = False
+        self._warmed = True
+
+    def _warm_all(self) -> None:
         S, P = self.max_seqs, self.pages_per_seq
         if self.chunked_prefill:
             # zero chunk_lens route every warm write to the trash page
@@ -1254,7 +1266,6 @@ class DecodeEngine:
             self._run("decode", {"tokens": self._tokens,
                                  "seq_lens": self._seq_lens,
                                  "page_tables": self._ptables})
-        self._warmed = True
 
     def _run(self, kind: str, batch: dict[str, np.ndarray],
              extra: dict[str, np.ndarray] | None = None):
@@ -1269,10 +1280,11 @@ class DecodeEngine:
         inputs and replay."""
         from tensorflowonspark_torch import serving, shapes
 
-        fresh = serving.note_compile(self.cache_key, batch)
+        fresh = serving.note_compile(self.cache_key, batch,
+                                     warm=self._warming)
         arrays = {**batch, **(extra or {})}
         sig = shapes.signature(batch)
-        prog = self._programs.get(sig)
+        prog, _ = self._programs.sight(sig)
         if prog is None:
             t0 = time.perf_counter()
             staged = _Staged(arrays, self.device)
@@ -1284,7 +1296,7 @@ class DecodeEngine:
                 graph, out = self._graphs.capture(
                     lambda: self._call(kind, staged.views))
                 self.captures += 1
-            self._programs[sig] = _Program(staged, graph, out)
+            self._programs.captured[sig] = _Program(staged, graph, out)
             if fresh:
                 serving.observe_compile_seconds(time.perf_counter() - t0)
             return host, fresh
@@ -2117,11 +2129,12 @@ class DecodeEngine:
 
     def stats(self) -> dict[str, Any]:
         """JSON-able engine state (the ``/healthz`` body), in the
-        reference's schema.  ``compile_cache`` carries the kernel library
-        cache's state (``compile_cache.stats()``) and this engine's
+        reference's schema.  ``compile_cache`` carries the process's
+        ``serving.cache_health()`` (the kernel library cache's state, the
+        signature counters, ``warm_ratio``) and this engine's
         signatures, captures, replays and eager steps; ``uptime_s`` says
         how long this engine has served."""
-        from tensorflowonspark_torch import compile_cache, serving
+        from tensorflowonspark_torch import serving
 
         with self._lock:
             pending = len(self._pending)
@@ -2139,7 +2152,7 @@ class DecodeEngine:
             "uptime_s": (round(time.monotonic() - self._started_ts, 3)
                          if self._started_ts else None),
             "compile_cache": {
-                **compile_cache.stats(),
+                **serving.cache_health(),
                 "signatures": len(serving._SEEN_SHAPES.get(self.cache_key,
                                                            ())),
                 "captures": self.captures, "replays": self.replays,

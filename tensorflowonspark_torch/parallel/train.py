@@ -39,6 +39,8 @@ sharded exchanges of ``parallel/collectives.py`` are not ported yet.
 
 from __future__ import annotations
 
+import gc
+import threading
 import time
 from typing import Any, Callable, NamedTuple
 
@@ -275,6 +277,10 @@ def make_eval_step(forward_fn, model: torch.nn.Module):
 #: counters count the eager and the capturing steps only; a count planned
 #: per step holds for the steps less these.
 replayed_steps = 0
+#: Serving forwards in this process that a :class:`CapturedForward` replay
+#: ran alone (not the capturing call): the kernel wrappers count the
+#: launches of the other forwards only.
+replayed_forwards = 0
 
 
 def check_capturable(optimizer) -> None:
@@ -303,6 +309,15 @@ def check_capturable(optimizer) -> None:
             f"with capturable=True, or SGD")
 
 
+#: One capture at a time in this process: the collector is switched off for
+#: a capture and back on after it, and the GroupNorm backward's capture
+#: scratch (``group_norm.capture_scratch``) is one process-wide slot, so two
+#: captures that overlapped (the online tier's compute thread capturing a
+#: bucket at its second sighting while ``add_tenant`` captures another
+#: model) would each undo the other's.  Replays take no lock.
+_CAPTURE_LOCK = threading.Lock()
+
+
 class CudaGraphs:
     """How :class:`CompiledStep` captures and replays on the card:
     ``torch.cuda.CUDAGraph`` s sharing one memory pool (the step's graphs
@@ -312,7 +327,13 @@ class CudaGraphs:
     capture.  It does what ``torch.cuda.graph`` does less its emptying of
     the host's pinned-memory cache, which would free the buffers a feed
     thread is staging through: the device's cache is emptied, so the
-    graph's pool can take the memory the eager steps held."""
+    graph's pool can take the memory the eager steps held.  Nor does it
+    collect the garbage first, which ``torch.cuda.graph`` does: a full
+    collection walks every object of the process, at each capture.  The
+    collector stays off during the capture instead, since a
+    ``CUDAGraph`` collected in a cycle (a dropped trainer's) destroys its
+    graph, which a capture in progress forbids.  Captures run one at a
+    time in the process (:data:`_CAPTURE_LOCK`)."""
 
     def __init__(self):
         self._pool = None
@@ -335,20 +356,27 @@ class CudaGraphs:
     def capture(self, fn: Callable[[], Any]):
         """``(graph, fn())`` with ``fn``'s work captured into the graph
         (and not run)."""
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        if self._stream is None:
-            self._stream = torch.cuda.Stream()
-        graph = torch.cuda.CUDAGraph()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        with torch.cuda.stream(self._stream):
-            graph.capture_begin(pool=self._pool,
-                                capture_error_mode="thread_local")
+        with _CAPTURE_LOCK:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            if self._stream is None:
+                self._stream = torch.cuda.Stream()
+            graph = torch.cuda.CUDAGraph()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            collecting = gc.isenabled()
+            gc.disable()
             try:
-                out = fn()
+                with torch.cuda.stream(self._stream):
+                    graph.capture_begin(pool=self._pool,
+                                        capture_error_mode="thread_local")
+                    try:
+                        out = fn()
+                    finally:
+                        graph.capture_end()
             finally:
-                graph.capture_end()
+                if collecting:
+                    gc.enable()
         return graph, out
 
     @staticmethod
@@ -356,34 +384,86 @@ class CudaGraphs:
         graph.replay()
 
 
+def refresh_static(static_leaves: list, leaves: list) -> None:
+    """Copy a batch's ``leaves`` into a graph's static inputs (both in
+    ``shapes.leaves`` order) on the current stream: host arrays through
+    pinned memory with a non-blocking copy; a tensor already on the card
+    after the default stream's work (where a feed's stager copies)."""
+    waited = False
+    for dst, src in zip(static_leaves, leaves):
+        if not isinstance(src, torch.Tensor):
+            src = torch.as_tensor(np.ascontiguousarray(src))
+        if src.device.type == "cpu" and dst.device.type == "cuda":
+            src = src.pin_memory()
+        elif src.is_cuda and not waited:
+            current = torch.cuda.current_stream(src.device)
+            default = torch.cuda.default_stream(src.device)
+            if current != default:
+                current.wait_stream(default)
+            waited = True
+        dst.copy_(src, non_blocking=True)
+
+
+class SignatureGraphs:
+    """Per batch signature (``shapes.signature``, the key of jit's
+    executable cache in the reference): its sightings, and its capture
+    once it has one.  The one cache of :class:`CompiledStep`,
+    :class:`CapturedForward` and ``decode.DecodeEngine``.  A signature is
+    captured at its ``capture_at``-th sighting: the second for a step or a
+    forward (the first runs eagerly, which is also the capture's warm-up:
+    cuDNN's plans, the kernels' attribute and occupancy calls, lazy loads,
+    an optimizer's state), the first for the decode engine, which runs
+    each signature eagerly and captures it in one call."""
+
+    def __init__(self, capture_at: int = 2):
+        self.capture_at = capture_at
+        self.clear()
+
+    def clear(self) -> None:
+        self.sightings: dict = {}
+        self.captured: dict = {}
+
+    def sight(self, sig) -> tuple[Any, bool]:
+        """Count a sighting of ``sig``: ``(its capture or None, whether to
+        capture it now)``."""
+        seen = self.sightings.get(sig, 0) + 1
+        self.sightings[sig] = seen
+        cap = self.captured.get(sig)
+        return cap, cap is None and seen >= self.capture_at
+
+
 class _Captured(NamedTuple):
     """One signature's graph and what it needs alive while it lives: its
-    static inputs and loss, the ``state.step`` increments its capture
-    recorded (a replay adds them), the GroupNorm backward's scratch it
-    writes, and the capture's wall seconds."""
+    static inputs and outputs (a step's loss, a forward's outputs), the
+    ``state.step`` increments its capture recorded (a replay adds them),
+    the GroupNorm backward's scratch it writes, and the capture's wall
+    seconds."""
     signature: tuple
     graph: Any
     static: Any
     static_leaves: list
-    loss: torch.Tensor
+    out: Any
     steps: int
     scratch: dict
     seconds: float
 
+    @property
+    def loss(self):
+        """A step's loss (its static output)."""
+        return self.out
+
 
 class CompiledStep:
     """``step(state, batch) -> (state, loss)``, compiled per batch
-    signature (``shapes.signature``, the key of jit's executable cache in
-    the reference).  It takes the batch as the caller hands it (host
-    arrays or tensors) and ``shard`` s it onto the step's device, except
-    on a replay.
+    signature (:class:`SignatureGraphs`).  It takes the batch as the
+    caller hands it (host arrays or tensors) and ``shard`` s it onto the
+    step's device, except on a replay.
 
     On the card, a signature's first sighting runs ``step`` eagerly (a
-    real step with the same kernels, and the capture's warm-up: cuDNN
-    plans, the kernels' attribute and occupancy calls, lazy loads, the
-    optimizer's state); its second is captured whole into one CUDA graph
-    (zero-grad, forward, backward, the rank average, clip, the table
-    update, ``optimizer.step()``), which is then replayed at once; later
+    real step with the same kernels, and the capture's warm-up); its
+    second is captured whole into one CUDA graph (zero-grad, forward,
+    backward, the rank average, clip, the table update,
+    ``optimizer.step()``), which is then replayed at once; later
     sightings copy the batch straight into the graph's static inputs and
     replay.  A signature seen once is never captured.  A failed capture
     raises: nothing falls back to an eager step.  On a CPU batch ``step``
@@ -398,14 +478,20 @@ class CompiledStep:
     serialised: each process captures its own.
     """
 
+    #: whether each capture takes a memory pool of its own
+    own_pools = False
+
     def __init__(self, step: Callable, graphs=None,
                  shard: Callable | None = None):
         self.step = step
         self.shard = shard if shard is not None else _unchanged
         self._graphs = graphs if graphs is not None else CudaGraphs()
-        #: graphs captured and replays run since construction
+        self._cache = SignatureGraphs()
+        #: graphs captured, replays run and eager calls on the card since
+        #: construction
         self.captures = 0
         self.replays = 0
+        self.eager_calls = 0
         #: what the last call did: ``"cpu"``, ``"eager"``, ``"capture"`` or
         #: ``"replay"``
         self.last = None
@@ -417,8 +503,7 @@ class CompiledStep:
     def reset(self) -> None:
         """Drop every graph and sighting: each signature starts over with
         an eager step."""
-        self._sightings: dict = {}
-        self._captured: dict = {}
+        self._cache.clear()
         reset = getattr(self._graphs, "reset", None)
         if reset is not None:
             reset()
@@ -427,90 +512,186 @@ class CompiledStep:
     def signatures(self) -> dict:
         """Each signature sighted since the last :meth:`reset`, with its
         sightings."""
-        return dict(self._sightings)
+        return dict(self._cache.sightings)
+
+    @property
+    def capture_seconds(self) -> dict:
+        """Each captured signature's capture wall, in seconds."""
+        return {sig: cap.seconds for sig, cap in self._cache.captured.items()}
 
     def graph_of(self, batch) -> _Captured | None:
         """The capture of ``batch``'s signature, or None."""
-        return self._captured.get(shapes.signature(batch))
+        return self._cache.captured.get(shapes.signature(batch))
 
     def __call__(self, state, batch):
         t0 = time.perf_counter()
         sig, leaves = shapes.signature_and_leaves(batch)
-        cap = self._captured.get(sig)
+        if sig not in self._cache.captured:
+            batch = self.shard(batch)
+            if not self._graphs.applies(batch):
+                self.input_s = time.perf_counter() - t0
+                self.last = "cpu"
+                return self.step(state, batch)
+        cap, now = self._cache.sight(sig)
         if cap is not None:
-            self._sightings[sig] += 1
             self._refresh(cap.static_leaves, leaves)
             self.input_s = time.perf_counter() - t0
             return self._replay(cap, state)
-        staged = self.shard(batch)
         self.input_s = time.perf_counter() - t0
-        if not self._graphs.applies(staged):
-            self.last = "cpu"
-            return self.step(state, staged)
-        seen = self._sightings.get(sig, 0) + 1
-        self._sightings[sig] = seen
-        if seen == 1:
+        if not now:
+            self.eager_calls += 1
             self.last = "eager"
-            return self.step(state, staged)
-        return self._capture(sig, state, staged)
+            return self.step(state, batch)
+        return self._replay(self._capture(sig, state, batch), state,
+                            action="capture")
 
     def _refresh(self, static_leaves: list, leaves: list) -> None:
-        """Copy a batch's ``leaves`` into the static inputs' (both in
-        ``shapes.leaves`` order): host arrays through pinned memory with a
-        non-blocking copy; a tensor already on the card on the current
-        stream, after the default stream's work (where a feed's stager
-        copies)."""
-        waited = False
-        for dst, src in zip(static_leaves, leaves):
-            if not isinstance(src, torch.Tensor):
-                src = torch.as_tensor(np.ascontiguousarray(src))
-            if src.device.type == "cpu" and dst.device.type == "cuda":
-                src = src.pin_memory()
-            elif src.is_cuda and not waited:
-                current = torch.cuda.current_stream(src.device)
-                default = torch.cuda.default_stream(src.device)
-                if current != default:
-                    current.wait_stream(default)
-                waited = True
-            dst.copy_(src, non_blocking=True)
+        refresh_static(static_leaves, leaves)
 
-    def _capture(self, sig, state, batch):
+    def _capture(self, sig, state, batch) -> _Captured:
         for path, leaf in shapes._flatten(batch):
             if not self._graphs.device_leaf(leaf):
                 raise TypeError(
-                    f"compile_step: batch leaf {path} is "
+                    f"{type(self).__name__}: batch leaf {path} is "
                     f"{getattr(leaf, 'device', type(leaf).__name__)}: a "
-                    f"captured step takes every leaf on the card")
+                    f"captured call takes every leaf on the card")
         static = _tree_map(torch.empty_like, batch)
         static_leaves = shapes.leaves(static)
         self._refresh(static_leaves, shapes.leaves(batch))
+        if self.own_pools:
+            reset = getattr(self._graphs, "reset", None)
+            if reset is not None:
+                reset()
         step0 = state.step
         held: dict = {}
         t0 = time.perf_counter()
         try:
             with group_norm.capture_scratch(held):
-                graph, (out_state, loss) = self._graphs.capture(
+                graph, (out_state, out) = self._graphs.capture(
                     lambda: self.step(state, static))
         finally:
             steps, state.step = state.step - step0, step0
         if out_state is not state:
             raise TypeError("compile_step: the step must update its state "
                             "in place and return it")
-        cap = _Captured(sig, graph, static, static_leaves, loss, steps, held,
+        cap = _Captured(sig, graph, static, static_leaves, out, steps, held,
                         time.perf_counter() - t0)
-        self._captured[sig] = cap
+        self._cache.captured[sig] = cap
         self.captures += 1
-        return self._replay(cap, state, action="capture")
+        return cap
 
     def _replay(self, cap: _Captured, state, action: str = "replay"):
-        global replayed_steps
         self._graphs.replay(cap.graph)
         state.step += cap.steps
         self.replays += 1
         if action == "replay":
-            replayed_steps += 1
+            self._note_replay()
         self.last = action
-        return state, cap.loss.clone()
+        return state, self._copy_out(cap.out)
+
+    @staticmethod
+    def _note_replay() -> None:
+        global replayed_steps
+        replayed_steps += 1
+
+    @staticmethod
+    def _copy_out(out):
+        return out.clone()
+
+
+class _ForwardState:
+    """The state a :class:`CapturedForward` threads through
+    :class:`CompiledStep`: a forward updates nothing."""
+    step = 0
+
+
+class CapturedForward(CompiledStep):
+    """``fn(params, batch)``, one CUDA graph per batch signature: the
+    serving counterpart of :class:`CompiledStep` (whose cache, capture and
+    replay it runs), and of the reference's one jitted executable a
+    bucket (``serving.warm_buckets``).
+
+    On the card :meth:`warm` runs a signature eagerly once (cuDNN's plans,
+    the kernels' attributes, lazy loads) and captures it at once; a
+    signature met first by :meth:`__call__` runs eagerly and is captured at
+    its second sighting.  A captured call copies the batch into the static
+    inputs on the current stream (:func:`refresh_static`) and replays the
+    graph on the current stream.  Every caller runs on the device's
+    default stream (each thread's current stream unless it picks
+    another), where the serving stagers copy batches in, so a replay
+    starts after the staged copy of its batch ends.  Each graph has its
+    own memory pool: a pool shared by graphs replayed in any order could
+    place one graph's outputs in another's scratch.
+
+    A replay hands back the graph's static outputs, which the next replay
+    overwrites in place.  A caller that keeps outputs past that passes
+    ``take``, which runs on them before the lock is let go: the online
+    tier and ``infer_embed`` copy them to the host there, ``_RunModel``,
+    which emits one batch behind the forward, clones them (:meth:`hold`).
+    On a CPU batch ``fn`` runs as it is.  With ``capture=False`` (a
+    user's ``predict_fn``, which the reference runs as given, never
+    jitted) ``fn`` runs eagerly on every call: host logic inside it, or a
+    sync such as ``.item()``, would be frozen into or break a capture.  A
+    replay calls no kernel wrapper, so the wrappers count the eager and
+    capturing calls' launches only (:data:`replayed_forwards` counts the
+    rest)."""
+
+    own_pools = True
+
+    def __init__(self, fn: Callable, params: Any, graphs=None,
+                 capture: bool = True):
+        self.fn = fn
+        self.params = params
+        self.capture = capture
+        self._lock = threading.Lock()
+        self._state = _ForwardState()
+        super().__init__(self._forward, graphs=graphs)
+
+    def _forward(self, state, batch):
+        return state, self.fn(self.params, batch)
+
+    def __call__(self, batch, take: Callable = None):
+        """``take(outputs)`` (the outputs themselves without ``take``)."""
+        take = take or _unchanged
+        with self._lock:
+            return take(self._call(batch))
+
+    def warm(self, batch, take: Callable = None):
+        """Run ``batch``'s signature eagerly and, on the card, capture it
+        now (and replay it once).  Returns ``take`` of the first call's
+        outputs."""
+        take = take or _unchanged
+        with self._lock:
+            out = take(self._call(batch))
+            if self.last == "eager" and self.capture:
+                self._call(batch)
+            return out
+
+    def _call(self, batch):
+        if not self.capture:
+            if self._graphs.applies(batch):
+                self.eager_calls += 1
+                self.last = "eager"
+            else:
+                self.last = "cpu"
+            return self.fn(self.params, batch)
+        return CompiledStep.__call__(self, self._state, batch)[1]
+
+    @staticmethod
+    def hold(outputs):
+        """Copies of a replay's static outputs, which the next replay
+        overwrites in place."""
+        return _tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor)
+                         else t, outputs)
+
+    @staticmethod
+    def _note_replay() -> None:
+        global replayed_forwards
+        replayed_forwards += 1
+
+    @staticmethod
+    def _copy_out(out):
+        return out
 
 
 def _unchanged(batch):

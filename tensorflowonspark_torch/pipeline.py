@@ -24,14 +24,20 @@ Device rule: ``TFModel(device=...)``; unset, each executor reads
 
 The executor's model load configures the persistent compile cache first
 (``compile_cache.ensure()``: the kernel libraries from a fleet's shared
-store).  Not ported yet: the flight recorder and cost ledger of the
-reference's ``_RunModel.__call__`` and the serving health probe.
+store) and, on a card, probes its health once a process
+(:func:`single_node_env`).  On the card each bucket's forward is one CUDA
+graph (``serving.captured``), captured by ``TFModel.warmup`` or at the
+bucket's second sighting; a ``predict_fn`` runs as given, eagerly.
+``_RunModel.__call__`` books the reference's ``"serve"`` flight-recorder
+plane (ingest, pad, stage, wait, compute, emit) and charges each batch's
+forward wall to the model in the cost ledger (``charge_serve``).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import threading
 from typing import Any, Callable, Sequence
 
 import torch
@@ -322,7 +328,7 @@ class TFModel(TFParams, HasBatchSize, HasInputMapping, HasOutputMapping,
         ladder = shapes.resolve_buckets(self.getOrDefault("batch_size"),
                                         bucket_sizes)
         run_model = self._run_model([], sql_compat.SPARKAPI, bucket_sizes)
-        fn, params = run_model._load()
+        fwd = run_model.captured()
         if example is not None:
             specs = shapes.input_specs(example=example)
         elif run_model._signature is not None:
@@ -335,7 +341,7 @@ class TFModel(TFParams, HasBatchSize, HasInputMapping, HasOutputMapping,
                 "warmup needs input shapes: pass example= (model input name "
                 "→ one example row), serve a self-describing export, or set "
                 "model_name so the zoo's example batch supplies them")
-        serving.warm_buckets(fn, params, specs, ladder, run_model._cache_key,
+        serving.warm_buckets(fwd, specs, ladder, run_model._cache_key,
                              run_model._device)
         logger.info("warmed %s for buckets %s", run_model.export_dir,
                     list(ladder))
@@ -504,6 +510,19 @@ class _RunModel:
         fn, params, self._export_specs, self._signature = _MODEL_CACHE[key]
         return fn, params
 
+    def captured(self):
+        """The forward :meth:`_load` loads, as ``serving.captured`` hands
+        it: one CUDA graph a bucket on the card for the port's own
+        forwards (a self-describing export's program, a zoo model's),
+        while a user's ``predict_fn`` runs as given on every call
+        (reference ``pipeline.py:611``: never jitted), so host logic or a
+        sync inside it is neither frozen into nor breaks a capture."""
+        from tensorflowonspark_torch import serving
+
+        fn, params = self._load()
+        return serving.captured(self._cache_key, fn, params,
+                                capture=self.predict_fn is None)
+
     def _load_uncached(self, path, serialized: bool):
         """``(forward, params, export specs, signature)``: the forward,
         what it takes as params (the export's state on the device for a
@@ -540,10 +559,13 @@ class _RunModel:
 
     def __call__(self, iterator):
         import itertools
+        from time import perf_counter as _perf
 
         from tensorflowonspark_torch import readers, serving, shapes
+        from tensorflowonspark_torch.obs import flight
+        from tensorflowonspark_torch.obs import ledger as ledger_mod
 
-        fn, params = self._load()
+        fwd = self.captured()
         in_map = self.input_mapping or {c: c for c in self.columns}
         out_map = self.output_mapping  # may be None → auto names
 
@@ -558,36 +580,93 @@ class _RunModel:
                                              self.bucket_sizes)
         stage = serving.stager(self._device)
         depth = serving.prefetch_depth()
+        # a schema-sampling probe scores one row; its cold batch would
+        # pollute the serving plane's verdicts
+        rec = None if self.sample_rows else flight.recorder("serve")
 
         def staged_batches():
             # runs on the pump thread: columnar ingest → pad to a bucket
             # shape → copy to the device, for batch N+1 while the loop
-            # below computes batch N (depth 0: inline)
-            for n, cols in serving.ingest_chunks(
-                    iterator, self.batch_size, in_map, self.columns):
+            # below computes batch N (depth 0: inline, and the stages
+            # count as additive)
+            src = serving.ingest_chunks(
+                iterator, self.batch_size, in_map, self.columns)
+            while True:
+                t0 = _perf()
+                try:
+                    n, cols = next(src)
+                except StopIteration:
+                    return
+                t1 = _perf()
                 bucket = shapes.choose_bucket(n, buckets)
                 if bucket > n:
                     cols = serving.pad_columns(cols, bucket)
-                yield n, bucket, stage(cols)
+                serving.note_rows(n, bucket)
+                t2 = _perf()
+                staged = stage(cols)
+                if rec is not None:
+                    rec.add(overlapped=depth > 0, ingest=t1 - t0,
+                            pad=t2 - t1, stage=_perf() - t2)
+                yield n, bucket, staged
 
         def scored_batches():
             # emit lags the forward by one batch: CUDA launches are
             # asynchronous, so batch N+1's forward is queued on the card
             # before the emit of batch N blocks on its device-to-host copy
-            # and builds Rows
+            # and builds Rows.  A replay overwrites its graph's static
+            # outputs, so the pending outputs are copies
+            # (CapturedForward.hold) made before the next replay.  Flight
+            # stages: wait (on the pump), compute (the forward call),
+            # emit (Row building and the consumer's draining); one commit
+            # a batch.
+            led = ledger_mod.get_ledger()
+            payer = str(self.model_name or self.export_dir)
             pending = None
-            for n, fed, batch in readers.prefetched(staged_batches, depth):
-                serving.note_compile(self._cache_key, batch)
-                outputs = fn(params, batch)
+            src = iter(readers.prefetched(staged_batches, depth))
+            while True:
+                t0 = _perf()
+                try:
+                    n, fed, batch = next(src)
+                except StopIteration:
+                    break
+                t1 = _perf()
+                fresh = serving.note_compile(self._cache_key, batch)
+                outputs = fwd(batch, take=fwd.hold)
+                t2 = _perf()
+                if fresh:
+                    # a new signature's first call (eager; its capture
+                    # comes at the second sighting)
+                    serving.observe_compile_seconds(t2 - t1)
+                # batch scoring has no tenants: the forward's wall books
+                # to the model, the payer a chargeback can price
+                led.charge_serve(payer, t2 - t1, n,
+                                 compile_s=(t2 - t1) if fresh else 0.0)
+                if rec is not None:
+                    if depth > 0:
+                        # depth 0 ran staged_batches inline: its window is
+                        # booked as the additive ingest/pad/stage stages
+                        rec.add(wait=t1 - t0)
+                    rec.add(compute=t2 - t1)
                 if pending is not None:
+                    t3 = _perf()
                     yield serving.emit_rows(
                         _name_outputs(pending[0], out_map), pending[1],
                         self.backend, fed_rows=pending[2])
+                    if rec is not None:
+                        rec.add(emit=_perf() - t3)
+                if rec is not None:
+                    rec.commit()
                 pending = (outputs, n, fed)
             if pending is not None:
+                t3 = _perf()
                 yield serving.emit_rows(
                     _name_outputs(pending[0], out_map), pending[1],
                     self.backend, fed_rows=pending[2])
+                if rec is not None:
+                    # added without a commit: it folds into the next
+                    # batch's record, as every mid-stream emit lags one
+                    # batch; totals stay exact
+                    rec.add(emit=_perf() - t3)
 
         # one generator-frame resume per BATCH; the per-row hops through
         # the emitted lists stay C-level inside chain.from_iterable
@@ -650,12 +729,48 @@ def get_meta_graph_def(export_dir: str, tag_set: str = "serve") -> dict:
     return flat
 
 
-def single_node_env(device: str | None = None) -> torch.device:
-    """The device an executor serves on (see ``util.select_device``).  The
-    reference's chip-health probe here is not ported yet."""
-    from tensorflowonspark_torch import util
+_SERVING_PROBED = False
+_SERVING_PROBE_ERROR: str | None = None
+_SERVING_PROBE_LOCK = threading.Lock()
 
-    return util.select_device(device)
+
+def single_node_env(device: str | None = None) -> torch.device:
+    """The device an executor serves on (``util.select_device``), after
+    the watchdogged card-health probe the cluster bootstrap runs
+    (``health.probe_chip_health``), once a process, when the device is a
+    card (``health.should_probe_serving``): a wedged card becomes a fast,
+    attributed task failure instead of an inference task that hangs until
+    Spark's task timeout.  A failed verdict, or a probe that raises, is
+    memoized and raised again on every later call (Spark retries reuse the
+    worker, and a retry that skipped the probe would hang on the wedged
+    card).  The memo is set only after the probe returns.  On the CPU
+    nothing is probed (reference ``pipeline.py:903-944``)."""
+    import os
+
+    from tensorflowonspark_torch import health, util
+
+    global _SERVING_PROBED, _SERVING_PROBE_ERROR
+    dev = util.select_device(device)
+    if not _SERVING_PROBED and health.should_probe_serving(dev):
+        with _SERVING_PROBE_LOCK:
+            if not _SERVING_PROBED:
+                timeout_s = float(os.environ.get(
+                    "TFOS_HEALTH_PROBE_TIMEOUT_S",
+                    health.DEFAULT_TIMEOUT_S))
+                try:
+                    reason = health.probe_chip_health(timeout_s)
+                except Exception as e:
+                    reason = f"health probe raised unexpectedly: {e!r}"
+                if reason:
+                    import socket
+
+                    _SERVING_PROBE_ERROR = (
+                        f"serving executor on {socket.gethostname()}: "
+                        f"{reason}")
+                _SERVING_PROBED = True
+    if _SERVING_PROBE_ERROR:
+        raise RuntimeError(_SERVING_PROBE_ERROR)
+    return dev
 
 
 def _spark_context_of(df):

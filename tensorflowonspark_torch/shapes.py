@@ -10,7 +10,8 @@ hands a forward (``serving.note_compile``) to show that it does.
 - :func:`signature` — canonical (structure, shape, dtype) fingerprint of a
   batch, keyed on torch and numpy dtype names alike, so a numpy batch and
   the same batch staged as tensors sign the same.
-- :func:`resolve_buckets` / :func:`choose_bucket` — the bucket ladder.
+- :func:`resolve_buckets` / :func:`choose_bucket` / :func:`batch_rows` —
+  the bucket ladder.
 - :func:`input_specs` / :func:`model_specs` / :func:`zero_batch` /
   :func:`enumerate_signatures` — the finite set of signatures a bucketed
   runtime requests for one model.
@@ -115,6 +116,19 @@ def choose_bucket(n: int, buckets: Sequence[int]) -> int:
         if b >= n:
             return int(b)
     return int(n)
+
+
+def batch_rows(batch: Mapping[str, Any]) -> int:
+    """The batch's paddable row count (reference ``shapes.py:317``): the
+    leading dimension every ``ndim >= 1`` input shares; 0 when there is no
+    leading axis or the leading dims disagree (a side input of shape
+    ``(k,)`` beside ``(n, d)`` features is no batch axis)."""
+    dims = {int(np.shape(v)[0]) for v in batch.values()
+            if np.ndim(v) >= 1}
+    if len(dims) != 1:
+        return 0
+    n = dims.pop()
+    return n if n > 0 else 0
 
 
 def input_specs(example: Mapping[str, Any] | None = None,

@@ -60,7 +60,7 @@ def test_importing_every_port_module_loads_nothing_of_jax():
                  "models.mnist", "models.cifar", "models.mobilenet",
                  "models.inception", "examples.mnist_spark",
                  "examples.cifar10_spark", "models.bert",
-                 "examples.bert_squad"):
+                 "examples.bert_squad", "online", "infer_embed"):
         assert f"tensorflowonspark_torch.{name}" in doc["modules"]
 
 

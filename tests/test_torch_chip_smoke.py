@@ -1174,7 +1174,7 @@ def test_phase17_gates_budget_and_the_kernels_line():
     main = inspect.getsource(chip_smoke.main)
     assert main.index("decode_phase()") > main.index("sc.stop()")
     assert "kernels += phase17_entries(decoded)" in main
-    assert "choices=(16, 17, 18)" in main
+    assert "choices=(16, 17, 18, 19)" in main
     result = {
         "kernels": {label: {k: {"max_abs_err": 0.0, "ms": 1.0,
                                 "plain_ms": 2.0, "bound_ms": 0.5,
@@ -1529,6 +1529,147 @@ def test_phase18_is_on_the_command_line_and_in_the_kernels_line():
     import inspect
 
     src = inspect.getsource(chip_smoke.main)
-    assert "choices=(16, 17, 18)" in src
+    assert "choices=(16, 17, 18, 19)" in src
     assert src.count('"launches_phase18"') == 3
     assert chip_smoke.PHASE18_BUDGET_S == 60
+
+
+# ---------------------------------------------------------------------------
+# Phase 19 (the online serving tier): the phase on the CPU, less the card
+# ---------------------------------------------------------------------------
+
+
+class _StandInGraphs:
+    """The captured forward's graph backend on the CPU: a capture runs the
+    forward and keeps its outputs; a replay reruns it on the static inputs
+    and overwrites them in place."""
+
+    def reset(self):
+        pass
+
+    @staticmethod
+    def device_leaf(leaf):
+        return isinstance(leaf, torch.Tensor)
+
+    def applies(self, batch):
+        from tensorflowonspark_torch import shapes
+
+        return any(isinstance(t, torch.Tensor) for t in shapes.leaves(batch))
+
+    @staticmethod
+    def capture(fn):
+        out = fn()
+        return {"fn": fn, "out": out}, out
+
+    @staticmethod
+    def replay(graph):
+        from tensorflowonspark_torch import shapes
+
+        new = graph["fn"]()
+        with torch.inference_mode():
+            for dst, src in zip(shapes.leaves(graph["out"]),
+                                shapes.leaves(new)):
+                if isinstance(dst, torch.Tensor):
+                    dst.copy_(src)
+
+
+def test_phase19_serves_and_gates_on_the_cpu(tmp_path, monkeypatch,
+                                              one_thread):
+    """``online_phase`` at tiny widths on the CPU, CUDA graphs played by a
+    stand-in and the probe forced on: every gate of (a), (b), (d), (e)
+    and (g) holds and both planted faults are caught; only (c), the
+    kernel's launches, fails (the CPU runs the plain twin, counted
+    nowhere)."""
+    from tensorflowonspark_torch import compat, pipeline, saved_model, shapes
+    from tensorflowonspark_torch.models import resnet
+    from tensorflowonspark_torch.parallel import train as train_lib
+
+    monkeypatch.setenv("TFOS_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("TFOS_HEALTH_PROBE", "1")
+    monkeypatch.setattr(pipeline, "_SERVING_PROBED", False)
+    monkeypatch.setattr(pipeline, "_SERVING_PROBE_ERROR", None)
+    monkeypatch.setattr(train_lib, "CudaGraphs", _StandInGraphs)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "ONLINE_CLIENTS",
+                        {"resnet": (8, 4), "ctr": (8, 8)})
+    monkeypatch.setattr(chip_smoke, "ONLINE_PLANTED_CLIENTS", 4)
+    monkeypatch.setattr(chip_smoke, "ONLINE_WINDOW_S", 0.3)
+    small = widedeep.Config(hash_buckets=500)
+
+    def exports(work):
+        config = resnet.Config.tiny()
+        d, w = os.path.join(work, "resnet"), os.path.join(work, "ctr")
+        compat.export_saved_model(
+            resnet.state_of(resnet.make_model(config, seed=0)), d,
+            forward_fn=saved_model.wrap_state_forward(
+                resnet.serving_forward, resnet.make_serving_model(config)),
+            example_batch={k: v for k, v in resnet.example_batch(
+                config, 2).items() if k not in shapes.LABEL_KEYS})
+        state = widedeep.state_of(widedeep.make_model(small, seed=0))
+        state["collections"] = {k: v for k, v in state["collections"].items()
+                                if not k.endswith("_opt")}
+        compat.export_saved_model(state, w)
+        return {"resnet": d, "ctr": w}
+
+    def rows():
+        n = chip_smoke.ONLINE_BEHIND_ROWS
+        return {"resnet": {"image": np.random.RandomState(19).rand(
+                    n, 16, 16, 3).astype(np.float32)},
+                "ctr": {k: v for k, v in widedeep.example_batch(
+                    small, 64, seed=19).items() if k != "label"}}
+
+    monkeypatch.setattr(chip_smoke, "online_exports", exports)
+    monkeypatch.setattr(chip_smoke, "online_rows", rows)
+    # on the card phase 19 has a process of its own: fresh signature
+    # counters here, so the other tests' misses do not move warm_ratio
+    from tensorflowonspark_torch import serving
+    from tensorflowonspark_torch.obs import registry
+
+    monkeypatch.setattr(serving, "_COMPILE_INSTRUMENTS", (
+        registry.Counter("c"), registry.Counter("m"), registry.Counter("h"),
+        registry.Counter("w"), registry.Histogram("s")))
+    with pytest.raises(SystemExit) as ei:
+        chip_smoke.online_phase(str(tmp_path), "CPU")
+    failures = str(ei.value).split(": ", 1)[1].split("; ")
+    assert [f.split(" ")[0] for f in failures] == ["(c)"], failures
+    assert failures[0].startswith("(c) launches {'one_pass': 0")
+
+
+def test_phase19_row_keys_and_swapped_static_methods():
+    from tensorflowonspark_torch import online
+
+    a = {"x": np.arange(3, dtype=np.float32), "c": np.arange(2)}
+    b = {"c": np.arange(2), "x": np.arange(3, dtype=np.float32)}
+    assert chip_smoke.row_key(a) == chip_smoke.row_key(b)
+    assert chip_smoke.row_key(a) != chip_smoke.row_key(
+        {"x": a["x"] + 1, "c": a["c"]})
+    saved = online.OnlineServer.__dict__["_scatter"]
+    seen = []
+    with chip_smoke.swapped_static(
+            online.OnlineServer, "_scatter",
+            lambda scatter: lambda reqs, arrays: seen.append(scatter)):
+        online.OnlineServer._scatter([], {})
+    assert seen == [saved.__func__]
+    assert online.OnlineServer.__dict__["_scatter"] is saved
+    assert chip_smoke.sig_rows(((("x",), (8, 3), "float32"),)) == 8
+    assert chip_smoke.quantiles_ms([0.001, 0.002, 0.003])[0] == \
+        pytest.approx(2.0)
+
+
+def test_phase19_is_on_the_command_line_in_its_process_and_kernels_line():
+    """``--phase 19`` (with ``--result``) parses; the whole script runs
+    phase 19 in a child process of its own and the kernels line gains
+    ``launches_phase19`` for the GroupNorm entries; phase 1 prints whether
+    the card machine can embed Python (headers and shared libpython)."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    assert "phase19_alone(card, args.result)" in src
+    assert "run_phase19()" in src and '"launches_phase19"' in src
+    assert "python_embed_line()" in src
+    run = inspect.getsource(chip_smoke.run_phase19)
+    assert '"--phase", "19"' in run and '"--result"' in run
+    assert chip_smoke.PHASE19_BUDGET_S == 60
+    line = chip_smoke.python_embed_line()
+    assert line.startswith("python embedding: Python.h ")
+    assert "shared libpython" in line

@@ -613,3 +613,63 @@ def test_an_optimizer_that_cannot_be_captured_raises_on_the_card():
         train_lib.compile_step(step, _OnCard(), ok)
     train_lib.compile_step(step, torch.nn.Linear(1, 1),
                            torch.optim.AdamW(params))
+
+
+class _FakeGraph:
+    def capture_begin(self, pool=None, capture_error_mode=None):
+        pass
+
+    def capture_end(self):
+        pass
+
+
+def test_two_threads_capturing_keep_the_collector_off_throughout(
+        monkeypatch):
+    """``CudaGraphs.capture`` switches the cyclic collector off for a
+    capture; captures from two threads (the online tier's compute thread
+    and ``add_tenant``'s caller) run one at a time, so the first one's end
+    cannot switch the collector back on under the second.  The card's
+    calls are stand-ins: the CPU has no graphs."""
+    import contextlib
+    import gc
+    import threading
+
+    for name, value in (("graph_pool_handle", lambda: object()),
+                        ("Stream", lambda: object()),
+                        ("CUDAGraph", _FakeGraph),
+                        ("synchronize", lambda: None),
+                        ("empty_cache", lambda: None),
+                        ("stream", lambda s: contextlib.nullcontext())):
+        monkeypatch.setattr(torch.cuda, name, value)
+    first_in, first_done = threading.Event(), threading.Event()
+    seen = {}
+
+    def first():
+        first_in.set()
+        # the second thread's capture may start only after this one ends
+        seen["overlap"] = second_in.wait(0.3)
+        seen["first"] = gc.isenabled()
+
+    second_in = threading.Event()
+
+    def second():
+        second_in.set()
+        first_done.wait(10)
+        seen["second"] = gc.isenabled()
+
+    def run(fn, done=None):
+        train_lib.CudaGraphs().capture(fn)
+        if done is not None:
+            done.set()
+
+    assert gc.isenabled()
+    a = threading.Thread(target=run, args=(first, first_done))
+    a.start()
+    assert first_in.wait(10)
+    b = threading.Thread(target=run, args=(second,))
+    b.start()
+    a.join(10)
+    b.join(10)
+    assert not a.is_alive() and not b.is_alive()
+    assert seen == {"overlap": False, "first": False, "second": False}
+    assert gc.isenabled()

@@ -1222,3 +1222,69 @@ def test_spec_engine_on_card_equals_the_cpu_engine(drafter):
     assert eng.stats()["admission"]["kv"]["cow_copies_total"] >= 1
     eng.stop()
     assert eng.pool.used_pages == 0 and eng.pool.invariant()["ok"]
+
+
+@pytest.mark.cuda
+def test_a_predict_fn_that_reads_its_params_serves_every_batch_on_card(
+        tmp_path):
+    """A user's ``predict_fn`` is served as given on the card, never
+    captured: one that moves its numpy params to the device and reads a
+    scalar back (both syncs, which a capture forbids) serves several
+    batches of one bucket, through ``_RunModel`` and the online tier, and
+    runs once a batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from tensorflowonspark_torch import compat, online, pipeline
+
+    w = np.arange(20, dtype=np.float32).reshape(4, 5) / 10.0
+    d = str(tmp_path / "export")
+    compat.export_saved_model({"params": {"w": w}}, d)
+    calls = []
+
+    def predict(p, b):
+        calls.append(int(b["features"].shape[0]))
+        wt = torch.as_tensor(p["w"]).to(b["features"].device)
+        scale = float(wt.abs().sum().item())
+        return {"score": (b["features"] @ wt) * scale / scale}
+
+    x = np.random.RandomState(0).rand(48, 4).astype(np.float32)
+    run = pipeline._RunModel(d, None, predict, 8, {"features": "features"},
+                             None, ["features"], bucket_sizes=[8])
+    rows = list(run(iter([{"features": x[i]} for i in range(48)])))
+    np.testing.assert_allclose([r.score for r in rows], x @ w, rtol=1e-5,
+                               atol=1e-6)
+    assert calls == [8] * 6
+    calls.clear()
+    srv = online.OnlineServer()
+    srv.add_tenant("a", export_dir=d, predict_fn=predict, batch_size=8,
+                   bucket_sizes=[8], flush_ms=1.0, warmup=True,
+                   warmup_example={"features": np.zeros(4, np.float32)})
+    srv.start()
+    try:
+        for i in range(6):
+            got = srv.submit("a", {"features": x[8 * i:8 * i + 8]},
+                             timeout=60.0)
+            np.testing.assert_allclose(got["score"], x[8 * i:8 * i + 8] @ w,
+                                       rtol=1e-5, atol=1e-6)
+    finally:
+        srv.stop()
+    assert calls == [8] * 7  # the warm-up, then one a batch
+
+
+@pytest.mark.cuda
+def test_the_health_probe_kernel_runs_on_the_card(monkeypatch):
+    """The probe's kernel (PTX through the CUDA driver API) runs and checks
+    on the card, in-process and in the probe's child; a kernel that writes
+    a wrong element fails it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tensorflowonspark_torch import health
+
+    health._card_probe(0)
+    assert health.probe_chip_health(timeout_s=60) is None
+    monkeypatch.setattr(health, "_PROBE_PTX", health._PROBE_PTX.replace(
+        "0f3F800000", "0f40000000"))  # 3 i + 2
+    with pytest.raises(RuntimeError, match="wrong elements"):
+        health._card_probe(0)

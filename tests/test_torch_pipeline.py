@@ -1602,3 +1602,1312 @@ def test_healthz_503_when_stopped(make_engine):
         assert conn.getresponse().status == 503
     finally:
         srv.stop()
+
+
+# ---------------------------------------------------------------------------
+# The online serving tier (``tensorflowonspark_torch.online``)
+# ---------------------------------------------------------------------------
+#
+# Ported from the reference's ``tests/test_online.py`` (each case keeps its
+# name, with a torch ``predict_fn``), plus the parity the port owes: the
+# same seeded requests through the JAX package's ``OnlineServer`` and the
+# port's, on the same weights (``params_from_flax``), and the captured
+# forward's host side with a stand-in graph backend.  Online tests wait on
+# events with generous timeouts, never on tight wall-clock bounds.
+
+import urllib.error  # noqa: E402
+import urllib.request  # noqa: E402
+
+from tensorflowonspark_torch import health, infer_embed  # noqa: E402
+from tensorflowonspark_torch.obs import flight as port_flight  # noqa: E402
+from tensorflowonspark_torch.parallel import train as port_train  # noqa: E402
+
+ONLINE_W = np.arange(20, dtype=np.float32).reshape(4, 5) / 10.0
+
+
+def _online_predict(p, b):
+    return {"score": b["features"] @ torch.as_tensor(p["w"])}
+
+
+@pytest.fixture()
+def online_export(tmp_path, monkeypatch):
+    monkeypatch.setenv(util.DEVICE_ENV, "cpu")
+    d = str(tmp_path / "export")
+    compat.export_saved_model({"params": {"w": ONLINE_W}}, d)
+    return d
+
+
+def _online_server(export_dir, tenants=("a",), batch_size=8,
+                   bucket_sizes=(2, 8), flush_ms=10.0,
+                   predict_fn=_online_predict, warmup=None, **kw):
+    srv = online.OnlineServer()
+    for name in tenants:
+        srv.add_tenant(
+            name, export_dir=export_dir, predict_fn=predict_fn,
+            batch_size=batch_size, bucket_sizes=list(bucket_sizes),
+            flush_ms=flush_ms, warmup=warmup,
+            warmup_example={"features": np.zeros(4, np.float32)}, **kw)
+    return srv.start()
+
+
+def _online_rows(n, seed=0):
+    return np.random.RandomState(seed).rand(n, 4).astype(np.float32)
+
+
+def _gated(gate):
+    def predict(p, b):
+        gate.wait(timeout=30.0)
+        return _online_predict(p, b)
+    return predict
+
+
+def _fill_to_bound(srv, start_one, tenant="a", row_bytes=16):
+    """Start requests (``start_one()`` each) until ``tenant``'s pending
+    bytes leave no room for another row: a gated forward holds one batch
+    and the staged queue the next ones, so how many that takes depends on
+    how the coalescer happened to merge them.  Returns the count."""
+    def full():
+        t = srv.stats()["tenants"][tenant]
+        return t["pending_bytes"] + row_bytes > t["max_pending_bytes"]
+
+    n, deadline = 0, time.monotonic() + 30.0
+    while not full() and time.monotonic() < deadline:
+        start_one()
+        n += 1
+        time.sleep(0.02)
+    assert full()
+    return n
+
+
+def _post(url, doc, headers=None, timeout=30.0):
+    req = urllib.request.Request(
+        url, data=json.dumps(doc).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})},
+        method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, json.loads(r.read().decode())
+
+
+def test_deadline_flush_single_request(online_export):
+    srv = _online_server(online_export, flush_ms=20.0)
+    try:
+        x = _online_rows(1)
+        out = srv.submit("a", {"features": x}, timeout=30.0)
+        np.testing.assert_allclose(out["score"], x @ ONLINE_W, rtol=1e-6)
+    finally:
+        srv.stop()
+
+
+def test_full_bucket_flushes_before_deadline(online_export):
+    """Four single rows fill the 4-row bucket: they flush without waiting
+    out a deadline that never comes (an hour)."""
+    srv = _online_server(online_export, batch_size=4, bucket_sizes=(4,),
+                         flush_ms=3_600_000.0)
+    try:
+        gate = threading.Event()
+        results = {}
+
+        def go(i):
+            results[i] = srv.submit("a", {"features": _online_rows(
+                1, seed=i)}, timeout=60.0)
+            if len(results) == 4:
+                gate.set()
+
+        threads = [threading.Thread(target=go, args=(i,), daemon=True)
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        assert gate.wait(60.0)
+        for i, out in results.items():
+            np.testing.assert_allclose(
+                out["score"], _online_rows(1, seed=i) @ ONLINE_W, rtol=1e-6)
+    finally:
+        srv.stop()
+
+
+def test_scatter_correct_when_batch_mixes_tenants(online_export):
+    srv = _online_server(online_export, tenants=("a", "b"), flush_ms=100.0)
+    try:
+        batches_before = port_flight.recorder("online").batches
+        xa, xb = _online_rows(2, seed=1), _online_rows(3, seed=2)
+        results = {}
+
+        def go(tenant, x):
+            results[tenant] = srv.submit(tenant, {"features": x},
+                                         timeout=30.0)
+
+        ta = threading.Thread(target=go, args=("a", xa))
+        tb = threading.Thread(target=go, args=("b", xb))
+        ta.start(), tb.start()
+        ta.join(30.0), tb.join(30.0)
+        np.testing.assert_allclose(results["a"]["score"], xa @ ONLINE_W,
+                                   rtol=1e-6)
+        np.testing.assert_allclose(results["b"]["score"], xb @ ONLINE_W,
+                                   rtol=1e-6)
+        assert port_flight.recorder("online").batches - batches_before <= 2
+        stats = srv.stats()
+        assert stats["tenants"]["a"]["requests_total"] >= 1
+        assert stats["tenants"]["b"]["requests_total"] >= 1
+    finally:
+        srv.stop()
+
+
+def test_shed_under_pressure_returns_rejection_not_hang(online_export):
+    gate = threading.Event()
+    srv = _online_server(online_export, predict_fn=_gated(gate),
+                         flush_ms=1.0, warmup=False,
+                         max_pending_mb=4 * 16 / (1 << 20))
+    try:
+        from tensorflowonspark_torch import obs
+
+        shed_before = obs.counter("online_shed_total").value
+        threads, results = [], []
+
+        def go():
+            try:
+                results.append(srv.submit("a", {"features": _online_rows(1)},
+                                          timeout=60.0))
+            except online.Rejected:
+                results.append("shed")
+
+        def start_one():
+            threads.append(threading.Thread(target=go, daemon=True))
+            threads[-1].start()
+
+        saw_shed = False
+        n = _fill_to_bound(srv, start_one)
+        try:
+            srv.submit("a", {"features": _online_rows(1)}, timeout=0.5)
+        except online.Rejected as e:
+            saw_shed = True
+            assert e.retry_after_s > 0
+        gate.set()
+        for t in threads:
+            t.join(timeout=30.0)
+        assert saw_shed or "shed" in results
+        assert obs.counter("online_shed_total").value - shed_before >= 1
+        assert len(results) == n
+        for r in results:
+            assert r == "shed" or "score" in r
+    finally:
+        gate.set()
+        srv.stop()
+
+
+def test_per_tenant_isolation_backlog_cannot_starve_neighbor(online_export):
+    busy = threading.Event()
+
+    def slowish(p, b):
+        time.sleep(0.01)
+        busy.set()
+        return _online_predict(p, b)
+
+    srv = _online_server(online_export, tenants=("a", "b"), batch_size=4,
+                         bucket_sizes=(4,), flush_ms=2.0, warmup=False,
+                         predict_fn=slowish)
+    try:
+        stop_flood = threading.Event()
+        flooded = []
+
+        def flood():
+            while not stop_flood.is_set():
+                try:
+                    flooded.append(srv.submit(
+                        "a", {"features": _online_rows(1)}, timeout=30.0))
+                except online.Rejected:
+                    time.sleep(0.002)
+
+        floods = [threading.Thread(target=flood, daemon=True)
+                  for _ in range(6)]
+        for t in floods:
+            t.start()
+        assert busy.wait(timeout=30.0)  # the backlog exists
+        out = srv.submit("b", {"features": _online_rows(2, seed=7)},
+                         timeout=30.0)
+        stop_flood.set()
+        for t in floods:
+            t.join(timeout=30.0)
+        np.testing.assert_allclose(out["score"],
+                                   _online_rows(2, seed=7) @ ONLINE_W,
+                                   rtol=1e-6)
+        assert len(flooded) > 0
+    finally:
+        srv.stop()
+
+
+def test_oversize_request_and_unknown_tenant_rejected(online_export):
+    srv = _online_server(online_export, batch_size=8)
+    try:
+        with pytest.raises(KeyError):
+            srv.submit("nope", {"features": _online_rows(1)})
+        with pytest.raises(ValueError, match="split it client-side"):
+            srv.submit("a", {"features": _online_rows(9)})
+        with pytest.raises(ValueError, match="unknown request field"):
+            srv.submit("a", {"features": _online_rows(1), "bogus": [1]})
+        with pytest.raises(ValueError, match="rows have shape"):
+            srv.submit("a", {"features": np.zeros((1, 7), np.float32)})
+    finally:
+        srv.stop()
+
+
+def test_specless_shape_mismatch_fails_batch_not_server(online_export):
+    """Two spec-less requests with incompatible row shapes: the mismatched
+    one fails (in the coalesced batch's assembly, or in the forward), and
+    the server keeps serving afterwards."""
+    srv = online.OnlineServer()
+    srv.add_tenant("a", export_dir=online_export, predict_fn=_online_predict,
+                   batch_size=8, bucket_sizes=[8], flush_ms=100.0,
+                   input_mapping={"features": "features"}, warmup=False)
+    srv.start()
+    try:
+        outcomes = {}
+
+        def go(i, width):
+            try:
+                outcomes[i] = srv.submit(
+                    "a", {"features": np.zeros((1, width), np.float32)},
+                    timeout=30.0)
+            except RuntimeError as e:
+                outcomes[i] = e
+
+        threads = [threading.Thread(target=go, args=(0, 4)),
+                   threading.Thread(target=go, args=(1, 7))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60.0)
+        assert len(outcomes) == 2
+        assert isinstance(outcomes[1], RuntimeError), outcomes
+        x = _online_rows(1)
+        out = srv.submit("a", {"features": x}, timeout=30.0)
+        np.testing.assert_allclose(out["score"], x @ ONLINE_W, rtol=1e-6)
+    finally:
+        srv.stop()
+
+
+def test_different_output_mapping_gets_its_own_batches(online_export):
+    srv = _online_server(online_export, tenants=("a",))
+    srv.add_tenant("renamed", export_dir=online_export,
+                   predict_fn=_online_predict, batch_size=8,
+                   bucket_sizes=[2, 8], flush_ms=10.0,
+                   input_mapping={"features": "features"},
+                   output_mapping={"score": "prob"},
+                   warmup_example={"features": np.zeros(4, np.float32)})
+    try:
+        x = _online_rows(1)
+        out_a = srv.submit("a", {"features": x}, timeout=30.0)
+        out_r = srv.submit("renamed", {"features": x}, timeout=30.0)
+        assert "score" in out_a
+        assert "prob" in out_r and "score" not in out_r
+        np.testing.assert_allclose(out_r["prob"], x @ ONLINE_W, rtol=1e-6)
+        assert srv.stats()["models_loaded"] == 2
+    finally:
+        srv.stop()
+
+
+def test_stop_fails_pending_requests_loudly(online_export):
+    gate = threading.Event()
+    srv = _online_server(online_export, predict_fn=_gated(gate),
+                         flush_ms=1.0, warmup=False)
+    errors = []
+
+    def go():
+        try:
+            srv.submit("a", {"features": _online_rows(1)}, timeout=30.0)
+            errors.append(None)
+        except RuntimeError as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=go, daemon=True) for _ in range(4)]
+    try:
+        for t in threads:
+            t.start()
+        deadline = time.time() + 30
+        while srv.stats()["requests_total"] < 4 and time.time() < deadline:
+            time.sleep(0.005)
+    finally:
+        gate.set()
+        srv.stop()
+    for t in threads:
+        t.join(timeout=30.0)
+    assert len(errors) == 4
+    assert srv.state == "stopped"
+    with pytest.raises(RuntimeError, match="not serving"):
+        srv.submit("a", {"features": _online_rows(1)})
+
+
+def test_forward_error_propagates_to_every_caller(online_export):
+    from tensorflowonspark_torch import obs
+
+    def broken(p, b):
+        raise ValueError("kaboom")
+
+    srv = _online_server(online_export, predict_fn=broken, flush_ms=1.0,
+                         warmup=False)
+    try:
+        with pytest.raises(RuntimeError, match="kaboom"):
+            srv.submit("a", {"features": _online_rows(1)}, timeout=30.0)
+        assert obs.counter("online_errors_total").value >= 1
+    finally:
+        srv.stop()
+
+
+def test_warm_on_load_precompiles_every_bucket(online_export):
+    from tensorflowonspark_torch import obs
+
+    compiles = obs.counter("serving_compiles_total")
+    warmed = obs.counter("serving_compile_warmed_total")
+    c0, w0 = compiles.value, warmed.value
+    srv = _online_server(online_export, bucket_sizes=(2, 8), warmup=True)
+    try:
+        assert compiles.value - c0 == 2  # == len(buckets)
+        assert warmed.value - w0 == 2  # both met before any request
+        out = srv.submit("a", {"features": _online_rows(1)}, timeout=30.0)
+        np.testing.assert_allclose(out["score"], _online_rows(1) @ ONLINE_W,
+                                   rtol=1e-6)
+        assert compiles.value - c0 == 2  # the request hit a warmed shape
+    finally:
+        srv.stop()
+
+
+def test_warmup_true_without_shapes_raises(online_export):
+    srv = online.OnlineServer()
+    with pytest.raises(ValueError, match="warmup"):
+        srv.add_tenant("a", export_dir=online_export,
+                       predict_fn=_online_predict,
+                       input_mapping={"features": "features"}, warmup=True)
+
+
+def test_online_flight_plane_records_stages(online_export):
+    srv = _online_server(online_export, flush_ms=1.0)
+    rec = port_flight.recorder("online")
+    before = rec.batches
+    try:
+        for i in range(3):
+            srv.submit("a", {"features": _online_rows(1, seed=i)},
+                       timeout=30.0)
+    finally:
+        srv.stop()
+    assert rec.batches > before
+    snap = rec.snapshot()
+    assert {"wait", "compute", "reply"} <= set(snap["stages_s"])
+    assert "coalesce" in snap["overlapped_stages_s"]
+    assert port_flight.classify({"reply": 1.0}) == "emit_bound"
+    assert port_flight.classify({"coalesce": 1.0}) == "ingest_bound"
+
+
+def test_http_predict_metrics_healthz_pipeline(online_export):
+    from tensorflowonspark_torch.obs import httpd
+
+    srv = _online_server(online_export, flush_ms=2.0)
+    http = online.OnlineHTTPServer(srv)
+    http.start()
+    try:
+        x = _online_rows(2, seed=3)
+        status, doc = _post(http.url("/v1/predict"),
+                            {"tenant": "a",
+                             "inputs": {"features": x.tolist()}})
+        assert status == 200 and doc["rows"] == 2
+        np.testing.assert_allclose(np.asarray(doc["outputs"]["score"]),
+                                   x @ ONLINE_W, rtol=1e-5)
+        assert doc["latency_ms"] > 0
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            _post(http.url("/v1/predict"),
+                  {"tenant": "nope", "inputs": {"features": x.tolist()}})
+        assert ei.value.code == 404
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            _post(http.url("/v1/predict"), {"tenant": "a"})
+        assert ei.value.code == 400
+        with urllib.request.urlopen(http.url("/metrics"), timeout=30) as r:
+            text = r.read().decode()
+        assert "online_requests_total" in text
+        assert "online_request_seconds_bucket" in text
+        assert 'tenant="a"' in text
+        assert "online_request_seconds_a" not in text
+        assert httpd.validate_prometheus_text(text) == []
+        with urllib.request.urlopen(http.url("/healthz"), timeout=30) as r:
+            health_doc = json.loads(r.read().decode())
+        assert r.status == 200
+        assert health_doc["state"] == "serving"
+        assert health_doc["tenants"]["a"]["latency_p99_ms"] is not None
+        adm = health_doc["admission"]
+        assert adm["admission_schema"] == 1
+        assert adm["pending_bytes"] >= 0 and adm["max_pending_bytes"] > 0
+        assert 0.0 <= adm["saturation"] <= 1.0
+        assert set(adm["shed_window"]) == {"window_s", "offered", "shed",
+                                           "shed_rate"}
+        with urllib.request.urlopen(http.url("/pipeline"), timeout=30) as r:
+            pipe = json.loads(r.read().decode())
+        assert pipe["planes"]["online"]["verdict"] in port_flight.VERDICTS
+    finally:
+        http.stop()
+        srv.stop()
+
+
+def test_http_shed_maps_to_429_with_retry_after(online_export):
+    gate = threading.Event()
+    srv = _online_server(online_export, predict_fn=_gated(gate),
+                         flush_ms=1.0, warmup=False,
+                         max_pending_mb=3 * 16 / (1 << 20))
+    http = online.OnlineHTTPServer(srv)
+    http.start()
+    try:
+        x = _online_rows(1)
+
+        def fire():
+            try:
+                _post(http.url("/v1/predict"),
+                      {"tenant": "a", "inputs": {"features": x.tolist()}})
+            except urllib.error.HTTPError:
+                pass
+
+        _fill_to_bound(
+            srv, lambda: threading.Thread(target=fire, daemon=True).start())
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            _post(http.url("/v1/predict"),
+                  {"tenant": "a", "inputs": {"features": x.tolist()},
+                   "timeout_s": 1.0})
+        assert ei.value.code == 429
+        assert float(ei.value.headers["Retry-After"]) > 0
+        assert "shed" in json.loads(ei.value.read().decode())["error"]
+    finally:
+        gate.set()
+        http.stop()
+        srv.stop()
+
+
+def test_healthz_503_after_stop(online_export):
+    srv = _online_server(online_export)
+    http = online.OnlineHTTPServer(srv)
+    http.start()
+    try:
+        srv.stop()
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            urllib.request.urlopen(http.url("/healthz"), timeout=30)
+        assert ei.value.code == 503
+    finally:
+        http.stop()
+
+
+def _check_trace():
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    import check_trace
+
+    return check_trace
+
+
+def test_request_tracing_e2e_http(online_export, monkeypatch):
+    from tensorflowonspark_torch.obs import httpd
+    from tensorflowonspark_torch.obs import trace as trace_lib
+
+    check_trace = _check_trace()
+    monkeypatch.setenv("TFOS_TRACE_SAMPLE", "0")
+    monkeypatch.setenv("TFOS_TRACE_ARM", "1")
+    store = trace_lib.get_trace_store()
+    store.clear()
+    srv = online.OnlineServer()
+    for name, slo in (("slow", 0.0), ("fast", 60_000.0)):
+        srv.add_tenant(
+            name, export_dir=online_export, predict_fn=_online_predict,
+            batch_size=8, bucket_sizes=[2, 8], flush_ms=5.0, slo_ms=slo,
+            warmup_example={"features": np.zeros(4, np.float32)})
+    srv.start()
+    http = online.OnlineHTTPServer(srv)
+    http.start()
+    try:
+        ctx = trace_lib.TraceContext.new()
+        x = _online_rows(1, seed=11)
+        status, doc = _post(
+            http.url("/v1/predict"),
+            {"tenant": "slow", "inputs": {"features": x.tolist()}},
+            headers={"traceparent": ctx.traceparent()})
+        assert status == 200 and doc["trace_id"] == ctx.trace_id
+        _post(http.url("/v1/predict"),
+              {"tenant": "fast",
+               "inputs": {"features": _online_rows(1, seed=12).tolist()}})
+        deadline = time.perf_counter() + 30.0
+        while True:
+            with urllib.request.urlopen(http.url("/debug/requests"),
+                                        timeout=30) as r:
+                debug = json.loads(r.read().decode())
+            if debug["committed"] >= 2 or time.perf_counter() > deadline:
+                break
+            time.sleep(0.01)
+        assert check_trace.validate_requests_doc(debug) == []
+        traces = {t["trace_id"]: t for t in debug["retained"]}
+        mine = traces[ctx.trace_id]
+        assert mine["retained"] == "slo_breach" and mine["status"] == "ok"
+        assert mine["parent_span_id"] == ctx.span_id
+        spans = {s["name"]: s for s in mine["spans"]}
+        assert set(spans) == {"admission", "queue", "coalesce", "forward",
+                              "reply", "online.request"}
+        coalesce = spans["coalesce"]["attrs"]
+        assert coalesce["flush"] in ("deadline", "full_bucket",
+                                     "engine_idle")
+        assert coalesce["bucket"] in (2, 8) and coalesce["batch_id"] >= 1
+        assert 0.0 <= coalesce["pad_waste"] < 1.0
+        assert coalesce["batch_mates"] == []
+        assert spans["forward"]["attrs"]["batch_id"] == coalesce["batch_id"]
+        assert all((t["spans"][-1]["attrs"] or {}).get("tenant") != "fast"
+                   for t in debug["retained"])
+        req = urllib.request.Request(
+            http.url("/metrics"),
+            headers={"Accept": "application/openmetrics-text"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            om = r.read().decode()
+        assert httpd.validate_openmetrics_text(om) == []
+        assert any("online_request_seconds_bucket" in ln
+                   and 'tenant="slow"' in ln
+                   for ln in om.splitlines() if ctx.trace_id in ln)
+        with urllib.request.urlopen(http.url("/metrics"), timeout=30) as r:
+            classic = r.read().decode()
+        assert httpd.validate_prometheus_text(classic) == []
+        assert ctx.trace_id not in classic
+    finally:
+        http.stop()
+        srv.stop()
+        store.clear()
+
+
+def test_batch_mates_cross_reference(online_export, monkeypatch):
+    from tensorflowonspark_torch.obs import trace as trace_lib
+
+    check_trace = _check_trace()
+    monkeypatch.setenv("TFOS_TRACE_SAMPLE", "0")
+    monkeypatch.setenv("TFOS_TRACE_ARM", "1")
+    store = trace_lib.get_trace_store()
+    store.clear()
+    gate = threading.Event()
+    srv = _online_server(online_export, predict_fn=_gated(gate),
+                         flush_ms=250.0, warmup=False, slo_ms=0.0)
+    try:
+        results = []
+
+        def go(seed):
+            results.append(srv.submit(
+                "a", {"features": _online_rows(1, seed=seed)}, timeout=30.0))
+
+        t1 = threading.Thread(target=go, args=(1,), daemon=True)
+        t1.start()
+        deadline = time.perf_counter() + 30.0
+        # request 1 drained into the stalled batch
+        while (srv.stats()["tenants"]["a"]["pending_rows"] != 0
+               or srv._inflight < 1) and time.perf_counter() < deadline:
+            time.sleep(0.005)
+        t2 = threading.Thread(target=go, args=(2,), daemon=True)
+        t3 = threading.Thread(target=go, args=(3,), daemon=True)
+        t2.start(), t3.start()
+        deadline = time.perf_counter() + 30.0
+        while srv.stats()["tenants"]["a"]["pending_rows"] < 2 \
+                and time.perf_counter() < deadline:
+            time.sleep(0.005)
+        gate.set()
+        for t in (t1, t2, t3):
+            t.join(timeout=30.0)
+        assert len(results) == 3
+        retained = store.recent(limit=10)
+        assert check_trace.validate_requests_doc(retained) == []
+        mates = [t for t in retained if any(
+            (s.get("attrs") or {}).get("batch_mates") for s in t["spans"])]
+        assert len(mates) >= 2
+        ids = {t["trace_id"] for t in mates}
+        for t in mates:
+            co = next(s for s in t["spans"] if s["name"] == "coalesce")
+            listed = set(co["attrs"]["batch_mates"])
+            assert listed and listed <= (ids - {t["trace_id"]})
+    finally:
+        gate.set()
+        srv.stop()
+        store.clear()
+
+
+def test_shed_and_error_requests_are_tail_retained(online_export,
+                                                   monkeypatch):
+    from tensorflowonspark_torch.obs import trace as trace_lib
+
+    check_trace = _check_trace()
+    monkeypatch.setenv("TFOS_TRACE_SAMPLE", "0")
+    store = trace_lib.get_trace_store()
+    store.clear()
+    gate = threading.Event()
+    srv = _online_server(online_export, predict_fn=_gated(gate),
+                         flush_ms=1.0, warmup=False, slo_ms=60_000.0,
+                         max_pending_mb=3 * 16 / (1 << 20))
+
+    def swallow():
+        try:
+            srv.submit("a", {"features": _online_rows(1)}, timeout=60.0)
+        except Exception:
+            pass
+
+    try:
+        _fill_to_bound(
+            srv, lambda: threading.Thread(target=swallow, daemon=True).start())
+        with pytest.raises(online.Rejected):
+            srv.submit("a", {"features": _online_rows(1)}, timeout=0.5)
+    finally:
+        gate.set()
+        srv.stop()
+    sheds = [t for t in store.recent(limit=50) if t["status"] == "shed"]
+    assert sheds and sheds[0]["retained"] == "shed"
+    admission = next(s for s in sheds[0]["spans"]
+                     if s["name"] == "admission")
+    assert admission["attrs"]["outcome"] == "shed"
+    assert admission["attrs"]["max_pending_bytes"] > 0
+    assert check_trace.validate_requests_doc(sheds) == []
+    store.clear()
+
+
+def test_tracing_disabled_by_env_retains_nothing(online_export,
+                                                 monkeypatch):
+    from tensorflowonspark_torch.obs import trace as trace_lib
+
+    monkeypatch.setenv("TFOS_TRACE_REQUESTS", "0")
+    store = trace_lib.get_trace_store()
+    store.clear()
+    srv = _online_server(online_export, flush_ms=1.0, slo_ms=0.0)
+    try:
+        out = srv.submit("a", {"features": _online_rows(1)}, timeout=30.0)
+        assert "score" in out
+        assert store.committed == 0 and store.recent() == []
+    finally:
+        srv.stop()
+
+
+def test_healthz_reports_shed_window_and_slo(online_export):
+    srv = _online_server(online_export, flush_ms=2.0)
+    try:
+        srv.submit("a", {"features": _online_rows(1)}, timeout=30.0)
+        doc = srv.stats()["tenants"]["a"]
+        assert doc["slo_ms"] == 20.0  # default: 10 × flush_ms
+        win = doc["shed_window"]
+        assert win["offered"] >= 1 and win["shed"] == 0
+        assert win["shed_rate"] == 0.0 and win["window_s"] > 0
+    finally:
+        srv.stop()
+
+
+def test_shed_window_rate_rises_and_tumbles():
+    win = online._ShedWindow(interval_s=10.0)
+    now = 1000.0
+    for _ in range(8):
+        win.note(shed=False, now=now)
+    for _ in range(2):
+        win.note(shed=True, now=now)
+    snap = win.snapshot(now=now)
+    assert snap["offered"] == 10 and snap["shed"] == 2
+    assert snap["shed_rate"] == 0.2
+    assert win.snapshot(now=now + 10.0)["offered"] == 10
+    snap = win.snapshot(now=now + 20.0)
+    assert snap["offered"] == 0 and snap["shed_rate"] == 0.0
+
+
+def test_remove_tenant_evicts_metric_series(online_export):
+    from tensorflowonspark_torch import obs
+
+    srv = _online_server(online_export, tenants=("a", "b"))
+    try:
+        srv.submit("a", {"features": _online_rows(1)}, timeout=30.0)
+        text = obs.get_registry().to_prometheus()
+        assert 'online_tenant_requests_total{tenant="a"}' in text
+        srv.remove_tenant("a")
+        text = obs.get_registry().to_prometheus()
+        assert 'online_tenant_requests_total{tenant="a"}' not in text
+        with pytest.raises(KeyError):
+            srv.submit("a", {"features": _online_rows(1)})
+        assert "score" in srv.submit("b", {"features": _online_rows(1)},
+                                     timeout=30.0)
+    finally:
+        srv.stop()
+
+
+def test_legacy_name_mangled_series_never_published(online_export):
+    from tensorflowonspark_torch import obs
+
+    srv = _online_server(online_export, tenants=("gone",))
+    try:
+        srv.submit("gone", {"features": _online_rows(1)}, timeout=30.0)
+        text = obs.get_registry().to_prometheus()
+        assert 'online_tenant_requests_total{tenant="gone"}' in text
+        for legacy in ("online_requests_gone_total", "online_shed_gone_total",
+                       "online_request_seconds_gone"):
+            assert legacy not in text
+        srv.remove_tenant("gone")
+        assert 'tenant="gone"' not in obs.get_registry().to_prometheus()
+    finally:
+        srv.stop()
+
+
+def test_stats_admission_block_aggregates_tenants(online_export):
+    srv = _online_server(online_export, tenants=("a", "b"),
+                         max_pending_mb=1.0)
+    try:
+        srv.submit("a", {"features": _online_rows(2)}, timeout=30.0)
+        srv.submit("b", {"features": _online_rows(1)}, timeout=30.0)
+        doc = srv.stats()
+        adm, tenants = doc["admission"], doc["tenants"].values()
+        assert adm["admission_schema"] == 1
+        for k in ("max_pending_bytes", "pending_bytes", "pending_rows"):
+            assert adm[k] == sum(t[k] for t in tenants)
+        w = adm["shed_window"]
+        assert w["offered"] == sum(t["shed_window"]["offered"]
+                                   for t in tenants)
+        assert w["offered"] >= 2 and w["shed"] == 0 and w["shed_rate"] == 0
+        assert adm["saturation"] == pytest.approx(
+            adm["pending_bytes"] / adm["max_pending_bytes"], abs=1e-4)
+        assert doc["uptime_s"] is not None and doc["uptime_s"] >= 0.0
+    finally:
+        srv.stop()
+
+
+def test_timeout_commit_not_double_counted_by_late_reply(online_export,
+                                                         monkeypatch):
+    from tensorflowonspark_torch.obs import trace as trace_lib
+
+    monkeypatch.setenv("TFOS_TRACE_SAMPLE", "0")
+    monkeypatch.setenv("TFOS_TRACE_ARM", "1")
+    store = trace_lib.get_trace_store()
+    store.clear()
+    gate = threading.Event()
+    srv = _online_server(online_export, predict_fn=_gated(gate),
+                         flush_ms=1.0, warmup=False, slo_ms=60_000.0)
+    try:
+        with pytest.raises(TimeoutError):
+            srv.submit("a", {"features": _online_rows(1)}, timeout=0.3)
+        gate.set()
+        deadline = time.perf_counter() + 30.0
+        while store.committed < 1 and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        # the late reply's bookkeeping: wait for the batch to be answered
+        deadline = time.perf_counter() + 30.0
+        while srv._inflight and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        time.sleep(0.05)
+        assert store.committed == 1
+        retained = store.recent()
+        assert len(retained) == 1 and retained[0]["status"] == "timeout"
+    finally:
+        gate.set()
+        srv.stop()
+        store.clear()
+
+
+def test_healthz_surfaces_compile_cache_state(online_export):
+    """The reference's ``test_shapes.py`` case: ``/healthz`` carries the
+    ``compile_cache`` block (the store's state, the signature counters,
+    ``warm_ratio``), JSON-able."""
+    srv = online.OnlineServer()
+    try:
+        cc = srv.stats()["compile_cache"]
+        for k in ("enabled", "dir", "namespace", "disk_hits",
+                  "disk_writes", "compiles_total", "in_process_hits",
+                  "true_misses", "warm_ratio", "warmed"):
+            assert k in cc, k
+        json.dumps(srv.stats())
+    finally:
+        srv.stop()
+
+
+def _closed_loop(submit, n, clients=4):
+    """``submit(j)`` for rows 0..n-1 from ``clients`` threads, each sending
+    its rows one at a time: the replies by row."""
+    replies, errors = {}, []
+
+    def client(c):
+        for j in range(c, n, clients):
+            try:
+                replies[j] = submit(j)
+            except Exception as e:  # surfaced below
+                errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors, errors
+    return replies
+
+
+def test_online_replies_match_the_jax_online_tier(tmp_path, monkeypatch):
+    """The slice end to end on the CPU: the JAX package's tiny GroupNorm
+    ResNet and tiny wide&deep, exported by its ``Trainer``; the same
+    weights carried into the port (``params_from_flax``) and exported by
+    the port; both served as two tenants, warmed on load, by the
+    reference's ``OnlineServer`` and the port's, to the same seeded
+    single-row requests from concurrent clients.  Every reply agrees
+    within the f32 tolerance of the TFModel parity test above (rtol and
+    atol 1e-5)."""
+    import dataclasses
+
+    from tensorflowonspark_torch import saved_model
+    from tensorflowonspark_torch.models import widedeep as port_wd
+    from tensorflowonspark_tpu import ckpt as jax_ckpt
+    from tensorflowonspark_tpu.models import widedeep as ref_wd
+    from tensorflowonspark_tpu.trainer import Trainer as JaxTrainer
+
+    monkeypatch.setenv(util.DEVICE_ENV, "cpu")
+    rcfg, wcfg = ref.Config.tiny(), ref_wd.Config.tiny()
+    exports = {}
+    jr = JaxTrainer("resnet50", config=rcfg, seed=0)
+    jw = JaxTrainer("wide_deep", config=wcfg, seed=0)
+    jw.step(ref_wd.example_batch(wcfg, 16))  # tables off their init
+    for name, jt, lib, plib in (("resnet", jr, ref, port),
+                                ("ctr", jw, ref_wd, port_wd)):
+        jd, pd = str(tmp_path / f"jax_{name}"), str(tmp_path / f"port_{name}")
+        jt.export(jd)
+        st = jax_ckpt.load_pytree(os.path.join(jd, "model"))
+        pcfg = plib.Config(**dataclasses.asdict(jt.config))
+        state = (plib.params_from_flax(st["params"]) if name == "resnet"
+                 else plib.params_from_flax(st["params"], st["collections"]))
+        compat.export_saved_model(
+            state, pd, forward_fn=saved_model.wrap_state_forward(
+                plib.serving_forward, plib.make_serving_model(pcfg)),
+            example_batch={k: v for k, v in plib.example_batch(
+                pcfg, 2).items() if k != "label"})
+        exports[name] = (jd, pd)
+    tenants = {"resnet": dict(input_mapping={"image": "image"},
+                              batch_size=8, bucket_sizes=[4, 8]),
+               "ctr": dict(input_mapping={"dense": "dense", "cat": "cat"},
+                           batch_size=8, bucket_sizes=[4, 8], flush_ms=5.0)}
+    rows = {"resnet": {"image": _images(12, seed=9)},
+            "ctr": {k: v for k, v in ref_wd.example_batch(
+                wcfg, 16, seed=9).items() if k != "label"}}
+    replies = {}
+    for side, mod in (("jax", ref_online), ("port", online)):
+        srv = mod.OnlineServer()
+        for name, kw in tenants.items():
+            srv.add_tenant(name, export_dir=exports[name][side == "port"],
+                           **kw)
+        srv.start()
+        try:
+            for name, cols in rows.items():
+                n = len(next(iter(cols.values())))
+                replies[(side, name)] = _closed_loop(
+                    lambda j, name=name, cols=cols, srv=srv: srv.submit(
+                        name, {k: v[j:j + 1] for k, v in cols.items()},
+                        timeout=60.0), n)
+        finally:
+            srv.stop()
+    for name in rows:
+        got, want = replies[("port", name)], replies[("jax", name)]
+        assert sorted(got) == sorted(want)
+        for j in want:
+            assert sorted(got[j]) == sorted(want[j])
+            for col in want[j]:
+                np.testing.assert_allclose(
+                    np.asarray(got[j][col], np.float32),
+                    np.asarray(want[j][col], np.float32),
+                    rtol=1e-5, atol=1e-5, err_msg=f"{name} row {j}")
+
+
+# -- serving.note_rows and cache_health (reference tests/test_serving.py) ---
+
+
+def test_note_rows_derives_padding_waste_ratio_gauge():
+    from tensorflowonspark_torch import obs
+
+    serving.note_rows(24, 32)
+    rows = obs.counter("serving_rows_total").value
+    padded = obs.counter("serving_padded_rows_total").value
+    gauge = obs.gauge("serving_padding_waste_ratio").value
+    assert gauge == pytest.approx(padded / (rows + padded))
+    serving.note_rows(32, 32)  # a full batch moves the ratio down
+    assert obs.gauge("serving_padding_waste_ratio").value < gauge
+
+
+def test_padding_waste_warning_fires_once_over_threshold(monkeypatch):
+    from tensorflowonspark_torch import obs
+
+    monkeypatch.setattr(serving, "_PAD_WASTE_WARNED", False)
+    monkeypatch.setenv("TFOS_SERVING_PAD_WASTE_WARN", "0.000001")
+    tracer = obs.get_tracer()
+
+    def fired():
+        return sum(1 for e in tracer.snapshot()
+                   if e["name"] == "serving.padding_waste")
+
+    before = fired()
+    serving.note_rows(1, serving._PAD_WARN_MIN_ROWS)
+    serving.note_rows(1, serving._PAD_WARN_MIN_ROWS)
+    assert fired() == before + 1 and serving._PAD_WASTE_WARNED is True
+    attrs = [e for e in tracer.snapshot()
+             if e["name"] == "serving.padding_waste"][-1]["attrs"]
+    assert attrs["ratio"] > 0
+    assert {"threshold", "rows", "padded"} <= set(attrs)
+    serving.note_rows(1, serving._PAD_WARN_MIN_ROWS)
+    assert fired() == before + 1  # warned once
+
+
+def test_padding_waste_warning_respects_min_volume(monkeypatch):
+    from tensorflowonspark_torch import obs
+
+    monkeypatch.setattr(serving, "_PAD_WASTE_WARNED", False)
+    monkeypatch.setenv("TFOS_SERVING_PAD_WASTE_WARN", "0.000001")
+    monkeypatch.setattr(serving, "_PAD_WARN_MIN_ROWS", 10**12)
+    tracer = obs.get_tracer()
+    before = sum(1 for e in tracer.snapshot()
+                 if e["name"] == "serving.padding_waste")
+    serving.note_rows(1, 64)
+    assert sum(1 for e in tracer.snapshot()
+               if e["name"] == "serving.padding_waste") == before
+    assert serving._PAD_WASTE_WARNED is False
+
+
+def test_cache_health_counts_warmed_hits_and_true_misses():
+    """``warm_ratio`` = (hits + warmed) / (hits + warmed + true misses):
+    a signature a warmup met (captured on the card) is warm; one a
+    request met first is a true miss, settled by the first call's timing
+    (or the thread's next ``note_compile`` when it was never timed)."""
+    key = ("cache_health_test", object())
+    before = serving.cache_health()
+    a = {"x": np.zeros((4, 3), np.float32)}
+    b = {"x": np.zeros((8, 3), np.float32)}
+    assert serving.note_compile(key, a, warm=True)
+    serving.observe_compile_seconds(0.01)
+    assert not serving.note_compile(key, a)  # a hit
+    assert serving.note_compile(key, b)  # met by a request
+    serving.observe_compile_seconds(0.02)
+    c = {"x": np.zeros((2, 3), np.float32)}
+    assert serving.note_compile(key, c)  # never timed: settles below
+    assert not serving.note_compile(key, a)
+    after = serving.cache_health()
+    serving.forget(key)
+    delta = {k: after[k] - before[k] for k in (
+        "compiles_total", "in_process_hits", "warmed", "true_misses")}
+    assert delta == {"compiles_total": 3, "in_process_hits": 2,
+                     "warmed": 1, "true_misses": 2}
+    warm = after["in_process_hits"] + after["warmed"]
+    assert after["warm_ratio"] == round(warm / (warm + after["true_misses"]),
+                                        4)
+    json.dumps(after)
+
+
+# -- the serving health probe (reference pipeline.py:903-944) ---------------
+
+
+@pytest.mark.parametrize("device,env,want", [
+    ("cpu", None, False), ("cuda", None, True),
+    ("cpu", "1", True), ("cuda", "0", False),
+    ("cuda", "false", False), ("cpu", "yes", True)])
+def test_should_probe_serving(monkeypatch, device, env, want):
+    if env is None:
+        monkeypatch.delenv("TFOS_HEALTH_PROBE", raising=False)
+    else:
+        monkeypatch.setenv("TFOS_HEALTH_PROBE", env)
+    assert health.should_probe_serving(device) is want
+
+
+@pytest.fixture()
+def fresh_probe_memo(monkeypatch):
+    monkeypatch.setattr(pipeline, "_SERVING_PROBED", False)
+    monkeypatch.setattr(pipeline, "_SERVING_PROBE_ERROR", None)
+    monkeypatch.setenv(util.DEVICE_ENV, "cpu")
+
+
+def test_failing_probe_is_memoized_and_raised_on_every_call(
+        monkeypatch, fresh_probe_memo):
+    calls = []
+
+    def probe(timeout_s):
+        # the memo is set only after the probe returns
+        calls.append(pipeline._SERVING_PROBED)
+        return "device health probe hung for 1s (card wedged?)"
+
+    monkeypatch.setattr(health, "probe_chip_health", probe)
+    monkeypatch.setenv("TFOS_HEALTH_PROBE", "1")
+    for _ in range(3):
+        with pytest.raises(RuntimeError, match="wedged"):
+            pipeline.single_node_env()
+    assert calls == [False]
+
+
+def test_probe_that_raises_is_memoized_like_a_failed_verdict(
+        monkeypatch, fresh_probe_memo):
+    calls = []
+
+    def probe(timeout_s):
+        calls.append(timeout_s)
+        raise OSError("spawn failed")
+
+    monkeypatch.setattr(health, "probe_chip_health", probe)
+    monkeypatch.setenv("TFOS_HEALTH_PROBE", "1")
+    monkeypatch.setenv("TFOS_HEALTH_PROBE_TIMEOUT_S", "7.5")
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="raised unexpectedly"):
+            pipeline.single_node_env()
+    assert calls == [7.5]
+
+
+def test_healthy_probe_runs_once_and_cpu_probes_nothing(
+        monkeypatch, fresh_probe_memo):
+    calls = []
+    monkeypatch.setattr(health, "probe_chip_health",
+                        lambda timeout_s: calls.append(1))
+    monkeypatch.delenv("TFOS_HEALTH_PROBE", raising=False)
+    assert pipeline.single_node_env() == torch.device("cpu")
+    assert calls == [] and pipeline._SERVING_PROBED is False
+    monkeypatch.setenv("TFOS_HEALTH_PROBE", "1")
+    for _ in range(3):
+        assert pipeline.single_node_env() == torch.device("cpu")
+    assert calls == [1] and pipeline._SERVING_PROBED is True
+
+
+def test_serving_probe_runs_the_real_watchdogged_child(
+        monkeypatch, fresh_probe_memo):
+    """Forced on the CPU, the real probe (a fresh child's numpy matmul)
+    passes once and is not run again."""
+    monkeypatch.setenv("TFOS_HEALTH_PROBE", "1")
+    assert pipeline.single_node_env() == torch.device("cpu")
+    assert pipeline._SERVING_PROBED and pipeline._SERVING_PROBE_ERROR is None
+
+
+# -- the captured serving forward's host side --------------------------------
+
+
+class StandInForwardGraphs:
+    """``CapturedForward``'s graph backend on the CPU: CPU tensors count as
+    the card's; a capture runs the forward once and keeps its outputs as
+    the static outputs; a replay reruns it on the static inputs and
+    overwrites the static outputs in place, as a CUDA graph replay does.
+    ``pools_of_captures`` records the pool each capture went into."""
+
+    def __init__(self):
+        self.pools = 0
+        self.pools_of_captures = []
+
+    def reset(self):
+        self.pools += 1
+
+    @staticmethod
+    def device_leaf(leaf):
+        return isinstance(leaf, torch.Tensor)
+
+    def applies(self, batch):
+        return any(isinstance(t, torch.Tensor)
+                   for t in shapes.leaves(batch))
+
+    def capture(self, fn):
+        self.pools_of_captures.append(self.pools)
+        out = fn()
+        return {"fn": fn, "out": out}, out
+
+    @staticmethod
+    def replay(graph):
+        new = graph["fn"]()
+        with torch.inference_mode():
+            for dst, src in zip(shapes.leaves(graph["out"]),
+                                shapes.leaves(new)):
+                if isinstance(dst, torch.Tensor):
+                    dst.copy_(src)
+
+
+def _doubling(params, batch):
+    return {"y": batch["x"] * params["scale"]}
+
+
+def test_captured_forward_eager_then_capture_then_replay():
+    graphs = StandInForwardGraphs()
+    fwd = port_train.CapturedForward(_doubling, {"scale": 2.0},
+                                     graphs=graphs)
+    xs = [torch.full((4, 3), float(i)) for i in range(4)]
+    actions = []
+    replayed0 = port_train.replayed_forwards
+    for x in xs:
+        out = fwd({"x": x}, take=fwd.hold)
+        actions.append(fwd.last)
+        assert torch.equal(out["y"], x * 2.0)
+    assert actions == ["eager", "capture", "replay", "replay"]
+    assert (fwd.captures, fwd.replays, fwd.eager_calls) == (1, 3, 1)
+    assert port_train.replayed_forwards - replayed0 == 2
+    # another signature starts over, and is captured in a pool of its own
+    fwd({"x": torch.ones(2, 3)})
+    assert fwd.last == "eager"
+    fwd({"x": torch.ones(2, 3)})
+    assert fwd.last == "capture"
+    assert len(set(graphs.pools_of_captures)) == 2
+    # warm captures at once; a CPU-only backend runs the forward as it is
+    warm = port_train.CapturedForward(_doubling, {"scale": 2.0},
+                                      graphs=StandInForwardGraphs())
+    assert torch.equal(warm.warm({"x": xs[1]})["y"], xs[1] * 2.0)
+    assert warm.last == "capture" and warm.eager_calls == 1
+    assert warm.graph_of({"x": xs[2]}) is not None
+    assert len(warm.capture_seconds) == 1
+    cpu = port_train.CapturedForward(_doubling, {"scale": 2.0})
+    cpu({"x": xs[1]})
+    cpu({"x": xs[1]})
+    assert cpu.last == "cpu" and cpu.captures == 0
+    bad = port_train.CapturedForward(_doubling, {"scale": 2.0},
+                                     graphs=StandInForwardGraphs())
+    with pytest.raises(TypeError, match="on the card"):
+        bad._capture(("sig",), bad._state, {"x": np.zeros(2)})
+
+
+def test_a_replay_hands_back_its_static_outputs_and_take_copies_them():
+    """Without ``take`` a replay's outputs are the graph's static ones,
+    which the next replay overwrites; ``take`` runs on them before another
+    call can replay (``hold`` copies, ``serving.to_host`` reads them to
+    the host)."""
+    fwd = port_train.CapturedForward(_doubling, {"scale": 3.0},
+                                     graphs=StandInForwardGraphs())
+    fwd.warm({"x": torch.zeros(4, 3)})
+    static = fwd({"x": torch.ones(4, 3)})
+    held = fwd({"x": torch.full((4, 3), 2.0)}, take=fwd.hold)
+    host = fwd({"x": torch.full((4, 3), 5.0)}, take=serving.to_host)
+    assert torch.equal(static["y"], torch.full((4, 3), 15.0))  # overwritten
+    assert torch.equal(held["y"], torch.full((4, 3), 6.0))
+    assert isinstance(host["y"], np.ndarray)
+    np.testing.assert_array_equal(host["y"], np.full((4, 3), 15.0))
+
+
+def test_a_predict_fn_runs_eagerly_on_every_call():
+    """A user's ``predict_fn`` is never captured (the reference runs it as
+    given): where graphs apply, each call still runs it, so host logic in
+    it sees every batch."""
+    calls = []
+
+    def counting(params, batch):
+        calls.append(int(batch["x"].shape[0]))
+        return _doubling(params, batch)
+
+    graphs = StandInForwardGraphs()
+    fwd = port_train.CapturedForward(counting, {"scale": 2.0},
+                                     graphs=graphs, capture=False)
+    fwd.warm({"x": torch.zeros(4, 3)})
+    for i in range(4):
+        out = fwd({"x": torch.full((4, 3), float(i))})
+        assert torch.equal(out["y"], torch.full((4, 3), 2.0 * i))
+    assert calls == [4] * 5
+    assert (fwd.captures, fwd.replays, fwd.eager_calls) == (0, 0, 5)
+    assert graphs.pools_of_captures == [] and fwd.last == "eager"
+
+
+def _run_model_on_stand_in(tmp_path, monkeypatch, n=40, hold=None):
+    """``_RunModel`` over ``n`` rows of a tiny zoo MLP's export (a forward
+    the port owns, so it is captured) at batch 8, its forward a
+    ``CapturedForward`` over the stand-in graphs (so every batch after the
+    second replays): the emitted logits, each row's own logits from the
+    eager forward, and the captured forward."""
+    from tensorflowonspark_torch.models import mnist
+
+    monkeypatch.setenv(util.DEVICE_ENV, "cpu")
+    monkeypatch.setenv("TFOS_SERVING_PREFETCH", "2")
+    config = mnist.Config.tiny()
+    d = str(tmp_path / "mlp")
+    compat.export_saved_model(
+        mnist.state_of(mnist.make_model(config, seed=3)), d)
+    run = pipeline._RunModel(d, "mnist_mlp", None, 8, {"image": "image"},
+                             None, ["image"], bucket_sizes=[8])
+    fn, params = run._load()
+    serving.forget(run._cache_key)
+    fwd = serving.captured(run._cache_key, fn, params,
+                           graphs=StandInForwardGraphs())
+    if hold is not None:
+        monkeypatch.setattr(port_train.CapturedForward, "hold",
+                            staticmethod(hold))
+    x = np.random.RandomState(21).rand(
+        n, config.image_size ** 2).astype(np.float32)
+    out = list(run(iter([{"image": x[i]} for i in range(n)])))
+    serving.forget(run._cache_key)
+    want = fn(params, {"image": torch.as_tensor(x)}).numpy()
+    return np.array([r.prediction for r in out]), want, fwd
+
+
+def test_one_batch_behind_emit_keeps_each_batchs_rows(tmp_path,
+                                                      monkeypatch):
+    """The emit runs one batch behind the forward, and a replay overwrites
+    the static outputs: the rows of batch N must survive batch N+1's
+    replay.  Against the stand-in graphs every row's logits are its own;
+    with the copy out planted away (``hold`` handing back the static
+    outputs) batch N emits batch N+1's rows."""
+    got, want, fwd = _run_model_on_stand_in(tmp_path, monkeypatch)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    assert fwd.replays >= 3 and fwd.last == "replay"
+    bad, want, _ = _run_model_on_stand_in(tmp_path, monkeypatch,
+                                          hold=lambda outputs: outputs)
+    assert not np.allclose(bad, want, rtol=1e-6, atol=1e-6)
+    # batch 3 (a replay) was read after batch 4's replay: its rows are 4's
+    np.testing.assert_allclose(bad[16:24], want[24:32], rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_run_model_books_the_serve_flight_plane_and_ledger(tmp_path,
+                                                           monkeypatch):
+    from tensorflowonspark_torch.obs import ledger as ledger_mod
+
+    rec = port_flight.recorder("serve")
+    before = rec.batches
+    led = ledger_mod.get_ledger()
+    _run_model_on_stand_in(tmp_path, monkeypatch, n=24)
+    assert rec.batches - before >= 2
+    snap = rec.snapshot()
+    assert {"wait", "compute", "emit"} <= set(snap["stages_s"])
+    assert {"ingest", "pad", "stage"} <= set(snap["overlapped_stages_s"])
+    assert "mnist_mlp" in json.dumps(led.summary())
+
+
+def test_a_request_time_bucket_is_captured_at_its_second_sighting(
+        tmp_path, monkeypatch):
+    """A bucket no warmup met: its first batch runs eagerly (a true miss,
+    counted once through note_compile), its second is captured, the rest
+    replay; compiles equal signatures."""
+    from tensorflowonspark_torch import obs
+
+    compiles = obs.counter("serving_compiles_total")
+    misses = obs.counter("serving_compile_cache_misses_total")
+    c0, m0 = compiles.value, misses.value
+    got, want, fwd = _run_model_on_stand_in(tmp_path, monkeypatch, n=32)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    assert (fwd.eager_calls, fwd.captures, fwd.replays) == (1, 1, 3)
+    assert compiles.value - c0 == 1 and misses.value - m0 == 1
+
+
+def test_run_model_serves_a_predict_fn_eagerly(tmp_path, monkeypatch):
+    """Through ``_RunModel`` a ``predict_fn``'s forward is not captured
+    (``_RunModel.captured``), even where graphs would apply: every batch
+    calls it."""
+    monkeypatch.setenv(util.DEVICE_ENV, "cpu")
+    d = str(tmp_path / "toy")
+    compat.export_saved_model({"params": {"w": ONLINE_W}}, d)
+    batches = []
+
+    def predict(p, b):
+        batches.append(int(b["features"].shape[0]))
+        return _online_predict(p, b)
+
+    run = pipeline._RunModel(d, None, predict, 8, {"features": "features"},
+                             None, ["features"], bucket_sizes=[8])
+    fn, params = run._load()
+    assert not run.captured().capture
+    serving.forget(run._cache_key)
+    fwd = serving.captured(run._cache_key, fn, params,
+                           graphs=StandInForwardGraphs(), capture=False)
+    x = _online_rows(40, seed=4)
+    out = list(run(iter([{"features": x[i]} for i in range(40)])))
+    serving.forget(run._cache_key)
+    np.testing.assert_allclose([r.score for r in out], x @ ONLINE_W,
+                               rtol=1e-6)
+    assert batches == [8] * 5
+    assert (fwd.captures, fwd.replays, fwd.eager_calls) == (0, 0, 5)
+
+
+def test_warm_buckets_captures_every_bucket(tmp_path, monkeypatch):
+    monkeypatch.setenv(util.DEVICE_ENV, "cpu")
+    key = ("warm_buckets_test", object())
+    params = {"scale": 2.0}
+    fwd = serving.captured(key, _doubling, params,
+                           graphs=StandInForwardGraphs())
+    specs = {"x": ((3,), np.float32)}
+    serving.warm_buckets(fwd, specs, (2, 4), key, torch.device("cpu"))
+    assert fwd.captures == 2 and fwd.eager_calls == 2
+    assert serving._SEEN_SHAPES[key] == set(
+        shapes.enumerate_signatures(specs, (2, 4)))
+    assert serving.captured(key, _doubling, params) is fwd
+    # new params under the key (a re-export) make a new captured forward
+    assert serving.captured(key, _doubling, {"scale": 2.0}) is not fwd
+    serving.forget(key)
+    assert key not in serving._CAPTURED and key not in serving._SEEN_SHAPES

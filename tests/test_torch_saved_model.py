@@ -718,3 +718,206 @@ def test_signature_json_is_plain_json(tmp_path):
     _export_toy(d)
     with open(os.path.join(d, "saved_forward", "signature.json")) as f:
         assert json.load(f)["format"] == saved_model.FORMAT
+
+
+# ---------------------------------------------------------------------------
+# infer_embed, the in-process endpoint of the C-ABI shim (ports of the
+# reference's tests/test_saved_model.py cases, their names kept), and its
+# parity with the JAX package's on the same weights
+# ---------------------------------------------------------------------------
+
+
+def test_infer_embed_serves_self_describing_export(tmp_path):
+    from tensorflowonspark_torch import infer_embed
+
+    fwd, state = _toy_forward(), _toy_state()
+    d = str(tmp_path / "exp")
+    _export_toy(d)
+    h = infer_embed.load(d)  # note: NO model_name
+    try:
+        assert infer_embed.input_names(h) == "x"
+        x = np.random.RandomState(1).randn(6, 5).astype(np.float32)
+        infer_embed.set_input(h, "x", x.tobytes(), (6, 5), 0)
+        infer_embed.run(h)
+        assert infer_embed.output_shape(h) == (6,)
+        got = np.frombuffer(infer_embed.get_output(h), np.float32)
+        np.testing.assert_allclose(got, _expect(fwd, state, x)["score"],
+                                   atol=1e-6)
+        # every named output, the signature's declared order first
+        names = [infer_embed.output_name(h, i)
+                 for i in range(infer_embed.output_count(h))]
+        assert sorted(names) == ["hidden", "score"]
+        assert infer_embed.output_shape(h, "hidden") == (6, 3)
+        np.testing.assert_allclose(
+            np.frombuffer(infer_embed.get_output(h, "hidden"),
+                          np.float32).reshape(6, 3),
+            _expect(fwd, state, x)["hidden"], atol=1e-6)
+        with pytest.raises(KeyError, match="unknown output"):
+            infer_embed.get_output(h, "nope")
+        with pytest.raises(IndexError):
+            infer_embed.output_name(h, 5)
+        with pytest.raises(KeyError, match="unknown input"):
+            infer_embed.set_input(h, "y", x.tobytes(), (6, 5), 0)
+        with pytest.raises(ValueError, match="not set before run"):
+            infer_embed.run(h)
+    finally:
+        infer_embed.close(h)
+
+
+def test_infer_embed_buckets_drifting_batch_sizes(tmp_path, monkeypatch):
+    from tensorflowonspark_torch import infer_embed, serving
+
+    monkeypatch.delenv("TFOS_INFER_BUCKETS", raising=False)
+    fwd, state = _toy_forward(), _toy_state()
+    d = str(tmp_path / "exp")
+    _export_toy(d)
+    h = infer_embed.load(d)
+    rng = np.random.RandomState(7)
+    try:
+        for n in (3, 5, 6, 7, 9, 11, 13):  # 7 distinct sizes
+            x = rng.randn(n, 5).astype(np.float32)
+            infer_embed.set_input(h, "x", x.tobytes(), (n, 5), 0)
+            infer_embed.run(h)
+            assert infer_embed.output_shape(h) == (n,)  # sliced, not padded
+            got = np.frombuffer(infer_embed.get_output(h), np.float32)
+            np.testing.assert_allclose(got, _expect(fwd, state, x)["score"],
+                                       atol=1e-6)
+        # the first TWO distinct sizes (3, 5) run at their true shape, the
+        # per-example evidence; then everything pads to 8 and 16
+        assert len(serving._SEEN_SHAPES[("infer_embed", h)]) == 4
+    finally:
+        infer_embed.close(h)
+    assert ("infer_embed", h) not in serving._SEEN_SHAPES
+
+
+def test_infer_embed_never_pads_aggregating_forward(tmp_path, monkeypatch):
+    from tensorflowonspark_torch import infer_embed
+
+    monkeypatch.delenv("TFOS_INFER_BUCKETS", raising=False)
+
+    def fwd(state, batch):
+        # a mean over the batch axis: zero padding rows would skew it
+        return {"pooled": torch.tanh(batch["x"] @ state["params"]["w"]
+                                     ).mean(dim=0)}
+
+    state = _toy_state()  # w: (5, 3) → pooled dim 3
+    d = str(tmp_path / "exp")
+    compat.export_saved_model(state, d, forward_fn=fwd,
+                              example_batch={"x": np.zeros((2, 5),
+                                                           np.float32)})
+    h = infer_embed.load(d)
+    rng = np.random.RandomState(11)
+    w = torch.from_numpy(state["params"]["w"])
+    try:
+        # n=3 first: the pooled dim equals the batch size (one
+        # coincidence must not enable padding); n=5 disables it
+        for n in (3, 5, 4):
+            x = rng.randn(n, 5).astype(np.float32)
+            infer_embed.set_input(h, "x", x.tobytes(), (n, 5), 0)
+            infer_embed.run(h)
+            assert infer_embed.output_shape(h) == (3,)
+            got = np.frombuffer(infer_embed.get_output(h), np.float32)
+            want = torch.tanh(torch.from_numpy(x) @ w).mean(dim=0).numpy()
+            np.testing.assert_allclose(got, want, atol=1e-6)
+    finally:
+        infer_embed.close(h)
+
+
+def test_infer_embed_bucketing_opt_out(tmp_path, monkeypatch):
+    from tensorflowonspark_torch import infer_embed, serving
+
+    monkeypatch.setenv("TFOS_INFER_BUCKETS", "0")
+    fwd, state = _toy_forward(), _toy_state()
+    d = str(tmp_path / "exp")
+    _export_toy(d)
+    h = infer_embed.load(d)
+    try:
+        x = np.random.RandomState(1).randn(3, 5).astype(np.float32)
+        infer_embed.set_input(h, "x", x.tobytes(), (3, 5), 0)
+        infer_embed.run(h)
+        assert infer_embed.output_shape(h) == (3,)
+        got = np.frombuffer(infer_embed.get_output(h), np.float32)
+        np.testing.assert_allclose(got, _expect(fwd, state, x)["score"],
+                                   atol=1e-6)
+        assert ("infer_embed", h) not in serving._SEEN_SHAPES
+    finally:
+        infer_embed.close(h)
+
+
+def test_infer_embed_weights_only_needs_model_name(tmp_path):
+    from tensorflowonspark_torch import infer_embed
+
+    d = str(tmp_path / "exp")
+    compat.export_saved_model(_toy_state(), d)
+    with pytest.raises(ValueError, match="weights-only"):
+        infer_embed.load(d)
+
+
+def test_infer_embed_weights_only_serves_by_model_name(tmp_path):
+    """A weights-only zoo export and ``model_name``: the zoo's forward at
+    the config the weights imply, its input names from the zoo's example
+    batch, the f32 output contract."""
+    from tensorflowonspark_torch import infer_embed
+
+    config = widedeep.Config.tiny()
+    model = widedeep.make_model(config, seed=3)
+    d = str(tmp_path / "exp")
+    compat.export_saved_model(widedeep.state_of(model), d)
+    h = infer_embed.load(d, "wide_deep")
+    try:
+        assert infer_embed.input_names(h) == "dense,cat"
+        batch = widedeep.example_batch(config, 5, seed=2)
+        for name, code in (("dense", 0), ("cat", 1)):
+            infer_embed.set_input(h, name, batch[name].tobytes(),
+                                  batch[name].shape, code)
+        infer_embed.run(h)
+        got = np.frombuffer(infer_embed.get_output(h), np.float32)
+        with torch.no_grad():
+            want = widedeep.serving_forward(model.eval(), {
+                k: torch.from_numpy(v) for k, v in batch.items()}).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-6)
+    finally:
+        infer_embed.close(h)
+
+
+def test_infer_embed_matches_the_jax_packages_infer_embed(tmp_path,
+                                                          monkeypatch):
+    """The JAX package's tiny GroupNorm ResNet (f32), exported by its
+    ``Trainer``; the same weights exported by the port: both packages'
+    ``infer_embed`` score the same seeded rows at drifting batch sizes
+    (their bucketing included) within the f32 tolerance of the TFModel
+    parity test (rtol and atol 1e-5)."""
+    from tensorflowonspark_torch import infer_embed
+    from tensorflowonspark_tpu import ckpt as jax_ckpt
+    from tensorflowonspark_tpu import infer_embed as ref_embed
+    from tensorflowonspark_tpu.models import resnet as ref
+    from tensorflowonspark_tpu.trainer import Trainer as JaxTrainer
+
+    monkeypatch.delenv("TFOS_INFER_BUCKETS", raising=False)
+    config = ref.Config.tiny()
+    jd, pd = str(tmp_path / "jax"), str(tmp_path / "port")
+    JaxTrainer("resnet50", config=config, seed=0).export(jd)
+    jax_state = jax_ckpt.load_pytree(os.path.join(jd, "model"))
+    port_config = resnet.Config(**dataclasses.asdict(config))
+    compat.export_saved_model(
+        resnet.params_from_flax(jax_state["params"]), pd,
+        forward_fn=saved_model.wrap_state_forward(
+            resnet.serving_forward, resnet.make_serving_model(port_config)),
+        example_batch={"image": np.zeros((2, 16, 16, 3), np.float32)})
+    hj, hp = ref_embed.load(jd), infer_embed.load(pd)
+    rng = np.random.RandomState(13)
+    try:
+        assert ref_embed.input_names(hj) == infer_embed.input_names(hp)
+        for n in (1, 3, 5, 6):
+            x = rng.rand(n, 16, 16, 3).astype(np.float32)
+            outs = []
+            for mod, h in ((ref_embed, hj), (infer_embed, hp)):
+                mod.set_input(h, "image", x.tobytes(), x.shape, 0)
+                mod.run(h)
+                assert mod.output_shape(h) == (n, 10)
+                outs.append(np.frombuffer(mod.get_output(h), np.float32))
+            np.testing.assert_allclose(outs[1], outs[0], rtol=1e-5,
+                                       atol=1e-5, err_msg=f"{n} rows")
+    finally:
+        ref_embed.close(hj)
+        infer_embed.close(hp)
